@@ -1,0 +1,335 @@
+#!/usr/bin/env python3
+"""Run the PyTorch/CUDA port's reconstruction path once on one GPU and check it.
+
+    python3 chip_smoke.py
+
+Phases, each on lines of its own; any failed check raises, and the script
+then exits non-zero and prints no result:
+
+  1. device   the card's name and power limit (nvidia-smi), the torch and CUDA
+              versions, and the two TF32 flags (both off: true float32)
+  2. build    compile every kernel of the path from kernels/csrc with nvcc
+  3. kernels  each kernel against its plain PyTorch version on the card, at
+              the main path's shapes (batch 1 and 4), with its time, the plain
+              version's, the PyTorch library call's, and its bound
+  4. main     the headline config (configs/basic/example.yaml: 5 unrolls x 2
+              resblocks x 64 features, float32, seeded torch-default weights)
+              on 4 synthetic 20x180x64 slices with 8 coils and 2 maps, through
+              ResampleTransform(12) and Reconstructor on cuda, at batch 1 and
+              batch 4; the kernel launches are counted, one slice's device
+              time is split by kernel group (torch.profiler), and one slice
+              is held against the port's own CPU path
+  5. result   one JSON line of kernels, then the last line
+              {"ok": true, "device": {...}}
+
+Needs one CUDA device, nvcc and this checkout; no network, no JAX.
+"""
+
+import json
+import subprocess
+import sys
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+from dl_swin_gan_tpu_torch.convert import init_params
+from dl_swin_gan_tpu_torch.data.synthetic import make_cine_example
+from dl_swin_gan_tpu_torch.infer.reconstruct import Reconstructor, batched
+from dl_swin_gan_tpu_torch.infer.transforms import PARITY_SEED, ResampleTransform
+from dl_swin_gan_tpu_torch.kernels import _build
+from dl_swin_gan_tpu_torch.kernels import sense_normal as SN
+from dl_swin_gan_tpu_torch.ops.masks import VDktMaskFunc
+from dl_swin_gan_tpu_torch.ops.sense import _adjoint_impl, _forward_impl
+from dl_swin_gan_tpu_torch.utils.device import use_ieee_fp32
+from dl_swin_gan_tpu_torch.utils.headline import headline_cfg, headline_shape
+
+ACCEL = 12
+SLICES = 4
+SEED = 0
+KERNEL_REL_TOL = 1e-4     # TF32 in a DFT pass would show as ~1e-3
+CPU_REL_L2_TOL = 1e-3     # fp32 GPU (cuDNN, kernel) vs fp32 CPU, 5 unrolls
+TIMING_RUNS = 30
+# published H100 SXM peaks (NVIDIA data sheet) for the bound
+FP32_FLOPS = 67e12        # float32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def cuda_ms(fn, runs=TIMING_RUNS, warmup=3):
+    """Median device time of fn() in ms, by CUDA events; L2 flushed before
+    each call, since on the main path the conv trunk evicts the inputs."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def phase_device():
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0])
+    use_ieee_fp32()
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} "
+          f"count {torch.cuda.device_count()}")
+    print(f"tf32: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+          f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+    check(not torch.backends.cudnn.allow_tf32
+          and not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+
+
+def phase_build():
+    t0 = time.perf_counter()
+    lib = _build.load("sense_normal")
+    seconds = time.perf_counter() - t0
+    ptxas = [ln.strip() for ln in lib.log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    print(f"build sense_normal: {seconds:.2f} s (nvcc {lib.build_seconds:.2f} s) "
+          f"-> {lib.path.parent.name}")
+    for ln in ptxas:
+        print(f"  ptxas: {ln}")
+
+
+def _normal_work(E, C, w):
+    """(FLOP, bytes) of one SENSE-normal call as the kernel does it: DFTs as
+    dense complex products (8 FLOP per complex multiply-add) over the R
+    k-space rows of each frame that hold a nonzero weight: the y-DFT to
+    those rows, both x-DFTs on them, the inverse y-DFT from them."""
+    B, T, Y, X = w.shape
+    rows = int((w != 0).any(dim=3).sum().item())   # R summed over (b, t)
+    yx = Y * X
+    flops = C * (rows * 8 * X * (2 * Y + 2 * X)     # the four DFT passes
+                 + rows * X * 2                     # k-space weight
+                 + B * T * 8 * E * yx * 2)          # coil expansion, combine
+    nbytes = (8 * B * E * T * yx * 2                # x in, out
+              + 8 * B * E * C * yx                  # maps
+              + 4 * B * T * yx                      # w
+              + 8 * (Y * Y + X * X))                # DFT tables
+    return flops, nbytes
+
+
+def phase_kernels():
+    """sense_normal kernel vs plain vs the cuFFT chain at batch 1 and 4."""
+    T, Y, X, C, E = headline_shape()
+    rng = np.random.RandomState(SEED)
+    mask = VDktMaskFunc((ACCEL, ACCEL))((1, 1, T, Y, X), PARITY_SEED)[0, 0]
+    results = {}
+    for B in (1, 4):
+        def c64(*shape):
+            a = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+            return torch.from_numpy(a.astype(np.complex64)).cuda()
+
+        x = c64(B, E, T, Y, X)
+        maps = c64(B, E, C, Y, X)
+        m5 = torch.from_numpy(np.broadcast_to(mask, (B, 1, T, Y, X)).copy()).cuda()
+        w = (m5[:, 0] * m5[:, 0]).contiguous()
+        maps6 = maps.unsqueeze(3)
+
+        out = SN.sense_normal(x, maps, w)
+        plain = SN.sense_normal_plain(x, maps, w)
+        library = _adjoint_impl(_forward_impl(x, maps6, m5), maps6, m5)
+        torch.cuda.synchronize()
+        scale = plain.abs().max().item()
+        max_abs = (out - plain).abs().max().item()
+        rel = max_abs / scale
+        lib_rel = (library - plain).abs().max().item() / scale
+        check(torch.isfinite(torch.view_as_real(out)).all().item(),
+              f"kernel output not finite at B={B}")
+        check(rel <= KERNEL_REL_TOL,
+              f"kernel vs plain rel err {rel:.3e} > {KERNEL_REL_TOL} at B={B}")
+        check(lib_rel <= KERNEL_REL_TOL,
+              f"cuFFT chain vs plain rel err {lib_rel:.3e} at B={B}")
+
+        ms = cuda_ms(lambda: SN.sense_normal(x, maps, w))
+        plain_ms = cuda_ms(lambda: SN.sense_normal_plain(x, maps, w))
+        library_ms = cuda_ms(
+            lambda: _adjoint_impl(_forward_impl(x, maps6, m5), maps6, m5))
+        flops, nbytes = _normal_work(E, C, w)
+        t_ops = flops / FP32_FLOPS * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        results[B] = dict(
+            max_abs_err=max_abs, rel_err=rel, ms=ms, plain_ms=plain_ms,
+            library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            gflop=flops / 1e9, mbytes=nbytes / 1e6)
+        print(f"kernel sense_normal B={B} [{B},{E},{T},{Y},{X}] C={C}: "
+              f"max|k-p|/max|p| {rel:.3e} (max abs {max_abs:.3e}; cuFFT chain "
+              f"{lib_rel:.3e}) kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+              f"library_ms {library_ms:.4f} bound_ms {max(t_ops, t_bytes):.4f} "
+              f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB) "
+              f"achieved {flops / ms / 1e9:.2f} TFLOP/s")
+    return results
+
+
+def _time_recon(recon, examples, batch_size, repeats):
+    """(outputs of the first run, median seconds per run) over all slices."""
+    out, times = None, []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        res = [recon(b) for b in batched(examples, batch_size)]
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        out = np.concatenate(res) if out is None else out
+    return out, float(np.median(times))
+
+
+# kernel-name fragments -> the layer they belong to, first match wins
+_GROUPS = (("sense_normal kernel", ("coil_normal", "coil_combine")),
+           ("cuFFT (adjoint A^H y)", ("fft",)),
+           ("copies host<->device", ("memcpy",)),
+           ("conv trunk (cuDNN)", ("conv", "xmma", "gemm", "cudnn", "implicit")))
+
+
+def profile_slice(recon, batch):
+    """Device time of one batch-1 reconstruction by kernel group, from
+    torch.profiler, against the host-clock time of the profiled run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        recon(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    groups = defaultdict(float)
+    for e in kernels:
+        name = e.key.lower()
+        group = next((g for g, keys in _GROUPS
+                      if any(k in name for k in keys)), "other (elementwise)")
+        groups[group] += e.self_device_time_total / 1e3
+    busy_ms = sum(groups.values())
+    if busy_ms == 0.0:
+        print("profile: the profiler saw no device time; breakdown not measured")
+        return
+    parts = ", ".join(f"{g} {ms:.3f}" for g, ms in
+                      sorted(groups.items(), key=lambda kv: -kv[1]))
+    print(f"profile: one slice, batch 1, profiled: host {wall_ms:.2f} ms, "
+          f"device busy {busy_ms:.2f} ms ({busy_ms / wall_ms:.1%}); ms by "
+          f"group: {parts}")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    for e in top:
+        print(f"profile:   {e.self_device_time_total / 1e3:8.3f} ms "
+              f"x{e.count:<4d} {e.key[:90]}")
+
+
+def phase_main():
+    cfg = headline_cfg()
+    cfg.freeze()
+    T, Y, X, C, E = headline_shape()
+    nunroll = cfg.MODEL.PARAMETERS.NUM_UNROLLS
+
+    t0 = time.perf_counter()
+    slices = [make_cine_example(T=T, Y=Y, X=X, C=C, E=E, seed=SEED + s)
+              for s in range(SLICES)]
+    transform = ResampleTransform(ACCEL, cfg)
+    examples = [transform(k, m) for k, m, _ in slices]
+    host_s = time.perf_counter() - t0
+    print(f"main: {SLICES} slices [{C},{T},{Y},{X}] E={E} at {ACCEL}x "
+          f"(seed {PARITY_SEED}); host data + transforms {host_s:.2f} s")
+
+    params = init_params(cfg, SEED)
+    recon = Reconstructor(cfg, params)          # the GPU: no device given
+    check(recon.device.type == "cuda", f"Reconstructor on {recon.device}")
+    recon(next(batched(examples[:1], 1)))       # warm-up (cuDNN, allocator)
+    torch.cuda.reset_peak_memory_stats()
+
+    counts = {}
+    outs = {}
+    for bs in (1, 4):
+        SN.sense_normal.launches = 0
+        out, _ = _time_recon(recon, examples, bs, repeats=1)
+        counts[bs] = SN.sense_normal.launches
+        outs[bs] = out
+        nbatch = -(-SLICES // bs)
+        check(counts[bs] == nunroll * nbatch,
+              f"batch {bs}: {counts[bs]} sense_normal launches, expected "
+              f"{nunroll} per batch x {nbatch} batches")
+        check(out.shape == (SLICES, E, T, Y, X), f"output shape {out.shape}")
+        check(np.isfinite(out).all(), f"non-finite output at batch {bs}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rel_b = np.linalg.norm(outs[1] - outs[4]) / np.linalg.norm(outs[1])
+    check(rel_b <= 1e-4, f"batch 1 vs batch 4 outputs differ: {rel_b:.3e}")
+
+    for bs in (1, 4):
+        _, sec = _time_recon(recon, examples, bs, repeats=3)
+        print(f"main batch {bs}: {sec / SLICES * 1e3:.2f} ms per slice, "
+              f"{SLICES * T / sec:.1f} frames/s, {counts[bs]} sense_normal "
+              f"launches ({nunroll} per batch)")
+    print(f"main: peak device memory {peak_gb:.2f} GB; batch 1 vs 4 rel L2 "
+          f"{rel_b:.2e}")
+
+    # where one slice's time goes: the trunk of one unroll alone, then the
+    # device time of one slice by kernel group
+    x0 = torch.from_numpy(examples[0]["init_image"][None]).cuda()
+    with torch.inference_mode():
+        trunk_ms = cuda_ms(lambda: recon.model.nets[0](x0), runs=10)
+    print(f"main: denoiser trunk {trunk_ms:.3f} ms per unroll per slice "
+          f"(x{nunroll} unrolls)")
+    profile_slice(recon, next(batched(examples[:1], 1)))
+
+    t0 = time.perf_counter()
+    cpu = Reconstructor(cfg, params, device="cpu")(next(batched(examples[:1], 1)))
+    cpu_s = time.perf_counter() - t0
+    rel_cpu = np.linalg.norm(outs[1][:1] - cpu) / np.linalg.norm(cpu)
+    print(f"main: slice 0 vs the port's CPU path ({nunroll} unrolls, "
+          f"{cpu_s:.1f} s on the CPU): rel L2 {rel_cpu:.3e}")
+    check(rel_cpu <= CPU_REL_L2_TOL,
+          f"GPU vs CPU rel L2 {rel_cpu:.3e} > {CPU_REL_L2_TOL}")
+    return counts
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        sys.exit(1)
+    phase_device()
+    phase_build()
+    kres = phase_kernels()
+    counts = phase_main()
+
+    k1 = kres[1]
+    entry = {
+        "name": "sense_normal",
+        "route": "cuda",
+        "source": "dl_swin_gan_tpu_torch/kernels/csrc/sense_normal.cu",
+        "replaces": "dl_swin_gan_tpu/kernels/sense_normal.py:125",
+        "launches": sum(counts.values()),
+        "max_abs_err": k1["max_abs_err"],
+        "ms": k1["ms"],
+        "plain_ms": k1["plain_ms"],
+        "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"],
+        "library_ms": k1["library_ms"],
+        "rel_err": k1["rel_err"],
+        "batch": 1,
+        "batch4": {k: kres[4][k] for k in
+                   ("max_abs_err", "rel_err", "ms", "plain_ms", "library_ms",
+                    "bound_ms")},
+        "launches_per_batch": counts[1] // SLICES,
+    }
+    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,103 @@
+"""Synthetic dynamic-MRI phantom generator (host-side numpy).
+
+A copy of `data/synthetic.py` in the JAX package, so both packages make the
+same slices from the same seed: fully-sampled k-space = F(images x maps) in
+the storage convention of the prepared datasets (fftmod'ed k-space, DC at
+N/2; centered images; ESPIRiT-normalized maps). `h5py` is imported only by
+the writer.
+"""
+
+import os
+from typing import Tuple
+
+import numpy as np
+
+from dl_swin_gan_tpu_torch.data import host_ops as H
+
+
+def _coil_sensitivities(Y: int, X: int, C: int, rng) -> np.ndarray:
+    """Smooth, ESPIRiT-normalized (sum |s|^2 = 1) coil maps [C, Y, X]."""
+    yy, xx = np.mgrid[0:Y, 0:X]
+    maps = np.zeros((C, Y, X), np.complex64)
+    for c in range(C):
+        ang = 2 * np.pi * c / C
+        cy = Y / 2 + 0.55 * Y * np.sin(ang) * (0.8 + 0.4 * rng.rand())
+        cx = X / 2 + 0.55 * X * np.cos(ang) * (0.8 + 0.4 * rng.rand())
+        sens = np.exp(-(((yy - cy) / Y) ** 2 + ((xx - cx) / X) ** 2) * 3.0)
+        phase = np.exp(1j * (2 * np.pi * rng.rand()
+                             + 0.5 * ((yy - cy) / Y + (xx - cx) / X)))
+        maps[c] = sens * phase
+    maps /= np.sqrt((np.abs(maps) ** 2).sum(0, keepdims=True)) + 1e-8
+    return maps
+
+
+def _cine_frames(T: int, Y: int, X: int, rng) -> np.ndarray:
+    """A beating heart-like phantom: pulsing ellipse + static anatomy [T, Y, X]."""
+    yy, xx = np.mgrid[0:Y, 0:X]
+    body = np.exp(-(((yy - Y / 2) / (0.45 * Y)) ** 2
+                    + ((xx - X / 2) / (0.45 * X)) ** 2) * 2.0)
+    ring_r = 0.30 * min(Y, X)
+    ring = (np.abs(np.sqrt((yy - Y / 2) ** 2 + (xx - X / 2) ** 2) - ring_r) < 2.5)
+    cy0, cx0 = Y * (0.45 + 0.1 * rng.rand()), X * (0.45 + 0.1 * rng.rand())
+    frames = []
+    for t in range(T):
+        beat = np.sin(2 * np.pi * t / T)
+        r = (0.12 + 0.04 * beat) * min(Y, X)
+        lv = (((yy - cy0) ** 2 + (xx - cx0) ** 2) < r ** 2).astype(np.float32)
+        wall = (np.abs(np.sqrt((yy - cy0) ** 2 + (xx - cx0) ** 2) - r) < 3)
+        frames.append(0.4 * body + 0.3 * ring + lv + 0.6 * wall)
+    img = np.stack(frames).astype(np.complex64)
+    # smooth background phase (MRI images are complex)
+    img = img * np.exp(1j * (0.15 * xx / X + 0.1 * yy / Y))
+    return img.astype(np.complex64)
+
+
+def make_cine_example(T: int = 16, Y: int = 96, X: int = 64, C: int = 8,
+                      E: int = 2, seed: int = 0, noise: float = 0.0
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """One slice in reference layout: (kspace [C,T,Y,X], maps [E,C,1,Y,X],
+    target [E,T,Y,X]), fftmod storage convention."""
+    rng = np.random.RandomState(seed)
+    img = _cine_frames(T, Y, X, rng)                   # [T, Y, X]
+    smaps = _coil_sensitivities(Y, X, C, rng)          # [C, Y, X]
+
+    coil_ims = smaps[:, None] * img[None]              # [C, T, Y, X]
+    k_centered = np.fft.fftshift(
+        np.fft.fft2(np.fft.ifftshift(coil_ims, axes=(-2, -1)),
+                    axes=(-2, -1), norm="ortho"), axes=(-2, -1))
+    kspace = H.fftmod(k_centered).astype(np.complex64)
+    if noise > 0:
+        kspace = kspace + noise * (rng.standard_normal(kspace.shape)
+                                   + 1j * rng.standard_normal(kspace.shape)
+                                   ).astype(np.complex64)
+
+    maps = np.zeros((E, C, 1, Y, X), np.complex64)
+    maps[0] = smaps[:, None]
+    # second emap: tiny orthogonal-ish component (ESPIRiT soft second set)
+    if E > 1:
+        maps[1] = 0.05 * np.roll(smaps[:, None], Y // 4, axis=-2)
+
+    target = H.sense_adjoint(kspace[None], maps[None])[0].astype(np.complex64)
+    return kspace, maps, target
+
+
+def write_synthetic_dataset(root: str, num_files: int = 2, slices: int = 2,
+                            T: int = 16, Y: int = 96, X: int = 64, C: int = 8,
+                            E: int = 2, seed: int = 0, noise: float = 0.0) -> list:
+    """Write reference-layout HDF5 files (kspace/maps/target per patient)."""
+    import h5py
+    os.makedirs(root, exist_ok=True)
+    paths = []
+    for f in range(num_files):
+        ks, mp, tg = [], [], []
+        for s in range(slices):
+            k, m, t = make_cine_example(T, Y, X, C, E,
+                                        seed=seed + 97 * f + s, noise=noise)
+            ks.append(k); mp.append(m); tg.append(t)
+        path = os.path.join(root, f"synthetic_{f:03d}.h5")
+        with h5py.File(path, "w") as h5:
+            h5.create_dataset("kspace", data=np.stack(ks))
+            h5.create_dataset("maps", data=np.stack(mp))
+            h5.create_dataset("target", data=np.stack(tg))
+        paths.append(path)
+    return paths

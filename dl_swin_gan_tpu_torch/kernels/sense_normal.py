@@ -1,0 +1,128 @@
+"""SENSE normal operator A^H W^2 A: the hand-written CUDA kernel and its
+plain PyTorch version.
+
+`sense_normal(x, maps, w)` launches `csrc/sense_normal.cu` (the Hopper port
+of the Pallas TPU kernel `sense_normal_fused` in the JAX package's
+`kernels/sense_normal.py`) for tensors on a CUDA device, and runs
+`sense_normal_plain` for tensors on the CPU. There is no other route: a CUDA
+tensor the kernel cannot take raises. The source note in the `.cu` file
+gives the kernel's design and its bound.
+
+    x     [B, E, T, Y, X] complex64      image, E ESPIRiT maps
+    maps  [B, E, C, Y, X] complex64      coil maps (set dim squeezed)
+    w     [B, T, Y, X]    float32        k-space weight (mask squared)
+    ->    [B, E, T, Y, X] complex64
+"""
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+# the largest dynamic shared memory a Hopper block may opt into; the kernel
+# keeps two complex64 [Y, X + 1] frames there (rows padded by one)
+_SMEM_LIMIT = 232_448
+
+
+@functools.lru_cache(maxsize=None)
+def ortho_dft(n: int, device: torch.device) -> torch.Tensor:
+    """Symmetric unitary DFT matrix [n, n]: built in float64, rounded to
+    complex64 (the same matrices as the TPU kernel's `_ortho_dft`)."""
+    k = np.arange(n, dtype=np.float64)
+    m = np.exp(-2j * np.pi * np.outer(k, k) / n) / np.sqrt(n)
+    return torch.from_numpy(m.astype(np.complex64)).to(device)
+
+
+def sense_normal_plain(x: torch.Tensor, maps: torch.Tensor,
+                       w: torch.Tensor) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch: coil expansion, DFTs as
+    dense products with the same matrices, weight, inverse DFTs, coil
+    combine. The CPU path and the tests use it; the CUDA path never does."""
+    fy = ortho_dft(x.shape[3], x.device)
+    fx = ortho_dft(x.shape[4], x.device)
+    coils = (maps.unsqueeze(3) * x.unsqueeze(2)).sum(1)    # [B, C, T, Y, X]
+    k = fy @ coils @ fx
+    k = k * w.unsqueeze(1)
+    coils = fy.conj() @ k @ fx.conj()
+    return (maps.conj().unsqueeze(3) * coils.unsqueeze(1)).sum(2)
+
+
+def _check(x, maps, w):
+    if x.ndim != 5 or maps.ndim != 5 or w.ndim != 4:
+        raise ValueError("sense_normal expects x [B,E,T,Y,X], maps [B,E,C,Y,X], "
+                         f"w [B,T,Y,X]; got {tuple(x.shape)}, "
+                         f"{tuple(maps.shape)}, {tuple(w.shape)}")
+    B, E, T, Y, X = x.shape
+    if maps.shape[:2] != (B, E) or maps.shape[3:] != (Y, X):
+        raise ValueError(f"maps {tuple(maps.shape)} does not match x "
+                         f"{tuple(x.shape)}")
+    if tuple(w.shape) != (B, T, Y, X):
+        raise ValueError(f"w {tuple(w.shape)} is not {(B, T, Y, X)}")
+    if x.dtype != torch.complex64 or maps.dtype != torch.complex64:
+        raise TypeError(f"x and maps must be complex64, got {x.dtype}, "
+                        f"{maps.dtype}")
+    if w.dtype != torch.float32:
+        raise TypeError(f"w must be float32, got {w.dtype}")
+    if not (x.device == maps.device == w.device):
+        raise ValueError("x, maps and w must be on one device")
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    from dl_swin_gan_tpu_torch.kernels import _build
+
+    lib = _build.load("sense_normal").cdll
+    lib.sense_normal_launch.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.sense_normal_launch.restype = ctypes.c_int
+    lib.sense_normal_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.sense_normal_smem_bytes.restype = ctypes.c_longlong
+    lib.sense_normal_error_string.argtypes = [ctypes.c_int]
+    lib.sense_normal_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def sense_normal(x: torch.Tensor, maps: torch.Tensor,
+                 w: torch.Tensor) -> torch.Tensor:
+    """A^H W^2 A x: the CUDA kernel on the GPU, the plain version on the CPU.
+
+    The kernel skips the k-space rows whose weights are all zero, which is
+    exact for finite inputs (inf or NaN k-space in such a row is dropped
+    instead of spreading through the inverse DFT)."""
+    _check(x, maps, w)
+    if x.device.type == "cpu":
+        return sense_normal_plain(x, maps, w)
+    if x.device.type != "cuda":
+        raise ValueError(f"sense_normal has no kernel for {x.device}")
+    if not (x.is_contiguous() and maps.is_contiguous() and w.is_contiguous()):
+        raise ValueError("sense_normal's kernel needs contiguous inputs")
+    B, E, T, Y, X = x.shape
+    C = maps.shape[2]
+    if x.numel() == 0 or C == 0:
+        return torch.zeros_like(x)
+
+    lib = _library()
+    smem = lib.sense_normal_smem_bytes(Y, X)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"a {Y}x{X} frame needs {smem} bytes of shared "
+                         f"memory; the kernel takes at most {_SMEM_LIMIT}")
+    fy = ortho_dft(Y, x.device)
+    fx = ortho_dft(X, x.device)
+    coil = torch.empty((B, T, C, Y, X), dtype=torch.complex64, device=x.device)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.sense_normal_launch(
+            x.data_ptr(), maps.data_ptr(), w.data_ptr(), fy.data_ptr(),
+            fx.data_ptr(), coil.data_ptr(), out.data_ptr(),
+            B, E, C, T, Y, X, stream)
+    if err != 0:
+        raise RuntimeError("sense_normal kernel launch failed: "
+                           + lib.sense_normal_error_string(err).decode())
+    sense_normal.launches += 1
+    return out
+
+
+# kernel launches so far in this process; chip_smoke.py zeroes and reads it
+sense_normal.launches = 0

@@ -1,0 +1,51 @@
+"""Denoiser backbones. This slice ports the real-valued RES trunk; every other
+backbone raises NotImplementedError naming its ROADMAP.md queue item."""
+
+from typing import Optional
+
+import torch
+
+from dl_swin_gan_tpu_torch.models.resnet import ResNet3D
+
+# MODEL_TYPE -> the ROADMAP.md "Queue 1" item that ports it
+_NOT_PORTED = {
+    "SE": "Queue 1 item 4 (SE/CBAM gates)",
+    "CBAM": "Queue 1 item 4 (SE/CBAM gates)",
+    "SWIN": "Queue 1 item 9 (Swin and SwinGAN)",
+    "DIT": "Queue 1 item 10 (diffusion)",
+    "SWIN_DIFF": "Queue 1 item 10 (diffusion)",
+    "LATTE": "Queue 1 item 10 (diffusion)",
+}
+
+
+def build_denoiser(cfg, generator: Optional[torch.Generator] = None):
+    """Build the denoiser that MODEL.MODEL_TYPE names (RES only so far)."""
+    p = cfg.MODEL.PARAMETERS
+    cb = p.CONV_BLOCK
+    model_type = cfg.MODEL.MODEL_TYPE.upper()
+    if model_type in _NOT_PORTED:
+        raise NotImplementedError(
+            f"MODEL_TYPE={model_type} is not ported to the torch package yet: "
+            f"ROADMAP.md {_NOT_PORTED[model_type]}")
+    if model_type != "RES":
+        raise ValueError(f"Unknown MODEL_TYPE: {model_type}")
+    if cb.COMPLEX:
+        raise NotImplementedError(
+            "CONV_BLOCK.COMPLEX=True (ComplexConv) is not ported yet: "
+            "ROADMAP.md Queue 1 item 4")
+    if cb.SEPARABLE:
+        raise NotImplementedError(
+            "CONV_BLOCK.SEPARABLE=True is not ported yet: ROADMAP.md Queue 1 "
+            "item 4")
+    if cb.NORM != "none":
+        raise NotImplementedError(
+            f"CONV_BLOCK.NORM={cb.NORM!r} is not ported yet: ROADMAP.md "
+            "Queue 1 item 4")
+    if str(cb.DTYPE) != "float32":
+        raise NotImplementedError(
+            f"CONV_BLOCK.DTYPE={cb.DTYPE!r}: the bf16 trunk is not ported "
+            "yet: ROADMAP.md Queue 1 item 8")
+    return ResNet3D(num_resblocks=p.NUM_RESBLOCKS, num_emaps=p.NUM_EMAPS,
+                    num_features=p.NUM_FEATURES,
+                    kernel_size=cb.KERNEL_SIZE[0], act_type=cb.ACTIVATION,
+                    circular_pad=cb.CIRCULAR_PAD, generator=generator)

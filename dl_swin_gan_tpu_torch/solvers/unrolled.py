@@ -1,0 +1,94 @@
+"""Unrolled solver: (data-consistency rule x denoiser x num_unrolls).
+
+Counterpart of `solvers/unrolled.py` in the JAX package. This slice ports the
+PGD rule (META_ARCHITECTURE dlespirit / pgd):
+
+    x <- x + eta * (A^H A x - A^H y);  x <- denoiser_i(x)
+
+with a learnable step eta initialised to -2.0, x0 the given init (the
+sliding-window image) or A^H y. The hqs (MoDL), dc and none rules raise
+NotImplementedError.
+"""
+
+from typing import Callable, Optional
+
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from dl_swin_gan_tpu_torch.ops.sense import SenseOp
+
+
+class UnrolledSolver(nn.Module):
+    """solver(y, maps, mask, x0=None)
+      y     [N, C, T, Y, X] complex   masked k-space
+      maps  [N, E, C, 1, Y, X] complex
+      mask  [N, 1, T, Y, X] float
+      x0    [N, E, T, Y, X] complex   optional init
+    """
+
+    def __init__(self, make_denoiser: Callable[[], nn.Module],
+                 num_unrolls: int = 5, dc_mode: str = "pgd",
+                 share_weights: bool = False, fix_step_size: bool = False,
+                 remat: bool = False):
+        super().__init__()
+        if dc_mode != "pgd":
+            raise NotImplementedError(
+                f"dc_mode={dc_mode!r} is not ported to the torch package yet "
+                "(ROADMAP.md Queue 1 item 5); only pgd is")
+        self.num_unrolls = num_unrolls
+        self.share_weights = share_weights
+        self.fix_step_size = fix_step_size
+        self.remat = remat
+        n_nets = 1 if share_weights else num_unrolls
+        self.nets = nn.ModuleList(make_denoiser() for _ in range(n_nets))
+        self.step_size = nn.Parameter(torch.full((1,), -2.0))
+
+    def _denoise(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        net = self.nets[0 if self.share_weights else i]
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(net, x, use_reentrant=False)
+        return net(x)
+
+    def forward(self, y, maps, mask, x0: Optional[torch.Tensor] = None):
+        A = SenseOp(maps, mask)
+        ATy = A(y, adjoint=True)
+        x = ATy if x0 is None else x0
+        eta = self.step_size.detach() if self.fix_step_size else self.step_size
+        for i in range(self.num_unrolls):
+            x = x + eta[0] * (A.normal(x) - ATy)
+            x = self._denoise(i, x)
+        return x
+
+
+_DC_MODE_FROM_META = {
+    "dlespirit": "pgd",
+    "pgd": "pgd",
+    "modl": "hqs",
+    "hqs": "hqs",
+    "ddpm_x": "dc",
+    "dc": "dc",
+    "ddpm_e": "none",
+    "ddpm": "none",
+    "none": "none",
+}
+
+
+def build_solver(cfg, generator: Optional[torch.Generator] = None,
+                 dc_mode: Optional[str] = None) -> UnrolledSolver:
+    """Construct the solver and its denoisers from a config; `generator`
+    seeds the weights (torch-default init)."""
+    from dl_swin_gan_tpu_torch.models import build_denoiser
+
+    p = cfg.MODEL.PARAMETERS
+    meta = (dc_mode or cfg.MODEL.META_ARCHITECTURE).lower()
+    if meta not in _DC_MODE_FROM_META:
+        raise ValueError(f"Unknown META_ARCHITECTURE: {meta}")
+    return UnrolledSolver(
+        make_denoiser=lambda: build_denoiser(cfg, generator),
+        num_unrolls=p.NUM_UNROLLS,
+        dc_mode=_DC_MODE_FROM_META[meta],
+        share_weights=p.SHARE_WEIGHTS,
+        fix_step_size=p.FIX_STEP_SIZE,
+        remat=p.GRAD_CHECKPOINT,
+    )
