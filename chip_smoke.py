@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's reconstruction path once on one GPU and check it.
+"""Run the PyTorch/CUDA port's reconstruction paths once on one GPU and check
+them.
 
     python3 chip_smoke.py
 
@@ -8,10 +9,12 @@ then exits non-zero and prints no result:
 
   1. device   the card's name and power limit (nvidia-smi), the torch and CUDA
               versions, and the two TF32 flags (both off: true float32)
-  2. build    compile every kernel of the path from kernels/csrc with nvcc
+  2. build    compile every kernel of the paths from kernels/csrc, one nvcc
+              per source, all started together; ptxas registers and spills
   3. kernels  each kernel against its plain PyTorch version on the card, at
-              the main path's shapes (batch 1 and 4), with its time, the plain
-              version's, the PyTorch library call's, and its bound
+              the main paths' shapes (batch 1 and 4; window attention with and
+              without the shift mask), with its time, the plain version's,
+              the PyTorch library call's, and its bound
   4. main     the headline config (configs/basic/example.yaml: 5 unrolls x 2
               resblocks x 64 features, float32, seeded torch-default weights)
               on 4 synthetic 20x180x64 slices with 8 coils and 2 maps, through
@@ -19,17 +22,23 @@ then exits non-zero and prints no result:
               batch 4; the kernel launches are counted, one slice's device
               time is split by kernel group (torch.profiler), and one slice
               is held against the port's own CPU path
-  5. result   one JSON line of kernels, then the last line
+  5. swin     the same for configs/config_swin.yaml (5 unrolls x 1 swinblock
+              x 160 features, depths (6,), 8 heads, window (7, 8, 8), patch
+              (4, 4, 4), float32): 30 window-attention and 5 SENSE-normal
+              launches per batch
+  6. result   one JSON line of kernels, then the last line
               {"ok": true, "device": {...}}
 
 Needs one CUDA device, nvcc and this checkout; no network, no JAX.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
 from collections import defaultdict
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -40,15 +49,28 @@ from dl_swin_gan_tpu_torch.infer.reconstruct import Reconstructor, batched
 from dl_swin_gan_tpu_torch.infer.transforms import PARITY_SEED, ResampleTransform
 from dl_swin_gan_tpu_torch.kernels import _build
 from dl_swin_gan_tpu_torch.kernels import sense_normal as SN
+from dl_swin_gan_tpu_torch.kernels import window_attn as WA
+from dl_swin_gan_tpu_torch.models.swin import compute_shift_mask
 from dl_swin_gan_tpu_torch.ops.masks import VDktMaskFunc
 from dl_swin_gan_tpu_torch.ops.sense import _adjoint_impl, _forward_impl
 from dl_swin_gan_tpu_torch.utils.device import use_ieee_fp32
-from dl_swin_gan_tpu_torch.utils.headline import headline_cfg, headline_shape
+from dl_swin_gan_tpu_torch.utils.headline import (
+    headline_cfg, headline_shape, swin_cfg,
+)
 
 ACCEL = 12
 SLICES = 4
 SEED = 0
 KERNEL_REL_TOL = 1e-4     # TF32 in a DFT pass would show as ~1e-3
+KERNELS = ("sense_normal", "window_attn")
+# each kernel's wrapper, whose `launches` counts the kernel's launches
+COUNTERS = {"sense_normal": SN.sense_normal,
+            "window_attention": WA.window_attention}
+# the Swin block at full width: (20 + 2 * 4 padded) frames / 4 = 7, 180 / 4
+# = 45 rows padded to 48, 64 / 4 = 16 columns; 12 windows of (7, 8, 8), shift
+# (0, 4, 4)
+SWIN_GRID, SWIN_WINDOW, SWIN_SHIFT = (7, 48, 16), (7, 8, 8), (0, 4, 4)
+SWIN_HEADS, SWIN_HEAD_DIM = 8, 20
 CPU_REL_L2_TOL = 1e-3     # fp32 GPU (cuDNN, kernel) vs fp32 CPU, 5 unrolls
 TIMING_RUNS = 30
 # published H100 SXM peaks (NVIDIA data sheet) for the bound
@@ -97,14 +119,18 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
-    lib = _build.load("sense_normal")
-    seconds = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in lib.log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(f"build sense_normal: {seconds:.2f} s (nvcc {lib.build_seconds:.2f} s) "
-          f"-> {lib.path.parent.name}")
-    for ln in ptxas:
-        print(f"  ptxas: {ln}")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:   # one nvcc per source
+        libs = dict(zip(KERNELS, pool.map(_build.load, KERNELS)))
+    print(f"build: {len(KERNELS)} kernels in {time.perf_counter() - t0:.2f} s")
+    for name, lib in libs.items():
+        print(f"build {name}: nvcc {lib.build_seconds:.2f} s "
+              f"-> {lib.path.parent.name}")
+        for ln in lib.log.splitlines():
+            entry = re.search(r"entry function '([^']+)'", ln)
+            if entry:       # the mangled name carries the template argument
+                print(f"  ptxas: {entry.group(1)}")
+            elif "registers" in ln or "spill" in ln:
+                print(f"  ptxas: {ln.strip()}")
 
 
 def _normal_work(E, C, w):
@@ -126,6 +152,11 @@ def _normal_work(E, C, w):
 
 
 def phase_kernels():
+    return {"sense_normal": kernels_sense_normal(),
+            "window_attention": kernels_window_attention()}
+
+
+def kernels_sense_normal():
     """sense_normal kernel vs plain vs the cuFFT chain at batch 1 and 4."""
     T, Y, X, C, E = headline_shape()
     rng = np.random.RandomState(SEED)
@@ -178,6 +209,72 @@ def phase_kernels():
     return results
 
 
+def _attention_work(W, H, N, D, nW):
+    """(FLOP, bytes) of one window-attention call: the two products, and
+    q, k, v, out, bias and the mask each moved once."""
+    flops = 4 * W * H * N * N * D
+    nbytes = 4 * (4 * W * H * N * D + H * N * N + (nW * N * N if nW else 0))
+    return flops, nbytes
+
+
+def kernels_window_attention():
+    """window_attention kernel vs plain vs SDPA at the full-width Swin
+    block's shapes, batch 1 and 4, with and without the shift mask."""
+    N = SWIN_WINDOW[0] * SWIN_WINDOW[1] * SWIN_WINDOW[2]
+    H, D = SWIN_HEADS, SWIN_HEAD_DIM
+    mask = torch.from_numpy(compute_shift_mask(
+        *SWIN_GRID, SWIN_WINDOW, SWIN_SHIFT)).cuda()
+    nW = mask.shape[0]
+    rng = np.random.RandomState(SEED + 1)
+    results = {}
+    for B in (1, 4):
+        W = nW * B
+        q, k, v = (torch.from_numpy(rng.standard_normal((W, H, N, D)).astype(
+            np.float32)).cuda() for _ in range(3))
+        # a bias well above the init's +-0.04, so that it shapes the softmax
+        bias = torch.from_numpy(
+            0.5 * rng.standard_normal((H, N, N)).astype(np.float32)).cuda()
+        for masked in (True, False):
+            m = mask if masked else None
+            out = WA.window_attention(q, k, v, bias, m)
+            plain = WA.window_attention_plain(q, k, v, bias, m)
+            full = bias[None] + (mask.repeat(B, 1, 1)[:, None] if masked else 0)
+            full = full.expand(W, H, N, N).contiguous()
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            library = sdpa(q, k, v, attn_mask=full)
+            torch.cuda.synchronize()
+            scale = plain.abs().max().item()
+            max_abs = (out - plain).abs().max().item()
+            rel = max_abs / scale
+            lib_rel = (library - plain).abs().max().item() / scale
+            check(torch.isfinite(out).all().item(),
+                  f"window_attention output not finite at B={B}")
+            check(rel <= KERNEL_REL_TOL,
+                  f"window_attention vs plain rel err {rel:.3e} > "
+                  f"{KERNEL_REL_TOL} at B={B} mask={masked}")
+
+            ms = cuda_ms(lambda: WA.window_attention(q, k, v, bias, m))
+            plain_ms = cuda_ms(
+                lambda: WA.window_attention_plain(q, k, v, bias, m))
+            library_ms = cuda_ms(lambda: sdpa(q, k, v, attn_mask=full))
+            flops, nbytes = _attention_work(W, H, N, D, nW if masked else 0)
+            t_ops = flops / FP32_FLOPS * 1e3
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            results[B, masked] = dict(
+                max_abs_err=max_abs, rel_err=rel, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                gflop=flops / 1e9, mbytes=nbytes / 1e6)
+            print(f"kernel window_attention B={B} [{W},{H},{N},{D}] "
+                  f"mask={'shift' if masked else 'none'}: max|k-p|/max|p| "
+                  f"{rel:.3e} (max abs {max_abs:.3e}; SDPA {lib_rel:.3e}) "
+                  f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+                  f"{library_ms:.4f} bound_ms {max(t_ops, t_bytes):.4f} "
+                  f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB) "
+                  f"achieved {flops / ms / 1e9:.2f} TFLOP/s")
+    return results
+
+
 def _time_recon(recon, examples, batch_size, repeats):
     """(outputs of the first run, median seconds per run) over all slices."""
     out, times = None, []
@@ -190,8 +287,11 @@ def _time_recon(recon, examples, batch_size, repeats):
     return out, float(np.median(times))
 
 
-# kernel-name fragments -> the layer they belong to, first match wins
-_GROUPS = (("sense_normal kernel", ("coil_normal", "coil_combine")),
+# kernel-name fragments -> the layer they belong to, first match wins; the
+# conv group also takes the Swin trunk's linear layers (cuBLAS GEMMs)
+_GROUPS = (("window attention kernel", ("window_attn",)),
+           ("layer norm", ("layer_norm",)),
+           ("sense_normal kernel", ("coil_normal", "coil_combine")),
            ("cuFFT (adjoint A^H y)", ("fft",)),
            ("copies host<->device", ("memcpy",)),
            ("conv trunk (cuDNN)", ("conv", "xmma", "gemm", "cudnn", "implicit")))
@@ -224,14 +324,16 @@ def profile_slice(recon, batch):
     print(f"profile: one slice, batch 1, profiled: host {wall_ms:.2f} ms, "
           f"device busy {busy_ms:.2f} ms ({busy_ms / wall_ms:.1%}); ms by "
           f"group: {parts}")
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     for e in top:
         print(f"profile:   {e.self_device_time_total / 1e3:8.3f} ms "
               f"x{e.count:<4d} {e.key[:90]}")
 
 
-def phase_main():
-    cfg = headline_cfg()
+def run_path(tag, cfg, expected):
+    """Drive one reconstruction path through Reconstructor on the card and
+    check it. `expected` maps each counter of COUNTERS to its launches per
+    batch; returns {counter: {batch size: launches}}."""
     cfg.freeze()
     T, Y, X, C, E = headline_shape()
     nunroll = cfg.MODEL.PARAMETERS.NUM_UNROLLS
@@ -242,7 +344,7 @@ def phase_main():
     transform = ResampleTransform(ACCEL, cfg)
     examples = [transform(k, m) for k, m, _ in slices]
     host_s = time.perf_counter() - t0
-    print(f"main: {SLICES} slices [{C},{T},{Y},{X}] E={E} at {ACCEL}x "
+    print(f"{tag}: {SLICES} slices [{C},{T},{Y},{X}] E={E} at {ACCEL}x "
           f"(seed {PARITY_SEED}); host data + transforms {host_s:.2f} s")
 
     params = init_params(cfg, SEED)
@@ -251,17 +353,19 @@ def phase_main():
     recon(next(batched(examples[:1], 1)))       # warm-up (cuDNN, allocator)
     torch.cuda.reset_peak_memory_stats()
 
-    counts = {}
+    counts = {name: {} for name in COUNTERS}
     outs = {}
     for bs in (1, 4):
-        SN.sense_normal.launches = 0
+        for fn in COUNTERS.values():
+            fn.launches = 0
         out, _ = _time_recon(recon, examples, bs, repeats=1)
-        counts[bs] = SN.sense_normal.launches
-        outs[bs] = out
         nbatch = -(-SLICES // bs)
-        check(counts[bs] == nunroll * nbatch,
-              f"batch {bs}: {counts[bs]} sense_normal launches, expected "
-              f"{nunroll} per batch x {nbatch} batches")
+        for name, fn in COUNTERS.items():
+            counts[name][bs] = fn.launches
+            check(fn.launches == expected[name] * nbatch,
+                  f"{tag} batch {bs}: {fn.launches} {name} launches, "
+                  f"expected {expected[name]} per batch x {nbatch} batches")
+        outs[bs] = out
         check(out.shape == (SLICES, E, T, Y, X), f"output shape {out.shape}")
         check(np.isfinite(out).all(), f"non-finite output at batch {bs}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -270,10 +374,13 @@ def phase_main():
 
     for bs in (1, 4):
         _, sec = _time_recon(recon, examples, bs, repeats=3)
-        print(f"main batch {bs}: {sec / SLICES * 1e3:.2f} ms per slice, "
-              f"{SLICES * T / sec:.1f} frames/s, {counts[bs]} sense_normal "
-              f"launches ({nunroll} per batch)")
-    print(f"main: peak device memory {peak_gb:.2f} GB; batch 1 vs 4 rel L2 "
+        launches = ", ".join(f"{counts[n][bs]} {n}" for n in COUNTERS
+                             if expected[n])
+        print(f"{tag} batch {bs}: {sec / SLICES * 1e3:.2f} ms per slice, "
+              f"{SLICES * T / sec:.1f} frames/s, launches {launches} ("
+              + ", ".join(f"{expected[n]} {n}" for n in COUNTERS
+                          if expected[n]) + " per batch)")
+    print(f"{tag}: peak device memory {peak_gb:.2f} GB; batch 1 vs 4 rel L2 "
           f"{rel_b:.2e}")
 
     # where one slice's time goes: the trunk of one unroll alone, then the
@@ -281,7 +388,7 @@ def phase_main():
     x0 = torch.from_numpy(examples[0]["init_image"][None]).cuda()
     with torch.inference_mode():
         trunk_ms = cuda_ms(lambda: recon.model.nets[0](x0), runs=10)
-    print(f"main: denoiser trunk {trunk_ms:.3f} ms per unroll per slice "
+    print(f"{tag}: denoiser trunk {trunk_ms:.3f} ms per unroll per slice "
           f"(x{nunroll} unrolls)")
     profile_slice(recon, next(batched(examples[:1], 1)))
 
@@ -289,11 +396,51 @@ def phase_main():
     cpu = Reconstructor(cfg, params, device="cpu")(next(batched(examples[:1], 1)))
     cpu_s = time.perf_counter() - t0
     rel_cpu = np.linalg.norm(outs[1][:1] - cpu) / np.linalg.norm(cpu)
-    print(f"main: slice 0 vs the port's CPU path ({nunroll} unrolls, "
+    print(f"{tag}: slice 0 vs the port's CPU path ({nunroll} unrolls, "
           f"{cpu_s:.1f} s on the CPU): rel L2 {rel_cpu:.3e}")
     check(rel_cpu <= CPU_REL_L2_TOL,
           f"GPU vs CPU rel L2 {rel_cpu:.3e} > {CPU_REL_L2_TOL}")
     return counts
+
+
+def phase_main():
+    """The headline RES path: no window attention."""
+    cfg = headline_cfg()
+    nunroll = cfg.MODEL.PARAMETERS.NUM_UNROLLS
+    return run_path("main", cfg, {"sense_normal": nunroll,
+                                  "window_attention": 0})
+
+
+def phase_swin():
+    """The unrolled-Swin path: one window-attention call per Swin block."""
+    cfg = swin_cfg()
+    p = cfg.MODEL.PARAMETERS
+    blocks = 6 * p.NUM_SWINBLOCKS               # depths (6,) per trunk
+    return run_path("swin", cfg, {
+        "sense_normal": p.NUM_UNROLLS,
+        "window_attention": blocks * p.NUM_UNROLLS})
+
+
+def _entry(name, source, replaces, res, launches):
+    """One kernel's item of the `kernels` line: the numbers of its headline
+    variant, then every variant it was measured at."""
+    head = res[next(iter(res))]
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": sum(sum(by_bs.values()) for by_bs in launches.values()),
+        "max_abs_err": head["max_abs_err"],
+        "ms": head["ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "rel_err": head["rel_err"],
+        "launches_by_path": launches,
+        "variants": {str(key): value for key, value in res.items()},
+    }
 
 
 def main():
@@ -303,29 +450,25 @@ def main():
     phase_device()
     phase_build()
     kres = phase_kernels()
-    counts = phase_main()
+    counts = {"main": phase_main(), "swin": phase_swin()}
 
-    k1 = kres[1]
-    entry = {
-        "name": "sense_normal",
-        "route": "cuda",
-        "source": "dl_swin_gan_tpu_torch/kernels/csrc/sense_normal.cu",
-        "replaces": "dl_swin_gan_tpu/kernels/sense_normal.py:125",
-        "launches": sum(counts.values()),
-        "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"],
-        "bound_by": k1["bound_by"],
-        "library_ms": k1["library_ms"],
-        "rel_err": k1["rel_err"],
-        "batch": 1,
-        "batch4": {k: kres[4][k] for k in
-                   ("max_abs_err", "rel_err", "ms", "plain_ms", "library_ms",
-                    "bound_ms")},
-        "launches_per_batch": counts[1] // SLICES,
-    }
-    print(json.dumps({"kernels": [entry]}))
+    def by_path(name):
+        return {path: c[name] for path, c in counts.items()}
+
+    kernels = [
+        _entry("sense_normal",
+               "dl_swin_gan_tpu_torch/kernels/csrc/sense_normal.cu",
+               "dl_swin_gan_tpu/kernels/sense_normal.py:125",
+               {f"B={B}": r for B, r in kres["sense_normal"].items()},
+               by_path("sense_normal")),
+        _entry("window_attention",
+               "dl_swin_gan_tpu_torch/kernels/csrc/window_attn.cu",
+               "dl_swin_gan_tpu/kernels/window_attn.py:122",
+               {f"B={B} mask={'shift' if m else 'none'}": r
+                for (B, m), r in kres["window_attention"].items()},
+               by_path("window_attention")),
+    ]
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -12,6 +12,29 @@ maps to `nets.{i}.head`, `nets.{i}.blocks.{j}.conv{0,1}`, `nets.{i}.tail`
 and `step_size`. Kernels go from [kt, ky, kx, Cin, Cout] to torch's
 [Cout, Cin, kt, ky, kx]; the input channel order [re_0..re_{E-1},
 im_0..im_{E-1}] is the same on both sides.
+
+The tree of a SWIN solver, with S swinblocks:
+
+    SwinNet3D_{i}/SFE                         -> nets.{i}.sfe
+    SwinNet3D_{i}/ConvBlock_{k}, k < S        -> nets.{i}.convs.{k}
+    SwinNet3D_{i}/ConvBlock_{S}               -> nets.{i}.dfe_conv
+    SwinNet3D_{i}/ConvBlock_{S+1}             -> nets.{i}.out_conv
+    SwinNet3D_{i}/SwinTransformer3D_{k}/...   -> nets.{i}.trunks.{k}...
+        patch_embed {kernel [4,4,4,Cin,F], bias}      Conv3d weight [F,Cin,4,4,4]
+        patch_unembed {kernel [4,4,4,F,Cin], bias}    ConvTranspose3d weight
+            [F, Cin, 4,4,4], the kernel flipped: flax's ConvTranspose does not
+            flip it (transpose_kernel=False) and torch's conv_transpose3d does
+        BasicLayer_{l}/SwinBlock3D_{j}/LayerNorm_0, LayerNorm_1  -> norm1, norm2
+        BasicLayer_{l}/SwinBlock3D_{j}/attn/{relative_position_bias_table,
+            qkv, proj}                                 -> attn.*
+        BasicLayer_{l}/SwinBlock3D_{j}/Mlp_0/Dense_{0,1}   -> mlp.fc{1,2}
+        BasicLayer_{l}/PatchMerging_0/{LayerNorm_0, Dense_0}
+            -> layers.{l}.downsample.{norm, reduction}
+        PatchExpand_{j}/{Dense_0, LayerNorm_0}  -> expands.{j}.{expand, norm}
+
+Dense kernels [in, out] become Linear weights [out, in]; a LayerNorm's
+`scale` becomes its `weight`; the bias table is copied as it is. A key with
+no counterpart raises KeyError.
 """
 
 from typing import Dict, Mapping
@@ -53,18 +76,133 @@ def _resnet(tree: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _array(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32)))
+
+
+def _leaf(node: Mapping, prefix: str, keys) -> Mapping:
+    if set(node) != set(keys):
+        raise KeyError(f"{prefix}: expected {sorted(keys)}, got {sorted(node)}")
+    return node
+
+
+def _dense(node: Mapping, prefix: str, bias: bool = True):
+    leaf = _leaf(node, prefix, ("kernel", "bias") if bias else ("kernel",))
+    out = {f"{prefix}.weight": _array(np.asarray(leaf["kernel"]).T)}
+    if bias:
+        out[f"{prefix}.bias"] = _array(leaf["bias"])
+    return out
+
+
+def _layer_norm(node: Mapping, prefix: str):
+    leaf = _leaf(node, prefix, ("scale", "bias"))
+    return {f"{prefix}.weight": _array(leaf["scale"]),
+            f"{prefix}.bias": _array(leaf["bias"])}
+
+
+def _index(name: str) -> int:
+    return int(name.rsplit("_", 1)[1])
+
+
+def _unknown(prefix: str, name: str):
+    raise KeyError(f"{prefix}: no torch counterpart for {name}")
+
+
+def _swin_block(tree: Mapping, prefix: str):
+    out = {}
+    for name, node in tree.items():
+        if name in ("LayerNorm_0", "LayerNorm_1"):
+            out.update(_layer_norm(node, f"{prefix}.norm{_index(name) + 1}"))
+        elif name == "attn":
+            attn = _leaf(node, f"{prefix}.attn",
+                         ("relative_position_bias_table", "qkv", "proj"))
+            out[f"{prefix}.attn.relative_position_bias_table"] = _array(
+                attn["relative_position_bias_table"])
+            out.update(_dense(attn["qkv"], f"{prefix}.attn.qkv",
+                              bias="bias" in attn["qkv"]))
+            out.update(_dense(attn["proj"], f"{prefix}.attn.proj"))
+        elif name == "Mlp_0":
+            mlp = _leaf(node, f"{prefix}.mlp", ("Dense_0", "Dense_1"))
+            out.update(_dense(mlp["Dense_0"], f"{prefix}.mlp.fc1"))
+            out.update(_dense(mlp["Dense_1"], f"{prefix}.mlp.fc2"))
+        else:
+            _unknown(prefix, name)
+    return out
+
+
+def _patch_norm_dense(node: Mapping, prefix: str, dense_name: str):
+    leaf = _leaf(node, prefix, ("Dense_0", "LayerNorm_0"))
+    return {**_dense(leaf["Dense_0"], f"{prefix}.{dense_name}", bias=False),
+            **_layer_norm(leaf["LayerNorm_0"], f"{prefix}.norm")}
+
+
+def _swin_transformer(tree: Mapping, prefix: str):
+    out = {}
+    for name, node in tree.items():
+        if name in ("patch_embed", "patch_unembed"):
+            leaf = _leaf(node, f"{prefix}.{name}", ("kernel", "bias"))
+            kernel = np.asarray(leaf["kernel"], np.float32)
+            if name == "patch_embed":    # [k.., Cin, Cout] -> [Cout, Cin, k..]
+                kernel = kernel.transpose(4, 3, 0, 1, 2)
+            else:                        # flipped, [k.., in, out] -> [in, out, k..]
+                kernel = kernel[::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2)
+            out[f"{prefix}.{name}.weight"] = _array(kernel)
+            out[f"{prefix}.{name}.bias"] = _array(leaf["bias"])
+        elif name.startswith("BasicLayer_"):
+            layer = f"{prefix}.layers.{_index(name)}"
+            for child, sub in node.items():
+                if child.startswith("SwinBlock3D_"):
+                    out.update(_swin_block(
+                        sub, f"{layer}.blocks.{_index(child)}"))
+                elif child == "PatchMerging_0":
+                    out.update(_patch_norm_dense(
+                        sub, f"{layer}.downsample", "reduction"))
+                else:
+                    _unknown(layer, child)
+        elif name.startswith("PatchExpand_"):
+            out.update(_patch_norm_dense(
+                node, f"{prefix}.expands.{_index(name)}", "expand"))
+        else:
+            _unknown(prefix, name)
+    return out
+
+
+def _swinnet(tree: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    nsb = sum(name.startswith("SwinTransformer3D_") for name in tree)
+    out = {}
+    for name, node in tree.items():
+        if name == "SFE":
+            out.update(_conv(node, f"{prefix}.sfe"))
+        elif name.startswith("ConvBlock_") and _index(name) <= nsb + 1:
+            k = _index(name)
+            target = (f"convs.{k}" if k < nsb else
+                      "dfe_conv" if k == nsb else "out_conv")
+            out.update(_conv(node, f"{prefix}.{target}"))
+        elif name.startswith("SwinTransformer3D_"):
+            out.update(_swin_transformer(
+                node, f"{prefix}.trunks.{_index(name)}"))
+        else:
+            _unknown(prefix, name)
+    return out
+
+
+_DENOISERS = {"ResNet3D_": _resnet, "SwinNet3D_": _swinnet}
+
+
 def flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX `UnrolledSolver` params (RES denoiser, pgd) -> torch state_dict."""
+    """JAX `UnrolledSolver` params (RES or SWIN denoiser, pgd) -> torch
+    state_dict."""
     state = {}
     for name, node in params.items():
         if name == "step_size":
             state["step_size"] = torch.from_numpy(
                 np.asarray(node, dtype=np.float32).reshape(1).copy())
-        elif name.startswith("ResNet3D_"):
-            i = int(name.rsplit("_", 1)[1])
-            state.update(_resnet(node, f"nets.{i}"))
-        else:
+            continue
+        convert = next((fn for key, fn in _DENOISERS.items()
+                        if name.startswith(key)), None)
+        if convert is None:
             raise KeyError(f"no torch counterpart for param {name}")
+        state.update(convert(node, f"nets.{_index(name)}"))
     return state
 
 

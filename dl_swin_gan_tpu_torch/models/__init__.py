@@ -1,5 +1,6 @@
-"""Denoiser backbones. This slice ports the real-valued RES trunk; every other
-backbone raises NotImplementedError naming its ROADMAP.md queue item."""
+"""Denoiser backbones. Ported so far: the real-valued RES trunk and the Swin
+trunk (SwinNet3D); every other backbone raises NotImplementedError naming its
+ROADMAP.md queue item."""
 
 from typing import Optional
 
@@ -11,7 +12,6 @@ from dl_swin_gan_tpu_torch.models.resnet import ResNet3D
 _NOT_PORTED = {
     "SE": "Queue 1 item 4 (SE/CBAM gates)",
     "CBAM": "Queue 1 item 4 (SE/CBAM gates)",
-    "SWIN": "Queue 1 item 9 (Swin and SwinGAN)",
     "DIT": "Queue 1 item 10 (diffusion)",
     "SWIN_DIFF": "Queue 1 item 10 (diffusion)",
     "LATTE": "Queue 1 item 10 (diffusion)",
@@ -19,7 +19,8 @@ _NOT_PORTED = {
 
 
 def build_denoiser(cfg, generator: Optional[torch.Generator] = None):
-    """Build the denoiser that MODEL.MODEL_TYPE names (RES only so far)."""
+    """Build the denoiser that MODEL.MODEL_TYPE names (RES or SWIN so far);
+    `generator` seeds its weights (torch-default init)."""
     p = cfg.MODEL.PARAMETERS
     cb = p.CONV_BLOCK
     model_type = cfg.MODEL.MODEL_TYPE.upper()
@@ -27,12 +28,33 @@ def build_denoiser(cfg, generator: Optional[torch.Generator] = None):
         raise NotImplementedError(
             f"MODEL_TYPE={model_type} is not ported to the torch package yet: "
             f"ROADMAP.md {_NOT_PORTED[model_type]}")
-    if model_type != "RES":
+    if model_type not in ("RES", "SWIN"):
         raise ValueError(f"Unknown MODEL_TYPE: {model_type}")
     if cb.COMPLEX:
+        if model_type == "SWIN":
+            # as in the JAX package: the Swin trunk runs on real/imag channels
+            raise NotImplementedError(
+                "MODEL_TYPE=SWIN with CONV_BLOCK.COMPLEX=True is not "
+                "implemented (nor in the JAX package): the Swin trunk runs on "
+                "real/imag channels")
         raise NotImplementedError(
             "CONV_BLOCK.COMPLEX=True (ComplexConv) is not ported yet: "
             "ROADMAP.md Queue 1 item 4")
+    if str(cb.DTYPE) != "float32":
+        raise NotImplementedError(
+            f"CONV_BLOCK.DTYPE={cb.DTYPE!r}: the bf16 trunk is not ported "
+            "yet: ROADMAP.md Queue 1 item 8")
+    if model_type == "SWIN":
+        from dl_swin_gan_tpu_torch.models.swin import SwinNet3D
+
+        # depths, heads and window as the JAX package's build_denoiser fixes
+        # them; the Swin path has no separable or normalised ConvBlocks
+        return SwinNet3D(
+            num_swinblocks=p.NUM_SWINBLOCKS, depths=(6,), num_heads=(8,),
+            window_size=(7, 8, 8), num_emaps=p.NUM_EMAPS,
+            num_features=p.NUM_FEATURES, kernel_size=cb.KERNEL_SIZE[0],
+            circular_pad=cb.CIRCULAR_PAD, act_type=cb.ACTIVATION,
+            generator=generator)
     if cb.SEPARABLE:
         raise NotImplementedError(
             "CONV_BLOCK.SEPARABLE=True is not ported yet: ROADMAP.md Queue 1 "
@@ -41,10 +63,6 @@ def build_denoiser(cfg, generator: Optional[torch.Generator] = None):
         raise NotImplementedError(
             f"CONV_BLOCK.NORM={cb.NORM!r} is not ported yet: ROADMAP.md "
             "Queue 1 item 4")
-    if str(cb.DTYPE) != "float32":
-        raise NotImplementedError(
-            f"CONV_BLOCK.DTYPE={cb.DTYPE!r}: the bf16 trunk is not ported "
-            "yet: ROADMAP.md Queue 1 item 8")
     return ResNet3D(num_resblocks=p.NUM_RESBLOCKS, num_emaps=p.NUM_EMAPS,
                     num_features=p.NUM_FEATURES,
                     kernel_size=cb.KERNEL_SIZE[0], act_type=cb.ACTIVATION,

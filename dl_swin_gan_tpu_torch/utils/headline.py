@@ -1,9 +1,13 @@
-"""The canonical headline operating point, in one place.
+"""The canonical operating points, in one place.
 
 `configs/basic/example.yaml`: 5 unrolls x 2 resblocks x 64 features, PGD with
 a fixed step size, sliding-window init, real (split re/im channel) convs, on
 a 20x180x64 cine slice with 8 coils and 2 ESPIRiT maps. The same point as the
 JAX package's `utils/headline.py`; `chip_smoke.py` runs it.
+
+`configs/config_swin.yaml`: the unrolled-Swin reconstruction (5 unrolls x 1
+swinblock x 160 features; the denoiser fixes depths (6,), 8 heads, window
+(7, 8, 8)) on the same slice; `chip_smoke.py` runs it too.
 """
 
 
@@ -26,3 +30,35 @@ def headline_cfg(output_dir: str = "runs/headline"):
 def headline_shape():
     """(T, Y, X, C, E) of the headline cine slice (readout cropped to 64)."""
     return 20, 180, 64, 8, 2
+
+
+def swin_cfg(output_dir: str = "runs/swin"):
+    """`configs/config_swin.yaml` built in code (no YAML): every field the
+    reconstruction path reads."""
+    from dl_swin_gan_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.MODEL.MODEL_TYPE = "SWIN"
+    cfg.MODEL.META_ARCHITECTURE = "dlespirit"
+    p = cfg.MODEL.PARAMETERS
+    p.NUM_UNROLLS = 5
+    p.NUM_RESBLOCKS = 2
+    p.NUM_SWINBLOCKS = 1
+    p.NUM_FEATURES = 160
+    p.NUM_EMAPS = 2
+    p.SHARE_WEIGHTS = False
+    p.FIX_STEP_SIZE = True
+    p.SLWIN_INIT = True
+    p.GRAD_CHECKPOINT = True
+    p.CONV_BLOCK.ACTIVATION = "relu"
+    p.CONV_BLOCK.NORM = "none"
+    p.CONV_BLOCK.CIRCULAR_PAD = True
+    p.CONV_BLOCK.COMPLEX = False
+    cfg.AUG_TRAIN.CROP_READOUT = 64
+    cfg.AUG_TRAIN.UNDERSAMPLE.NAME = "VDktMaskFunc"
+    cfg.AUG_TRAIN.UNDERSAMPLE.ACCELERATIONS = (10, 15)
+    cfg.AUG_TRAIN.UNDERSAMPLE.PARTIAL_KX = 0.25
+    cfg.AUG_TRAIN.UNDERSAMPLE.PARTIAL_KY = 0.25
+    cfg.SEED = 1000
+    cfg.OUTPUT_DIR = output_dir
+    return cfg

@@ -16,6 +16,8 @@ from dl_swin_gan_tpu_torch.data.synthetic import make_cine_example
 from dl_swin_gan_tpu_torch.infer import Reconstructor, ResampleTransform
 from dl_swin_gan_tpu_torch.infer.reconstruct import batched
 from dl_swin_gan_tpu_torch.kernels import sense_normal as SN
+from dl_swin_gan_tpu_torch.kernels import window_attn as WA
+from dl_swin_gan_tpu_torch.models.swin import compute_shift_mask
 from dl_swin_gan_tpu_torch.ops import sense
 
 pytestmark = pytest.mark.cuda
@@ -111,5 +113,81 @@ def test_reconstructor_on_card_matches_cpu(dev):
     before = SN.sense_normal.launches
     gpu = Reconstructor(cfg, params)(batch)
     assert SN.sense_normal.launches == before + 2
+    cpu = Reconstructor(cfg, params, device="cpu")(batch)
+    assert np.linalg.norm(gpu - cpu) / np.linalg.norm(cpu) <= REL_TOL
+
+
+def _attn_inputs(dev, W, H, N, D, nW=None, seed=0):
+    """Random q, k, v, a bias well above the init's +-0.04, and, where nW
+    is given, the shift mask of a (7, 8, 8) window on a 7x48x16
+    grid (nW = 12) or a random 0/-100 mask of nW rows."""
+    rng = np.random.RandomState(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal((W, H, N, D)).astype(
+        np.float32)).to(dev) for _ in range(3))
+    bias = torch.from_numpy(
+        0.5 * rng.standard_normal((H, N, N)).astype(np.float32)).to(dev)
+    mask = None
+    if nW == 12 and N == 448:
+        mask = torch.from_numpy(compute_shift_mask(
+            7, 48, 16, (7, 8, 8), (0, 4, 4))).to(dev)
+    elif nW is not None:
+        mask = torch.from_numpy(np.where(rng.rand(nW, N, N) < 0.3, -100.0,
+                                         0.0).astype(np.float32)).to(dev)
+    return q, k, v, bias, mask
+
+
+@pytest.mark.parametrize("shape", [
+    (12, 8, 448, 20, 12),       # the full-width Swin block, batch 1, shifted
+    (48, 8, 448, 20, None),     # batch 4, unshifted
+    (6, 3, 100, 8, 3),          # ragged against the 64-row tile and 32 keys
+    (4, 2, 40, 32, None),       # the widest head_dim, fewer keys than lanes
+    (2, 1, 3, 4, 1),            # a tile with nearly every row past N
+])
+def test_window_attention_matches_plain(dev, shape):
+    W, H, N, D, nW = shape
+    q, k, v, bias, mask = _attn_inputs(dev, W, H, N, D, nW)
+    before = WA.window_attention.launches
+    out = WA.window_attention(q, k, v, bias, mask)
+    torch.cuda.synchronize()
+    assert WA.window_attention.launches == before + 1
+    assert out.shape == q.shape and out.dtype == torch.float32
+    assert torch.isfinite(out).all()
+    assert _rel(out, WA.window_attention_plain(q, k, v, bias, mask)) <= REL_TOL
+
+
+def test_window_attention_rejects_what_it_cannot_take(dev):
+    q, k, v, bias, mask = _attn_inputs(dev, 6, 2, 64, 8, 3)
+    with pytest.raises(TypeError):
+        WA.window_attention(q.double(), k.double(), v.double(), bias.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        WA.window_attention(q.transpose(2, 3).contiguous().transpose(2, 3),
+                            k, v, bias, mask)
+    with pytest.raises(NotImplementedError, match="Queue 2 item 2"):
+        WA.window_attention(q.detach().clone().requires_grad_(True), k, v,
+                            bias, mask)
+    q6, k6, v6, bias6, _ = _attn_inputs(dev, 2, 1, 16, 6)
+    with pytest.raises(ValueError, match="head_dim"):
+        WA.window_attention(q6, k6, v6, bias6)
+    with pytest.raises(ValueError, match="multiple"):   # 6 windows, 4 rows
+        WA.window_attention(q, k, v, bias, torch.zeros(4, 64, 64, device=dev))
+
+
+def test_swin_reconstructor_on_card_matches_cpu(dev):
+    """A narrow Swin solver (32 features, 8 heads of head_dim 4) on a slice
+    whose windows shrink in time and shift and pad in space, on the card
+    against the CPU path (8 frames: the sliding-window init takes 5)."""
+    cfg = get_cfg()
+    cfg.MODEL.MODEL_TYPE = "SWIN"
+    p = cfg.MODEL.PARAMETERS
+    p.NUM_UNROLLS, p.NUM_SWINBLOCKS, p.NUM_FEATURES = 2, 1, 32
+    p.FIX_STEP_SIZE, p.SLWIN_INIT, p.CONV_BLOCK.COMPLEX = True, True, False
+    examples = [ResampleTransform(12, cfg)(
+        *make_cine_example(T=8, Y=40, X=40, C=4, E=2, seed=s)[:2])
+        for s in (0, 1)]
+    batch = next(batched(examples, 2))
+    params = init_params(cfg, 0)
+    before = WA.window_attention.launches
+    gpu = Reconstructor(cfg, params)(batch)
+    assert WA.window_attention.launches == before + 6 * 2
     cpu = Reconstructor(cfg, params, device="cpu")(batch)
     assert np.linalg.norm(gpu - cpu) / np.linalg.norm(cpu) <= REL_TOL

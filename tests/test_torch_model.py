@@ -129,7 +129,7 @@ def test_init_params_seeded_torch_default():
     ("MODEL.PARAMETERS.CONV_BLOCK.DTYPE", "bfloat16"),
     ("MODEL.MODEL_TYPE", "SE"),
     ("MODEL.MODEL_TYPE", "CBAM"),
-    ("MODEL.MODEL_TYPE", "SWIN"),
+    ("MODEL.MODEL_TYPE", "SWIN_DIFF"),   # SWIN itself is ported
     ("MODEL.MODEL_TYPE", "DIT"),
     ("MODEL.MODEL_TYPE", "LATTE"),
     ("MODEL.META_ARCHITECTURE", "modl"),

@@ -1,0 +1,124 @@
+"""The window-attention kernel's plain PyTorch version against the JAX
+package's Pallas kernel (`_pallas_attention`, run in interpret mode as
+tests/test_kernels.py runs it) and its XLA reference (`_attention_xla`),
+and the wrapper's CPU route."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import dl_swin_gan_tpu.kernels.window_attn as JWA
+from dl_swin_gan_tpu.models.swin import compute_shift_mask as jax_shift_mask
+from dl_swin_gan_tpu_torch.kernels import window_attn as WA
+
+torch.set_num_threads(1)
+
+# Both sides compute in float32 and differ only in the order of the sums
+# (448-term dot products, softmax sums, the p @ v contraction): about 1e-6
+# of the output's largest entry. 1e-5 catches any change of formula, such
+# as a missing scale, bias or mask row, which moves the output by ~1e-1.
+REL_TOL = 1e-5
+
+
+@pytest.fixture
+def interpret_mode(monkeypatch):
+    orig = JWA.pl.pallas_call
+    monkeypatch.setattr(JWA.pl, "pallas_call",
+                        lambda *a, **kw: orig(*a, interpret=True, **kw))
+
+
+def _data(W, H, N, D, nW=None, seed=0):
+    rng = np.random.RandomState(seed)
+    q, k, v = (rng.standard_normal((W, H, N, D)).astype(np.float32)
+               for _ in range(3))
+    bias = (0.5 * rng.standard_normal((H, N, N))).astype(np.float32)
+    mask = None
+    if nW is not None:
+        mask = np.where(rng.rand(nW, N, N) < 0.3, -100.0, 0.0).astype(
+            np.float32)
+    return q, k, v, bias, mask
+
+
+def _rel(a, b):
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def _torch(*arrays):
+    return [None if a is None else torch.from_numpy(a) for a in arrays]
+
+
+def _jax(*arrays):
+    return [None if a is None else jnp.asarray(a) for a in arrays]
+
+
+# the real window of 448 tokens at head_dim 20 with few windows and heads,
+# with and without a mask, and a mask indexed modulo nW (W = 2 nW)
+CASES = {
+    "N448-mask": (2, 2, 448, 20, 2),
+    "N448-nomask": (2, 2, 448, 20, None),
+    "mask-modulo": (6, 2, 64, 8, 3),
+}
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_plain_matches_pallas_interpret(interpret_mode, case):
+    q, k, v, bias, mask = _data(*CASES[case])
+    ref = np.asarray(JWA._pallas_attention(*_jax(q, k, v, bias, mask)))
+    out = WA.window_attention_plain(*_torch(q, k, v, bias, mask)).numpy()
+    assert out.shape == ref.shape and out.dtype == np.float32
+    assert _rel(out, ref) <= REL_TOL
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_plain_matches_attention_xla(case):
+    q, k, v, bias, mask = _data(*CASES[case], seed=1)
+    ref = np.asarray(JWA._attention_xla(*_jax(q, k, v, bias, mask)))
+    out = WA.window_attention_plain(*_torch(q, k, v, bias, mask)).numpy()
+    assert _rel(out, ref) <= REL_TOL
+
+
+def test_mask_row_is_window_modulo_nw():
+    """Window w takes mask row w % nW: shifting the mask rows by one moves
+    the output of every window, and windows w and w + nW agree when their
+    q, k, v agree."""
+    q, k, v, bias, mask = _data(4, 1, 16, 4, 2, seed=2)
+    q[2:], k[2:], v[2:] = q[:2], k[:2], v[:2]
+    out = WA.window_attention_plain(*_torch(q, k, v, bias, mask)).numpy()
+    np.testing.assert_array_equal(out[2:], out[:2])
+    rolled = WA.window_attention_plain(
+        *_torch(q, k, v, bias, mask[::-1].copy())).numpy()
+    assert np.abs(rolled - out).max() > 1e-2
+
+
+def test_plain_with_the_full_width_shift_mask():
+    """The shifted block of the full-width Swin trunk: a (7, 8, 8) window on
+    a 7x48x16 grid gives 12 windows of 448 tokens; one head, D = 20."""
+    mask = jax_shift_mask(7, 48, 16, (7, 8, 8), (0, 4, 4))
+    q, k, v, bias, _ = _data(12, 1, 448, 20, seed=3)
+    ref = np.asarray(JWA._attention_xla(*_jax(q, k, v, bias, mask)))
+    out = WA.window_attention_plain(*_torch(q, k, v, bias, mask)).numpy()
+    assert _rel(out, ref) <= REL_TOL
+
+
+def test_wrapper_on_cpu_takes_the_plain_version(monkeypatch):
+    q, k, v, bias, mask = _torch(*_data(6, 2, 64, 8, 3))
+    before = WA.window_attention.launches
+    calls = []
+    plain = WA.window_attention_plain
+    monkeypatch.setattr(WA, "window_attention_plain",
+                        lambda *a: calls.append(1) or plain(*a))
+    monkeypatch.setattr(WA, "_library", lambda: pytest.fail("built a kernel"))
+    out = WA.window_attention(q, k, v, bias, mask)
+    assert calls == [1] and WA.window_attention.launches == before
+    torch.testing.assert_close(out, plain(q, k, v, bias, mask), rtol=0, atol=0)
+
+
+def test_wrapper_checks_shapes():
+    q, k, v, bias, mask = _torch(*_data(6, 2, 64, 8, 3))
+    with pytest.raises(ValueError, match="one shape"):
+        WA.window_attention(q, k[:, :1], v, bias, mask)
+    with pytest.raises(ValueError, match="bias"):
+        WA.window_attention(q, k, v, bias[:1], mask)
+    with pytest.raises(ValueError, match="multiple"):
+        WA.window_attention(q, k, v, bias, torch.zeros(4, 64, 64))
