@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's reconstruction paths once on one GPU and check
-them.
+"""Run the PyTorch/CUDA port's reconstruction and training paths once on one
+GPU and check them.
 
     python3 chip_smoke.py
 
@@ -12,9 +12,10 @@ then exits non-zero and prints no result:
   2. build    compile every kernel of the paths from kernels/csrc, one nvcc
               per source, all started together; ptxas registers and spills
   3. kernels  each kernel against its plain PyTorch version on the card, at
-              the main paths' shapes (batch 1 and 4; window attention with and
-              without the shift mask), with its time, the plain version's,
-              the PyTorch library call's, and its bound
+              the main paths' shapes (batch 1 and 4; window attention, forward
+              and backward, with and without the shift mask), with its time,
+              the plain version's, the PyTorch library call's, and its bound;
+              the backward also called twice for bitwise-equal gradients
   4. main     the headline config (configs/basic/example.yaml: 5 unrolls x 2
               resblocks x 64 features, float32, seeded torch-default weights)
               on 4 synthetic 20x180x64 slices with 8 coils and 2 maps, through
@@ -26,7 +27,17 @@ then exits non-zero and prints no result:
               x 160 features, depths (6,), 8 heads, window (7, 8, 8), patch
               (4, 4, 4), float32): 30 window-attention and 5 SENSE-normal
               launches per batch
-  6. result   one JSON line of kernels, then the last line
+  6. train    config_swin.yaml's training path through Trainer on cuda:
+              seeded torch-default weights, full-width slices made by
+              make_cine_example (readout 96, cropped to 64) through
+              CinePreprocess and DataLoader in memory, a few Adam steps at
+              batch 1 with stochastic depth and remat on; per step 60
+              window-attention (30 and 30 recomputed), 30 backward and 9
+              SENSE-normal launches (5 forward, 4 backward). One step's device
+              time by kernel group; one step held against the port's CPU
+              path at 1 unroll (full width); a checkpoint reloaded into
+              Reconstructor against the trainer's val_step
+  7. result   one JSON line of kernels, then the last line
               {"ok": true, "device": {...}}
 
 Needs one CUDA device, nvcc and this checkout; no network, no JAX.
@@ -34,18 +45,23 @@ Needs one CUDA device, nvcc and this checkout; no network, no JAX.
 
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
 from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from dl_swin_gan_tpu_torch.convert import init_params
+from dl_swin_gan_tpu_torch.data import DataLoader
 from dl_swin_gan_tpu_torch.data.synthetic import make_cine_example
-from dl_swin_gan_tpu_torch.infer.reconstruct import Reconstructor, batched
+from dl_swin_gan_tpu_torch.infer.reconstruct import (
+    Reconstructor, batched, load_checkpoint_params,
+)
 from dl_swin_gan_tpu_torch.infer.transforms import PARITY_SEED, ResampleTransform
 from dl_swin_gan_tpu_torch.kernels import _build
 from dl_swin_gan_tpu_torch.kernels import sense_normal as SN
@@ -53,6 +69,7 @@ from dl_swin_gan_tpu_torch.kernels import window_attn as WA
 from dl_swin_gan_tpu_torch.models.swin import compute_shift_mask
 from dl_swin_gan_tpu_torch.ops.masks import VDktMaskFunc
 from dl_swin_gan_tpu_torch.ops.sense import _adjoint_impl, _forward_impl
+from dl_swin_gan_tpu_torch.train import CheckpointManager, Trainer
 from dl_swin_gan_tpu_torch.utils.device import use_ieee_fp32
 from dl_swin_gan_tpu_torch.utils.headline import (
     headline_cfg, headline_shape, swin_cfg,
@@ -62,10 +79,11 @@ ACCEL = 12
 SLICES = 4
 SEED = 0
 KERNEL_REL_TOL = 1e-4     # TF32 in a DFT pass would show as ~1e-3
-KERNELS = ("sense_normal", "window_attn")
+KERNELS = ("sense_normal", "window_attn", "window_attn_bwd")
 # each kernel's wrapper, whose `launches` counts the kernel's launches
 COUNTERS = {"sense_normal": SN.sense_normal,
-            "window_attention": WA.window_attention}
+            "window_attention": WA.window_attention,
+            "window_attention_bwd": WA.window_attention_bwd}
 # the Swin block at full width: (20 + 2 * 4 padded) frames / 4 = 7, 180 / 4
 # = 45 rows padded to 48, 64 / 4 = 16 columns; 12 windows of (7, 8, 8), shift
 # (0, 4, 4)
@@ -73,6 +91,13 @@ SWIN_GRID, SWIN_WINDOW, SWIN_SHIFT = (7, 48, 16), (7, 8, 8), (0, 4, 4)
 SWIN_HEADS, SWIN_HEAD_DIM = 8, 20
 CPU_REL_L2_TOL = 1e-3     # fp32 GPU (cuDNN, kernel) vs fp32 CPU, 5 unrolls
 TIMING_RUNS = 30
+# the train phase: slices of readout RAW_X (cropped to 64 by CROP_READOUT),
+# one warm-up step, then TRAIN_STEPS timed steps
+RAW_X = 96
+TRAIN_STEPS = 4
+TRAIN_LOSS_REL_TOL = 1e-4     # GPU vs CPU train step, 1 unroll
+TRAIN_GRAD_REL_L2_TOL = 1e-3
+RUNS = Path(__file__).resolve().parent / "runs" / "chip_smoke"
 # published H100 SXM peaks (NVIDIA data sheet) for the bound
 FP32_FLOPS = 67e12        # float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -153,7 +178,8 @@ def _normal_work(E, C, w):
 
 def phase_kernels():
     return {"sense_normal": kernels_sense_normal(),
-            "window_attention": kernels_window_attention()}
+            "window_attention": kernels_window_attention(),
+            "window_attention_bwd": kernels_window_attention_bwd()}
 
 
 def kernels_sense_normal():
@@ -275,6 +301,120 @@ def kernels_window_attention():
     return results
 
 
+def _attention_bwd_work(W, H, N, D, nW):
+    """(FLOP, bytes) of one window-attention backward: the five products
+    (s, dp, dv, dq, dk); q, k, v, g in, dq, dk, dv out, bias in, dbias out
+    and the mask in, each moved once."""
+    flops = 10 * W * H * N * N * D
+    nbytes = 4 * (7 * W * H * N * D + 2 * H * N * N
+                  + (nW * N * N if nW else 0))
+    return flops, nbytes
+
+
+def _sdpa_backend(fn):
+    """The SDPA kernels fn() ran, by name, from the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    for backend, keys in (("flash", ("flash",)),
+                          ("efficient", ("fmha", "efficient", "mem_eff")),
+                          ("cudnn", ("cudnn_sdpa", "sdpa_cudnn"))):
+        if any(k in n.lower() for n in names for k in keys):
+            return backend
+    return "math"
+
+
+def kernels_window_attention_bwd():
+    """window_attention_bwd kernel vs its plain version vs SDPA's backward
+    (with the float mask bias + mask requiring grad) at the full-width Swin
+    block's shapes, batch 1 and 4, with and without the shift mask; two
+    calls must give bitwise-equal gradients."""
+    N = SWIN_WINDOW[0] * SWIN_WINDOW[1] * SWIN_WINDOW[2]
+    H, D = SWIN_HEADS, SWIN_HEAD_DIM
+    mask = torch.from_numpy(compute_shift_mask(
+        *SWIN_GRID, SWIN_WINDOW, SWIN_SHIFT)).cuda()
+    nW = mask.shape[0]
+    rng = np.random.RandomState(SEED + 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    results = {}
+    for B in (1, 4):
+        W = nW * B
+        q, k, v, g = (torch.from_numpy(rng.standard_normal((W, H, N, D)).astype(
+            np.float32)).cuda() for _ in range(4))
+        bias = torch.from_numpy(
+            0.5 * rng.standard_normal((H, N, N)).astype(np.float32)).cuda()
+        for masked in (True, False):
+            m = mask if masked else None
+            out, lse = WA.window_attention_fwd(q, k, v, bias, m)
+
+            def kernel():
+                return WA.window_attention_bwd(q, k, v, bias, m, g, out, lse)
+
+            grads = kernel()
+            again = kernel()
+            plain = WA.window_attention_bwd_plain(q, k, v, bias, m, g)
+            torch.cuda.synchronize()
+            rels, max_abs = {}, 0.0
+            for name, a, b, c in zip(("dq", "dk", "dv", "dbias"), grads,
+                                     plain, again):
+                check(torch.isfinite(a).all().item(),
+                      f"backward {name} not finite at B={B} mask={masked}")
+                check(torch.equal(a, c), f"backward {name} differs between "
+                      f"two calls at B={B} mask={masked}")
+                err = (a - b).abs().max().item()
+                rels[name] = err / b.abs().max().item()
+                max_abs = max(max_abs, err)
+                check(rels[name] <= KERNEL_REL_TOL,
+                      f"backward {name} vs plain rel err {rels[name]:.3e} > "
+                      f"{KERNEL_REL_TOL} at B={B} mask={masked}")
+
+            full = bias[None] + (mask.repeat(B, 1, 1)[:, None] if masked
+                                 else 0)
+            full = full.expand(W, H, N, N).contiguous().requires_grad_(True)
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v)]
+            lib_out = sdpa(*leaves, attn_mask=full)
+
+            def library():
+                return torch.autograd.grad(lib_out, (*leaves, full), g,
+                                           retain_graph=True)
+
+            backend = _sdpa_backend(library)
+            lib_dq = library()[0]
+            lib_rel = ((lib_dq - plain[0]).abs().max()
+                       / plain[0].abs().max()).item()
+            ms = cuda_ms(kernel)
+            plain_ms = cuda_ms(
+                lambda: WA.window_attention_bwd_plain(q, k, v, bias, m, g))
+            library_ms = cuda_ms(library)
+            del lib_out, full, leaves
+            flops, nbytes = _attention_bwd_work(W, H, N, D,
+                                                nW if masked else 0)
+            t_ops = flops / FP32_FLOPS * 1e3
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            results[B, masked] = dict(
+                max_abs_err=max_abs, rel_err=max(rels.values()),
+                rel_err_by_grad=rels, bitwise_equal_calls=True, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms,
+                library_backend=backend, bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                gflop=flops / 1e9, mbytes=nbytes / 1e6)
+            print(f"kernel window_attention_bwd B={B} [{W},{H},{N},{D}] "
+                  f"mask={'shift' if masked else 'none'}: max|k-p|/max|p| "
+                  + " ".join(f"{n} {r:.3e}" for n, r in rels.items())
+                  + f" (max abs {max_abs:.3e}; two calls bitwise equal; SDPA "
+                  f"dq {lib_rel:.3e}) kernel_ms {ms:.4f} plain_ms "
+                  f"{plain_ms:.4f} library_ms {library_ms:.4f} (SDPA backward, "
+                  f"{backend} backend) bound_ms {max(t_ops, t_bytes):.4f} "
+                  f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB) "
+                  f"achieved {flops / ms / 1e9:.2f} TFLOP/s")
+    return results
+
+
 def _time_recon(recon, examples, batch_size, repeats):
     """(outputs of the first run, median seconds per run) over all slices."""
     out, times = None, []
@@ -288,23 +428,27 @@ def _time_recon(recon, examples, batch_size, repeats):
 
 
 # kernel-name fragments -> the layer they belong to, first match wins; the
-# conv group also takes the Swin trunk's linear layers (cuBLAS GEMMs)
+# conv group also takes the Swin trunk's linear layers (cuBLAS GEMMs) and,
+# in training, their weight and data gradients
 _GROUPS = (("window attention kernel", ("window_attn",)),
+           ("window attention backward kernel", ("attn_bwd",)),
            ("layer norm", ("layer_norm",)),
+           ("Adam update", ("adam", "multi_tensor")),
            ("sense_normal kernel", ("coil_normal", "coil_combine")),
            ("cuFFT (adjoint A^H y)", ("fft",)),
            ("copies host<->device", ("memcpy",)),
-           ("conv trunk (cuDNN)", ("conv", "xmma", "gemm", "cudnn", "implicit")))
+           ("conv trunk (cuDNN)", ("conv", "xmma", "gemm", "cudnn", "implicit",
+                                   "wgrad", "dgrad")))
 
 
-def profile_slice(recon, batch):
-    """Device time of one batch-1 reconstruction by kernel group, from
-    torch.profiler, against the host-clock time of the profiled run."""
+def profile_device(label, fn):
+    """Device time of fn() by kernel group, from torch.profiler, against the
+    host-clock time of the profiled run."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        recon(batch)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
@@ -321,7 +465,7 @@ def profile_slice(recon, batch):
         return
     parts = ", ".join(f"{g} {ms:.3f}" for g, ms in
                       sorted(groups.items(), key=lambda kv: -kv[1]))
-    print(f"profile: one slice, batch 1, profiled: host {wall_ms:.2f} ms, "
+    print(f"profile: {label}, profiled: host {wall_ms:.2f} ms, "
           f"device busy {busy_ms:.2f} ms ({busy_ms / wall_ms:.1%}); ms by "
           f"group: {parts}")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
@@ -390,7 +534,8 @@ def run_path(tag, cfg, expected):
         trunk_ms = cuda_ms(lambda: recon.model.nets[0](x0), runs=10)
     print(f"{tag}: denoiser trunk {trunk_ms:.3f} ms per unroll per slice "
           f"(x{nunroll} unrolls)")
-    profile_slice(recon, next(batched(examples[:1], 1)))
+    batch = next(batched(examples[:1], 1))
+    profile_device(f"{tag}: one slice, batch 1", lambda: recon(batch))
 
     t0 = time.perf_counter()
     cpu = Reconstructor(cfg, params, device="cpu")(next(batched(examples[:1], 1)))
@@ -408,7 +553,8 @@ def phase_main():
     cfg = headline_cfg()
     nunroll = cfg.MODEL.PARAMETERS.NUM_UNROLLS
     return run_path("main", cfg, {"sense_normal": nunroll,
-                                  "window_attention": 0})
+                                  "window_attention": 0,
+                                  "window_attention_bwd": 0})
 
 
 def phase_swin():
@@ -418,7 +564,145 @@ def phase_swin():
     blocks = 6 * p.NUM_SWINBLOCKS               # depths (6,) per trunk
     return run_path("swin", cfg, {
         "sense_normal": p.NUM_UNROLLS,
-        "window_attention": blocks * p.NUM_UNROLLS})
+        "window_attention": blocks * p.NUM_UNROLLS,
+        "window_attention_bwd": 0})
+
+
+class _InMemory:
+    """Raw slices held in memory, preprocessed on access: the dataset the
+    DataLoader reads in place of an Hdf5Dataset (no h5py needed)."""
+
+    def __init__(self, slices, transform):
+        self.slices, self.transform = slices, transform
+
+    def __len__(self):
+        return len(self.slices)
+
+    def __getitem__(self, i):
+        k, m, t = self.slices[i]
+        return self.transform(k, m, t, f"chip_smoke_{i}")
+
+
+def _train_launches(cfg):
+    """Kernel launches of one train step of the unrolled Swin solver, from
+    the code: each Swin block calls window attention once in the forward,
+    once more in remat's recompute, and its backward once; each unroll calls
+    the SENSE normal op once, and its backward (self-adjoint: the same
+    kernel) runs for every unroll but the first, whose input needs no
+    gradient."""
+    p = cfg.MODEL.PARAMETERS
+    blocks = 6 * p.NUM_SWINBLOCKS * p.NUM_UNROLLS   # depths (6,) per trunk
+    return {"window_attention": blocks * (2 if p.GRAD_CHECKPOINT else 1),
+            "window_attention_bwd": blocks,
+            "sense_normal": 2 * p.NUM_UNROLLS - 1}
+
+
+def _step_and_grads(cfg, params, batch, device):
+    """(loss, flat gradient, seconds) of one train step from `params`."""
+    trainer = Trainer(cfg, device=device)
+    state = trainer.init_state(state_dict=params)
+    t0 = time.perf_counter()
+    loss = float(trainer.train_step(state, batch)["Train/complex_l1"])
+    seconds = time.perf_counter() - t0
+    grads = torch.cat([p.grad.flatten().cpu() for p in
+                       state.model.parameters() if p.grad is not None])
+    return loss, grads, seconds
+
+
+def phase_train():
+    """config_swin.yaml's training path through Trainer on the card."""
+    cfg = swin_cfg(output_dir=str(RUNS))
+    T, Y, X, C, E = headline_shape()
+    t0 = time.perf_counter()
+    slices = [make_cine_example(T=T, Y=Y, X=RAW_X, C=C, E=E, seed=SEED + s)
+              for s in range(TRAIN_STEPS + 1)]
+    trainer = Trainer(cfg)                      # the GPU: no device given
+    check(trainer.device.type == "cuda", f"Trainer on {trainer.device}")
+    loader = DataLoader(_InMemory(slices, trainer.make_preprocess(
+        use_seed=True)), batch_size=cfg.DATALOADER.TRAIN_BATCH_SIZE,
+        num_workers=1, shuffle=True, seed=cfg.SEED)
+    trainer.set_steps_per_epoch(len(loader))
+    batches = list(loader)
+    host_s = time.perf_counter() - t0
+    check(batches[0]["kspace"].shape == (1, C, T, Y, X),
+          f"batch k-space {batches[0]['kspace'].shape}")
+    print(f"train: {len(batches)} slices [{C},{T},{Y},{RAW_X}] E={E} through "
+          f"CinePreprocess (readout cropped to {X}, VDkt "
+          f"{tuple(cfg.AUG_TRAIN.UNDERSAMPLE.ACCELERATIONS)}) and DataLoader; "
+          f"host data {host_s:.2f} s")
+
+    params = init_params(cfg, SEED)
+    state = trainer.init_state(state_dict=params)
+    trainer.train_step(state, batches[0])       # warm-up (cuDNN, allocator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    expected = _train_launches(cfg)
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    times, losses = [], []
+    for b in batches[1:]:
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(state, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["Train/complex_l1"]))
+    steps = len(times)
+    counts = {name: {"steps": fn.launches} for name, fn in COUNTERS.items()}
+    for name, fn in COUNTERS.items():
+        check(fn.launches == expected[name] * steps,
+              f"train: {fn.launches} {name} launches in {steps} steps, "
+              f"expected {expected[name]} per step")
+    check(np.isfinite(losses).all(), f"train losses {losses}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"train: {np.median(times) * 1e3:.2f} ms per train step (median of "
+          f"{steps}; {', '.join(f'{t * 1e3:.2f}' for t in times)}), batch "
+          f"{cfg.DATALOADER.TRAIN_BATCH_SIZE}, peak device memory "
+          f"{peak_gb:.2f} GB; complex_l1 per step "
+          f"{', '.join(f'{x:.6f}' for x in losses)}; launches per step "
+          + ", ".join(f"{counts[n]['steps'] // steps} {n}" for n in COUNTERS))
+    profile_device("train: one train step",
+                   lambda: trainer.train_step(state, batches[1]))
+
+    metrics, pred = trainer.val_step(state, batches[0])
+    check(pred.shape == (1, E, T, Y, X) and torch.isfinite(
+        torch.view_as_real(pred)).all().item(), f"val_step output {pred.shape}")
+    print("train: val_step " + ", ".join(
+        f"{k} {float(v):.6f}" for k, v in metrics.items()))
+
+    # a checkpoint of this state, reloaded into the serving path
+    shutil.rmtree(RUNS, ignore_errors=True)
+    CheckpointManager(str(RUNS / "checkpoints")).save(state.step, state)
+    recon = Reconstructor(cfg, load_checkpoint_params(str(RUNS / "checkpoints")))
+    out = recon(batches[0])
+    ref = (pred * torch.from_numpy(batches[0]["scale"]).cuda().reshape(
+        -1, 1, 1, 1, 1)).cpu().numpy()
+    rel_ck = np.linalg.norm(out - ref) / np.linalg.norm(ref)
+    print(f"train: checkpoint at step {state.step} through "
+          f"load_checkpoint_params and Reconstructor vs val_step: rel L2 "
+          f"{rel_ck:.3e}")
+    check(rel_ck <= 1e-6, f"checkpoint reconstruction rel L2 {rel_ck:.3e}")
+
+    # one step against the port's CPU path, cut to 1 unroll at full width:
+    # the same weights, batch and dropout seed (stochastic depth on)
+    cut = swin_cfg(output_dir=str(RUNS))
+    cut.MODEL.PARAMETERS.NUM_UNROLLS = 1
+    cut_params = init_params(cut, SEED)
+    gpu = _step_and_grads(cut, cut_params, batches[0], "cuda")
+    cpu = _step_and_grads(cut, cut_params, batches[0], "cpu")
+    rel_loss = abs(gpu[0] - cpu[0]) / abs(cpu[0])
+    rel_grad = ((gpu[1] - cpu[1]).norm() / cpu[1].norm()).item()
+    print(f"train: one step at 1 unroll vs the port's CPU path ({cpu[2]:.1f} "
+          f"s on the CPU): loss {gpu[0]:.6f} vs {cpu[0]:.6f} (rel "
+          f"{rel_loss:.3e}), gradient rel L2 {rel_grad:.3e} over "
+          f"{cpu[1].numel()} values")
+    check(rel_loss <= TRAIN_LOSS_REL_TOL,
+          f"GPU vs CPU train loss rel {rel_loss:.3e} > {TRAIN_LOSS_REL_TOL}")
+    check(rel_grad <= TRAIN_GRAD_REL_L2_TOL,
+          f"GPU vs CPU gradient rel L2 {rel_grad:.3e} > "
+          f"{TRAIN_GRAD_REL_L2_TOL}")
+    shutil.rmtree(RUNS, ignore_errors=True)
+    return counts
 
 
 def _entry(name, source, replaces, res, launches):
@@ -450,7 +734,8 @@ def main():
     phase_device()
     phase_build()
     kres = phase_kernels()
-    counts = {"main": phase_main(), "swin": phase_swin()}
+    counts = {"main": phase_main(), "swin": phase_swin(),
+              "train": phase_train()}
 
     def by_path(name):
         return {path: c[name] for path, c in counts.items()}
@@ -467,6 +752,12 @@ def main():
                {f"B={B} mask={'shift' if m else 'none'}": r
                 for (B, m), r in kres["window_attention"].items()},
                by_path("window_attention")),
+        _entry("window_attention_bwd",
+               "dl_swin_gan_tpu_torch/kernels/csrc/window_attn_bwd.cu",
+               "dl_swin_gan_tpu/kernels/window_attn.py:148",
+               {f"B={B} mask={'shift' if m else 'none'}": r
+                for (B, m), r in kres["window_attention_bwd"].items()},
+               by_path("window_attention_bwd")),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

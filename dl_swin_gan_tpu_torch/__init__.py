@@ -2,19 +2,22 @@
 
 A second package beside the JAX one, with the same module paths so each
 counterpart is easy to find. It imports torch and never jax, flax or the JAX
-package. Ported so far: the example-config reconstruction path (RES denoiser,
-PGD solver, float32), with a hand-written Hopper kernel for the SENSE normal
-operator, and the unrolled-Swin reconstruction path (config_swin.yaml), with
-a hand-written Hopper kernel for window attention (forward).
+package. Ported so far: reconstruction and training of the example config
+(RES denoiser, PGD solver, float32) and of config_swin.yaml (the unrolled
+Swin), with hand-written Hopper kernels for the SENSE normal operator and
+for window attention (forward and backward).
 
 Layout:
     config/     YAML config system (same schema as the JAX package)
-    data/       host-side numpy: CFL IO, operator twins, synthetic phantoms
-    ops/        FFTs, SENSE operators, VDkt masks
+    data/       host-side numpy: CFL IO, operator twins, synthetic phantoms,
+                the training preprocess, the HDF5 dataset and loader
+    ops/        FFTs, SENSE operators, VDkt masks, image metrics
     kernels/    hand-written CUDA kernels (csrc/) and their plain versions
     models/     denoiser backbones (real-valued 3D ResNet, Swin)
     solvers/    unrolled PGD solver
-    infer/      inference transforms and the Reconstructor
+    train/      metrics and losses, Adam and StepLR, checkpoints, the Trainer
+                and its command line (python -m dl_swin_gan_tpu_torch.train)
+    infer/      inference transforms, the Reconstructor, checkpoint loading
     utils/      device choice, float32 precision, the headline configs
     convert.py  JAX param tree -> torch state_dict; seeded torch init
 """

@@ -1,4 +1,6 @@
 from dl_swin_gan_tpu_torch.infer.transforms import (
     PARITY_SEED, InferenceTransform, ResampleTransform,
 )
-from dl_swin_gan_tpu_torch.infer.reconstruct import Reconstructor, reconstruct_h5_file
+from dl_swin_gan_tpu_torch.infer.reconstruct import (
+    Reconstructor, load_checkpoint_params, reconstruct_h5_file,
+)

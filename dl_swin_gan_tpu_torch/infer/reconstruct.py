@@ -10,6 +10,7 @@ only for its TPU relay and has no counterpart here.
 import logging
 import os
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -22,6 +23,28 @@ from dl_swin_gan_tpu_torch.utils.device import resolve_device, use_ieee_fp32
 logger = logging.getLogger(__name__)
 
 _INPUTS = ("kspace", "maps", "mask", "init_image", "scale")
+
+
+def load_checkpoint_params(ckpt_dir: str, step: Optional[int] = None,
+                           use_ema: bool = False) -> dict:
+    """The solver's state_dict (or its EMA weights) from a checkpoint
+    directory of the port's `train.CheckpointManager`, on the CPU; the
+    latest step when `step` is None."""
+    from dl_swin_gan_tpu_torch.train.checkpoint import CheckpointManager
+
+    mgr = CheckpointManager(ckpt_dir)
+    step = step if step is not None else mgr.latest_step()
+    if step is None:
+        raise FileNotFoundError(f"No checkpoint found in {ckpt_dir}")
+    payload = mgr.restore(step=step)
+    if use_ema and payload["ema"]:
+        params = dict(payload["model"])
+        params.update(payload["ema"])     # buffers stay as trained
+    else:
+        params = payload["model"]
+    logger.info("loaded checkpoint step %s from %s (ema=%s)", step, ckpt_dir,
+                use_ema)
+    return params
 
 
 class Reconstructor:

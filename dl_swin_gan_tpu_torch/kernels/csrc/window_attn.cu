@@ -12,6 +12,8 @@
 //   q, k, v, out  [W, H, N, D]    W = batch * windows, D % 4 == 0, D <= 32
 //   bias          [H, N, N]       relative-position bias, gathered per head
 //   mask          [nW, N, N]      0 / -100 shift mask, or null
+//   lse           [W, H, N]       each row's log-sum-exp, or null; written
+//                                 for the backward (window_attn_bwd.cu)
 //
 // Bound: 4*W*H*N^2*D FLOP (the two products) against about 4*(4*W*H*N*D +
 // H*N^2 + nW*N^2) bytes. At the Swin denoiser's full width (N = 448,
@@ -90,8 +92,8 @@ window_attn_fwd_kernel(const float* __restrict__ q,
                        const float* __restrict__ v,
                        const float* __restrict__ bias,
                        const float* __restrict__ mask,
-                       float* __restrict__ out, int H, int N, int nW,
-                       float scale) {
+                       float* __restrict__ out, float* __restrict__ lse,
+                       int H, int N, int nW, float scale) {
   static_assert(D % 4 == 0 && D % kSplits == 0, "D must be a multiple of 4");
   extern __shared__ float4 smem4[];
   float* ks = reinterpret_cast<float*>(smem4);
@@ -227,12 +229,12 @@ window_attn_fwd_kernel(const float* __restrict__ q,
 
   // 4. merge the four splits of each row (lanes 4p .. 4p+3 of one warp)
   constexpr unsigned kFull = 0xffffffffu;
-  float m = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 1));
-  m = fmaxf(m, __shfl_xor_sync(kFull, m, 2));
-  const float f0 = mx0 == -CUDART_INF_F ? 0.f : expf(mx0 - m);
-  m = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, 1));
-  m = fmaxf(m, __shfl_xor_sync(kFull, m, 2));
-  const float f1 = mx1 == -CUDART_INF_F ? 0.f : expf(mx1 - m);
+  float top0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 1));
+  top0 = fmaxf(top0, __shfl_xor_sync(kFull, top0, 2));
+  const float f0 = mx0 == -CUDART_INF_F ? 0.f : expf(mx0 - top0);
+  float top1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, 1));
+  top1 = fmaxf(top1, __shfl_xor_sync(kFull, top1, 2));
+  const float f1 = mx1 == -CUDART_INF_F ? 0.f : expf(mx1 - top1);
   l0 *= f0;
   l1 *= f1;
   l0 += __shfl_xor_sync(kFull, l0, 1);
@@ -249,7 +251,8 @@ window_attn_fwd_kernel(const float* __restrict__ q,
     acc1[d] += __shfl_xor_sync(kFull, acc1[d], 2);
   }
 
-  // 5. each of the four lanes stores a quarter of the two rows
+  // 5. each of the four lanes stores a quarter of the two rows; the first
+  // also stores the rows' log-sum-exp when the backward asked for it
   float* og = out + wh * N * D;
   constexpr int kPart = D / kSplits;
 #pragma unroll
@@ -259,12 +262,16 @@ window_attn_fwd_kernel(const float* __restrict__ q,
       if (r1 < N) og[r1 * D + d] = acc1[d] / l1;
     }
   }
+  if (lse != nullptr && split == 0) {
+    if (r0 < N) lse[wh * N + r0] = top0 + logf(l0);
+    if (r1 < N) lse[wh * N + r1] = top1 + logf(l1);
+  }
 }
 
 template <int D>
 int launch(const float* q, const float* k, const float* v, const float* bias,
-           const float* mask, float* out, int W, int H, int N, int nW,
-           float scale, cudaStream_t stream) {
+           const float* mask, float* out, float* lse, int W, int H, int N,
+           int nW, float scale, cudaStream_t stream) {
   const size_t smem = 2 * sizeof(float) * (size_t)staged_floats(N, D);
   cudaError_t err = cudaFuncSetAttribute(
       window_attn_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -272,7 +279,7 @@ int launch(const float* q, const float* k, const float* v, const float* bias,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + kRows - 1) / kRows, H, W);
   window_attn_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
-      q, k, v, bias, mask, out, H, N, nW, scale);
+      q, k, v, bias, mask, out, lse, H, N, nW, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -287,22 +294,26 @@ long long window_attn_smem_bytes(int N, int D) {
 }
 
 // Launches the kernel on `stream`; returns the CUDA error code (0 = ok).
-// `mask` may be null (then nW is not read). D is a multiple of 4 up to 32;
-// any other head_dim returns cudaErrorInvalidValue.
+// `mask` may be null (then nW is not read). `lse` may be null; otherwise it
+// receives each row's log-sum-exp [W, H, N], which the backward
+// (window_attn_bwd.cu) reads. D is a multiple of 4 up to 32; any other
+// head_dim returns cudaErrorInvalidValue.
 int window_attn_launch(const void* q, const void* k, const void* v,
-                       const void* bias, const void* mask, void* out, int W,
-                       int H, int N, int D, int nW, float scale,
-                       void* stream) {
+                       const void* bias, const void* mask, void* out,
+                       void* lse, int W, int H, int N, int D, int nW,
+                       float scale, void* stream) {
   const auto* qf = static_cast<const float*>(q);
   const auto* kf = static_cast<const float*>(k);
   const auto* vf = static_cast<const float*>(v);
   const auto* bf = static_cast<const float*>(bias);
   const auto* mf = static_cast<const float*>(mask);
   auto* of = static_cast<float*>(out);
+  auto* lf = static_cast<float*>(lse);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
 #define WINDOW_ATTN_CASE(DIM) \
-    case DIM: return launch<DIM>(qf, kf, vf, bf, mf, of, W, H, N, nW, scale, s);
+    case DIM:                                                             \
+      return launch<DIM>(qf, kf, vf, bf, mf, of, lf, W, H, N, nW, scale, s);
     WINDOW_ATTN_CASE(4)
     WINDOW_ATTN_CASE(8)
     WINDOW_ATTN_CASE(12)

@@ -28,10 +28,13 @@ _SMEM_LIMIT = 232_448
 @functools.lru_cache(maxsize=None)
 def ortho_dft(n: int, device: torch.device) -> torch.Tensor:
     """Symmetric unitary DFT matrix [n, n]: built in float64, rounded to
-    complex64 (the same matrices as the TPU kernel's `_ortho_dft`)."""
+    complex64 (the same matrices as the TPU kernel's `_ortho_dft`). A normal
+    tensor even when first built under torch.inference_mode, so that the
+    plain version's autograd can save it."""
     k = np.arange(n, dtype=np.float64)
     m = np.exp(-2j * np.pi * np.outer(k, k) / n) / np.sqrt(n)
-    return torch.from_numpy(m.astype(np.complex64)).to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(m.astype(np.complex64)).to(device)
 
 
 def sense_normal_plain(x: torch.Tensor, maps: torch.Tensor,
@@ -95,6 +98,9 @@ def sense_normal(x: torch.Tensor, maps: torch.Tensor,
         return sense_normal_plain(x, maps, w)
     if x.device.type != "cuda":
         raise ValueError(f"sense_normal has no kernel for {x.device}")
+    # the kernel reads raw memory: a view with the conj or neg bit set (such
+    # as x.conj(), or a cotangent autograd made lazily) is resolved first
+    x, maps, w = (t.resolve_conj().resolve_neg() for t in (x, maps, w))
     if not (x.is_contiguous() and maps.is_contiguous() and w.is_contiguous()):
         raise ValueError("sense_normal's kernel needs contiguous inputs")
     B, E, T, Y, X = x.shape

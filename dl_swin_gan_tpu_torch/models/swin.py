@@ -114,24 +114,32 @@ def _relative_position_index(ws) -> np.ndarray:
     return rel.sum(-1)
 
 
-# the mask and the index are constants per shape, built once per device
+# the mask and the index are constants per shape, built once per device, and
+# built as normal tensors even when the first call runs under
+# torch.inference_mode (serving): autograd may not save an inference tensor,
+# so a cached one would break every later train step
 @functools.lru_cache(maxsize=32)
 def _shift_mask(dims, ws, ss, device) -> torch.Tensor:
-    return torch.from_numpy(compute_shift_mask(*dims, ws, ss)).to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(compute_shift_mask(*dims, ws, ss)).to(device)
 
 
 @functools.lru_cache(maxsize=32)
 def _bias_index(ws, n: int, device) -> torch.Tensor:
     index = _relative_position_index(ws)[:n, :n].reshape(-1)
-    return torch.from_numpy(np.ascontiguousarray(index)).to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(np.ascontiguousarray(index)).to(device)
 
 
 # ---------------------------------------------------------------- modules
 
 class DropPath(nn.Module):
     """Stochastic depth (per-sample residual drop): the identity in eval
-    mode; in train mode it draws its keep mask from the generator it was
-    built with, and raises if it has none."""
+    mode; in train mode it draws its keep mask from `self.generator`, and
+    raises if it has none. The weights' init generator is not it: the
+    trainer owns a CPU generator for the draws and hands it to every
+    DropPath (`set_dropout_generator`), and the solver's remat replays the
+    draws in its recompute (`solvers/unrolled.py`)."""
 
     def __init__(self, rate: float = 0.0,
                  generator: Optional[torch.Generator] = None):
@@ -150,6 +158,15 @@ class DropPath(nn.Module):
                           device=self.generator.device)
         return torch.where((draw < keep).to(x.device), x / keep,
                            torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def set_dropout_generator(module: nn.Module,
+                          generator: Optional[torch.Generator]) -> None:
+    """Give every DropPath under `module` the generator its draws come
+    from."""
+    for m in module.modules():
+        if isinstance(m, DropPath):
+            m.generator = generator
 
 
 class WindowAttention3D(nn.Module):
@@ -202,7 +219,7 @@ class SwinBlock3D(nn.Module):
         self.norm2 = LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, approximate=False,
                        generator=generator)
-        self.drop_path = DropPath(drop_path, generator)
+        self.drop_path = DropPath(drop_path)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, D, H, W, C = x.shape

@@ -10,13 +10,44 @@ sliding-window image) or A^H y. The hqs (MoDL), dc and none rules raise
 NotImplementedError.
 """
 
+import contextlib
 from typing import Callable, Optional
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from dl_swin_gan_tpu_torch.models.swin import DropPath
 from dl_swin_gan_tpu_torch.ops.sense import SenseOp
+
+
+@contextlib.contextmanager
+def _replay(generators, states):
+    """Run the recompute with each generator back at the state it had before
+    the checkpointed forward, then return it to where it is now."""
+    now = [g.get_state() for g in generators]
+    for g, state in zip(generators, states):
+        g.set_state(state)
+    try:
+        yield
+    finally:
+        for g, state in zip(generators, now):
+            g.set_state(state)
+
+
+def _checkpoint_replaying_dropout(net: nn.Module, x: torch.Tensor):
+    """`checkpoint(net, x)` whose recompute draws the same DropPath masks as
+    the forward did. torch's checkpoint restores only the default CPU and
+    CUDA RNG states, not the explicit generators DropPath draws from, so
+    without the replay the backward would run on other masks than the
+    forward (JAX's remat replays its dropout key the same way)."""
+    generators = list({id(m.generator): m.generator for m in net.modules()
+                       if isinstance(m, DropPath) and m.training
+                       and m.rate > 0.0 and m.generator is not None
+                       }.values())
+    states = [g.get_state() for g in generators]
+    return checkpoint(net, x, use_reentrant=False, context_fn=lambda: (
+        contextlib.nullcontext(), _replay(generators, states)))
 
 
 class UnrolledSolver(nn.Module):
@@ -47,7 +78,7 @@ class UnrolledSolver(nn.Module):
     def _denoise(self, i: int, x: torch.Tensor) -> torch.Tensor:
         net = self.nets[0 if self.share_weights else i]
         if self.remat and torch.is_grad_enabled():
-            return checkpoint(net, x, use_reentrant=False)
+            return _checkpoint_replaying_dropout(net, x)
         return net(x)
 
     def forward(self, y, maps, mask, x0: Optional[torch.Tensor] = None):
@@ -77,7 +108,8 @@ _DC_MODE_FROM_META = {
 def build_solver(cfg, generator: Optional[torch.Generator] = None,
                  dc_mode: Optional[str] = None) -> UnrolledSolver:
     """Construct the solver and its denoisers from a config; `generator`
-    seeds the weights (torch-default init)."""
+    seeds the weights (torch-default init) and nothing else: the DropPath
+    draws come from the trainer's own generator."""
     from dl_swin_gan_tpu_torch.models import build_denoiser
 
     p = cfg.MODEL.PARAMETERS

@@ -1,0 +1,10 @@
+"""Training: metrics and losses, train state, checkpoints, the Trainer and
+its command line (`python -m dl_swin_gan_tpu_torch.train`)."""
+
+from dl_swin_gan_tpu_torch.train.checkpoint import CheckpointManager
+from dl_swin_gan_tpu_torch.train.losses import compute_metrics, select_loss
+from dl_swin_gan_tpu_torch.train.train_state import (
+    TrainState, clip_by_global_norm_, ema_update, make_lr_schedule,
+    make_optimizer,
+)
+from dl_swin_gan_tpu_torch.train.trainer import MetricsWriter, Trainer

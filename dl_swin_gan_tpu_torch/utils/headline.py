@@ -5,9 +5,10 @@ a fixed step size, sliding-window init, real (split re/im channel) convs, on
 a 20x180x64 cine slice with 8 coils and 2 ESPIRiT maps. The same point as the
 JAX package's `utils/headline.py`; `chip_smoke.py` runs it.
 
-`configs/config_swin.yaml`: the unrolled-Swin reconstruction (5 unrolls x 1
+`configs/config_swin.yaml`: the unrolled-Swin model (5 unrolls x 1
 swinblock x 160 features; the denoiser fixes depths (6,), 8 heads, window
-(7, 8, 8)) on the same slice; `chip_smoke.py` runs it too.
+(7, 8, 8)) on the same slice, with its training settings (complex L1, Adam
+at 1e-4, per-epoch StepLR, batch 1); `chip_smoke.py` serves and trains it.
 """
 
 
@@ -33,13 +34,14 @@ def headline_shape():
 
 
 def swin_cfg(output_dir: str = "runs/swin"):
-    """`configs/config_swin.yaml` built in code (no YAML): every field the
-    reconstruction path reads."""
+    """`configs/config_swin.yaml` built in code (no YAML): every field it
+    sets, which covers what the reconstruction and training paths read."""
     from dl_swin_gan_tpu_torch.config import get_cfg
 
     cfg = get_cfg()
     cfg.MODEL.MODEL_TYPE = "SWIN"
     cfg.MODEL.META_ARCHITECTURE = "dlespirit"
+    cfg.MODEL.STRATEGY = "standard"
     p = cfg.MODEL.PARAMETERS
     p.NUM_UNROLLS = 5
     p.NUM_RESBLOCKS = 2
@@ -54,11 +56,23 @@ def swin_cfg(output_dir: str = "runs/swin"):
     p.CONV_BLOCK.NORM = "none"
     p.CONV_BLOCK.CIRCULAR_PAD = True
     p.CONV_BLOCK.COMPLEX = False
+    cfg.MODEL.RECON_LOSS.NAME = "complex_l1"
+    cfg.MODEL.RECON_LOSS.RENORMALIZE_DATA = False
+    cfg.MODEL.RECON_LOSS.LOSS_WEIGHT = False
+    cfg.DATALOADER.TRAIN_BATCH_SIZE = 1
+    cfg.DATALOADER.VAL_BATCH_SIZE = 1
     cfg.AUG_TRAIN.CROP_READOUT = 64
     cfg.AUG_TRAIN.UNDERSAMPLE.NAME = "VDktMaskFunc"
     cfg.AUG_TRAIN.UNDERSAMPLE.ACCELERATIONS = (10, 15)
     cfg.AUG_TRAIN.UNDERSAMPLE.PARTIAL_KX = 0.25
     cfg.AUG_TRAIN.UNDERSAMPLE.PARTIAL_KY = 0.25
+    cfg.OPTIMIZER.NAME = "Adam"
+    cfg.OPTIMIZER.MAX_EPOCHS = 999
+    cfg.OPTIMIZER.GRAD_ACCUM_ITERS = 1
+    cfg.OPTIMIZER.ADAM.LR = 0.0001
+    cfg.EVAL.RUN_EVERY_N_EPOCHS = 1
+    cfg.LOGGER.LOG_METRICS_EVERY_N_STEPS = 50
+    cfg.LOGGER.LOG_IMAGES_EVERY_N_STEPS = 50
     cfg.SEED = 1000
     cfg.OUTPUT_DIR = output_dir
     return cfg

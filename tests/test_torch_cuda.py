@@ -12,6 +12,7 @@ import torch
 
 from dl_swin_gan_tpu_torch.config import get_cfg
 from dl_swin_gan_tpu_torch.convert import init_params
+from dl_swin_gan_tpu_torch.data.preprocess import CinePreprocess
 from dl_swin_gan_tpu_torch.data.synthetic import make_cine_example
 from dl_swin_gan_tpu_torch.infer import Reconstructor, ResampleTransform
 from dl_swin_gan_tpu_torch.infer.reconstruct import batched
@@ -19,6 +20,7 @@ from dl_swin_gan_tpu_torch.kernels import sense_normal as SN
 from dl_swin_gan_tpu_torch.kernels import window_attn as WA
 from dl_swin_gan_tpu_torch.models.swin import compute_shift_mask
 from dl_swin_gan_tpu_torch.ops import sense
+from dl_swin_gan_tpu_torch.train import Trainer
 
 pytestmark = pytest.mark.cuda
 
@@ -162,9 +164,8 @@ def test_window_attention_rejects_what_it_cannot_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         WA.window_attention(q.transpose(2, 3).contiguous().transpose(2, 3),
                             k, v, bias, mask)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 2"):
-        WA.window_attention(q.detach().clone().requires_grad_(True), k, v,
-                            bias, mask)
+    with pytest.raises(ValueError, match="out .* and lse"):
+        WA.window_attention_bwd(q, k, v, bias, mask, q)
     q6, k6, v6, bias6, _ = _attn_inputs(dev, 2, 1, 16, 6)
     with pytest.raises(ValueError, match="head_dim"):
         WA.window_attention(q6, k6, v6, bias6)
@@ -191,3 +192,126 @@ def test_swin_reconstructor_on_card_matches_cpu(dev):
     assert WA.window_attention.launches == before + 6 * 2
     cpu = Reconstructor(cfg, params, device="cpu")(batch)
     assert np.linalg.norm(gpu - cpu) / np.linalg.norm(cpu) <= REL_TOL
+
+
+def test_sense_normal_resolves_conj_and_neg_views(dev):
+    """The kernel reads raw memory: a view with the conj or neg bit set must
+    give what its resolved values give."""
+    x, maps, w = _inputs(dev, 1, 2, 3, 2, 16, 12, seed=2)
+    ref = SN.sense_normal(x.conj().resolve_conj(), maps.conj().resolve_conj(),
+                          w)
+    out = SN.sense_normal(x.conj(), maps.conj(), w)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    neg = SN.sense_normal(torch._neg_view(x), maps, w)
+    torch.testing.assert_close(neg, SN.sense_normal(-x, maps, w), rtol=0,
+                               atol=0)
+    assert _rel(ref, SN.sense_normal(x, maps, w)) > 1e-2  # conj matters
+
+
+def test_window_attention_resolves_neg_views(dev):
+    q, k, v, bias, mask = _attn_inputs(dev, 6, 2, 64, 8, 3)
+    out = WA.window_attention(torch._neg_view(q), k, v, bias, mask)
+    torch.testing.assert_close(
+        out, WA.window_attention(-q, k, v, bias, mask), rtol=0, atol=0)
+    fwd, lse = WA.window_attention_fwd(q, k, v, bias, mask, with_lse=True)
+    g = torch.randn_like(q)
+    a = WA.window_attention_bwd(q, k, v, bias, mask, torch._neg_view(g),
+                                fwd, lse)
+    b = WA.window_attention_bwd(q, k, v, bias, mask, -g, fwd, lse)
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
+def _bwd_case(dev, shape, seed=0):
+    W, H, N, D, nW = shape
+    q, k, v, bias, mask = _attn_inputs(dev, W, H, N, D, nW, seed=seed)
+    g = torch.from_numpy(np.random.RandomState(seed + 9).standard_normal(
+        q.shape).astype(np.float32)).to(dev)
+    out, lse = WA.window_attention_fwd(q, k, v, bias, mask, with_lse=True)
+    return q, k, v, bias, mask, g, out, lse
+
+
+@pytest.mark.parametrize("shape", [
+    (12, 8, 448, 20, 12),       # the full-width Swin block, batch 1, shifted
+    (48, 8, 448, 20, None),     # batch 4, unshifted
+    (6, 3, 100, 8, 3),          # ragged against 32 keys and 64 rows
+    (4, 2, 40, 32, None),       # the widest head_dim
+    (2, 1, 3, 4, 1),            # fewer keys and rows than a tile
+])
+def test_window_attention_bwd_matches_plain(dev, shape):
+    q, k, v, bias, mask, g, out, lse = _bwd_case(dev, shape)
+    torch.testing.assert_close(
+        lse, torch.logsumexp(_scores(q, k, bias, mask), -1), rtol=1e-5,
+        atol=1e-5)
+    before = WA.window_attention_bwd.launches
+    grads = WA.window_attention_bwd(q, k, v, bias, mask, g, out, lse)
+    torch.cuda.synchronize()
+    assert WA.window_attention_bwd.launches == before + 1
+    plain = WA.window_attention_bwd_plain(q, k, v, bias, mask, g)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), grads, plain):
+        assert a.shape == b.shape and torch.isfinite(a).all(), name
+        assert _rel(a, b) <= REL_TOL, name
+    again = WA.window_attention_bwd(q, k, v, bias, mask, g, out, lse)
+    for a, b in zip(grads, again):      # no atomics: bitwise reproducible
+        assert torch.equal(a, b)
+
+
+def _scores(q, k, bias, mask):
+    s = torch.matmul(q * q.shape[-1] ** -0.5, k.transpose(-1, -2)) + bias
+    if mask is not None:
+        W, nW = q.shape[0], mask.shape[0]
+        s = (s.reshape(W // nW, nW, *s.shape[1:]) + mask[None, :, None]
+             ).reshape(s.shape)
+    return s
+
+
+def test_window_attention_autograd_on_card_matches_cpu(dev):
+    q, k, v, bias, mask = _attn_inputs(dev, 6, 2, 64, 8, 3)
+    g = torch.randn_like(q)
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        leaves = [t.detach().to(d).clone().requires_grad_(True)
+                  for t in (q, k, v, bias)]
+        fwd = WA.window_attention.launches
+        bwd = WA.window_attention_bwd.launches
+        WA.window_attention(*leaves, mask.to(d)).backward(g.to(d))
+        if d.type == "cuda":
+            assert (WA.window_attention.launches - fwd,
+                    WA.window_attention_bwd.launches - bwd) == (1, 1)
+        grads.append([leaf.grad.cpu() for leaf in leaves])
+    for a, b in zip(*grads):
+        assert _rel(a, b) <= REL_TOL
+
+
+def test_swin_train_step_on_card_matches_cpu(dev):
+    """One toy Swin train step (2 unrolls, remat, stochastic depth on, the
+    same dropout seed) on the card against the CPU: the loss and the
+    gradients."""
+    cfg = get_cfg()
+    cfg.MODEL.MODEL_TYPE = "SWIN"
+    p = cfg.MODEL.PARAMETERS
+    p.NUM_UNROLLS, p.NUM_SWINBLOCKS, p.NUM_FEATURES = 2, 1, 32
+    p.FIX_STEP_SIZE, p.SLWIN_INIT, p.GRAD_CHECKPOINT = True, True, True
+    p.CONV_BLOCK.COMPLEX = False
+    cfg.AUG_TRAIN.CROP_READOUT = 32
+    k, m, t = make_cine_example(T=8, Y=40, X=40, C=4, E=2, seed=0)
+    ex = CinePreprocess(cfg, use_seed=True)(k, m, t, "card_case")
+    batch = {key: np.asarray(val)[None] for key, val in ex.items()}
+    params = init_params(cfg, 0)
+    results = []
+    for d in ("cuda", "cpu"):
+        trainer = Trainer(cfg, device=d)
+        state = trainer.init_state(state_dict=params)
+        counts = (WA.window_attention.launches,
+                  WA.window_attention_bwd.launches, SN.sense_normal.launches)
+        loss = float(trainer.train_step(state, batch)["Train/complex_l1"])
+        if d == "cuda":
+            assert (WA.window_attention.launches - counts[0],
+                    WA.window_attention_bwd.launches - counts[1],
+                    SN.sense_normal.launches - counts[2]) == (24, 12, 3)
+        results.append((loss, torch.cat([
+            q.grad.flatten().cpu() for q in state.model.parameters()
+            if q.grad is not None])))
+    (lg, gg), (lc, gc) = results
+    assert abs(lg - lc) / abs(lc) <= REL_TOL
+    assert (gg - gc).norm() / gc.norm() <= 1e-3

@@ -1,7 +1,8 @@
-"""The window-attention kernel's plain PyTorch version against the JAX
-package's Pallas kernel (`_pallas_attention`, run in interpret mode as
-tests/test_kernels.py runs it) and its XLA reference (`_attention_xla`),
-and the wrapper's CPU route."""
+"""The window-attention kernels' plain PyTorch versions, forward and
+backward, against the JAX package's Pallas kernels (`_pallas_attention` and
+`_pallas_attention_bwd`, run in interpret mode as tests/test_kernels.py
+runs them) and its XLA reference (`_attention_xla`), and the wrappers' CPU
+route, autograd included."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -122,3 +123,76 @@ def test_wrapper_checks_shapes():
         WA.window_attention(q, k, v, bias[:1], mask)
     with pytest.raises(ValueError, match="multiple"):
         WA.window_attention(q, k, v, bias, torch.zeros(4, 64, 64))
+
+
+# ---------------------------------------------------------------- backward
+
+# the JAX test's own tolerance for the backward (tests/test_kernels.py)
+BWD_TOL = 1e-4
+
+
+def _grads(case, seed):
+    q, k, v, bias, mask = _data(*CASES[case], seed=seed)
+    g = np.random.RandomState(seed + 100).standard_normal(q.shape).astype(
+        np.float32)
+    return q, k, v, bias, mask, g
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_bwd_plain_matches_pallas_interpret(interpret_mode, case):
+    q, k, v, bias, mask, g = _grads(case, seed=4)
+    ref = JWA._pallas_attention_bwd(*_jax(q, k, v, bias, mask, g))
+    out = WA.window_attention_bwd_plain(*_torch(q, k, v, bias, mask, g))
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), out, ref):
+        b = np.asarray(b)
+        assert a.shape == b.shape and a.dtype == torch.float32, name
+        assert _rel(a.numpy(), b) <= BWD_TOL, name
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_bwd_plain_matches_autograd(case):
+    """The written-out backward against torch.autograd through the plain
+    forward; the mask gets no gradient."""
+    q, k, v, bias, mask, g = _torch(*_grads(case, seed=5))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v, bias)]
+    WA.window_attention_plain(*leaves, mask).backward(g)
+    out = WA.window_attention_bwd_plain(q, k, v, bias, mask, g)
+    for name, a, leaf in zip(("dq", "dk", "dv", "dbias"), out, leaves):
+        assert _rel(a.numpy(), leaf.grad.numpy()) <= REL_TOL, name
+
+
+def test_wrapper_gradients_on_cpu_take_the_plain_backward(monkeypatch):
+    """With inputs that require grad, window_attention goes through its
+    autograd Function: on the CPU the forward is the plain version, and the
+    backward is window_attention_bwd_plain, called once with the cotangent;
+    no kernel is built and no launch is counted."""
+    q, k, v, bias, mask, g = _torch(*_grads("mask-modulo", seed=6))
+    calls = []
+    plain_bwd = WA.window_attention_bwd_plain
+    monkeypatch.setattr(WA, "window_attention_bwd_plain",
+                        lambda *a: calls.append(a[-1]) or plain_bwd(*a))
+    monkeypatch.setattr(WA, "_library", lambda: pytest.fail("built a kernel"))
+    monkeypatch.setattr(WA, "_bwd_library",
+                        lambda: pytest.fail("built a kernel"))
+    before = (WA.window_attention.launches, WA.window_attention_bwd.launches)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v, bias)]
+    out = WA.window_attention(*leaves, mask)
+    torch.testing.assert_close(out, WA.window_attention_plain(q, k, v, bias,
+                                                              mask),
+                               rtol=0, atol=0)
+    # a cotangent that is not contiguous, as the trunk's transpose gives
+    g_t = g.transpose(2, 3).contiguous().transpose(2, 3)
+    out.backward(g_t)
+    assert len(calls) == 1 and torch.equal(calls[0], g)
+    assert (WA.window_attention.launches,
+            WA.window_attention_bwd.launches) == before
+    for a, leaf in zip(plain_bwd(q, k, v, bias, mask, g), leaves):
+        torch.testing.assert_close(leaf.grad, a, rtol=0, atol=0)
+
+
+def test_bwd_wrapper_checks_shapes():
+    q, k, v, bias, mask, g = _torch(*_grads("mask-modulo", seed=7))
+    with pytest.raises(ValueError, match="does not match"):
+        WA.window_attention_bwd(q, k, v, bias, mask, g[:, :1])
+    with pytest.raises(ValueError, match="multiple"):
+        WA.window_attention_bwd(q, k, v, bias, torch.zeros(4, 64, 64), g)
