@@ -13,9 +13,11 @@ then exits non-zero and prints no result:
               per source, all started together; ptxas registers and spills
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the main paths' shapes (batch 1 and 4; window attention, forward
-              and backward, with and without the shift mask), with its time,
-              the plain version's, the PyTorch library call's, and its bound;
-              the backward also called twice for bitwise-equal gradients
+              and backward, with and without the shift mask; the block-LLR
+              normal op, 'pre' and 'post', one and two systems), with its
+              time, the plain version's, the PyTorch library call's, and its
+              bound; the backwards also called twice for bitwise-equal
+              results
   4. main     the headline config (configs/basic/example.yaml: 5 unrolls x 2
               resblocks x 64 features, float32, seeded torch-default weights)
               on 4 synthetic 20x180x64 slices with 8 coils and 2 maps, through
@@ -37,7 +39,17 @@ then exits non-zero and prints no result:
               time by kernel group; one step held against the port's CPU
               path at 1 unroll (full width); a checkpoint reloaded into
               Reconstructor against the trainer's val_step
-  7. result   one JSON line of kernels, then the last line
+  7. dslr     configs/config_dslr.yaml (dslr-cg-v1: 5 unrolls x 2 factor
+              solves x 10 CG steps, 8 basis vectors per 16x16 block, 2D and
+              1D complex ResNets of 2 x 64 features) through DSLRTrainer on
+              cuda: slices through CinePreprocess(lr_decom=True) and
+              DataLoader, 1 warm-up and 4 timed Adam steps; per step 110
+              'pre' and 88 'post' block-LLR normal launches, asserted; one
+              step's device time by kernel group; val_step; one step and one
+              val_step at 2 unrolls held against the port's CPU path; one
+              val_step of the dslr-cg-jacobi mode (6 CG steps): 35 launches
+              of both factor systems (S=2)
+  8. result   one JSON line of kernels, then the last line
               {"ok": true, "device": {...}}
 
 Needs one CUDA device, nvcc and this checkout; no network, no JAX.
@@ -64,26 +76,31 @@ from dl_swin_gan_tpu_torch.infer.reconstruct import (
 )
 from dl_swin_gan_tpu_torch.infer.transforms import PARITY_SEED, ResampleTransform
 from dl_swin_gan_tpu_torch.kernels import _build
+from dl_swin_gan_tpu_torch.kernels import llr_normal as LN
 from dl_swin_gan_tpu_torch.kernels import sense_normal as SN
 from dl_swin_gan_tpu_torch.kernels import window_attn as WA
 from dl_swin_gan_tpu_torch.models.swin import compute_shift_mask
+from dl_swin_gan_tpu_torch.ops.llr import BlockOp
 from dl_swin_gan_tpu_torch.ops.masks import VDktMaskFunc
 from dl_swin_gan_tpu_torch.ops.sense import _adjoint_impl, _forward_impl
-from dl_swin_gan_tpu_torch.train import CheckpointManager, Trainer
+from dl_swin_gan_tpu_torch.train import CheckpointManager, DSLRTrainer, Trainer
 from dl_swin_gan_tpu_torch.utils.device import use_ieee_fp32
 from dl_swin_gan_tpu_torch.utils.headline import (
-    headline_cfg, headline_shape, swin_cfg,
+    dslr_cfg, headline_cfg, headline_shape, swin_cfg,
 )
 
 ACCEL = 12
 SLICES = 4
 SEED = 0
 KERNEL_REL_TOL = 1e-4     # TF32 in a DFT pass would show as ~1e-3
-KERNELS = ("sense_normal", "window_attn", "window_attn_bwd")
-# each kernel's wrapper, whose `launches` counts the kernel's launches
-COUNTERS = {"sense_normal": SN.sense_normal,
-            "window_attention": WA.window_attention,
-            "window_attention_bwd": WA.window_attention_bwd}
+KERNELS = ("sense_normal", "window_attn", "window_attn_bwd", "llr_normal")
+# each kernel's launch counter: the wrapper whose `launches` counts them, and
+# the variant's key where that is a dict
+COUNTERS = {"sense_normal": (SN.sense_normal, None),
+            "window_attention": (WA.window_attention, None),
+            "window_attention_bwd": (WA.window_attention_bwd, None),
+            "llr_normal_pre": (LN.llr_normal, "pre"),
+            "llr_normal_post": (LN.llr_normal, "post")}
 # the Swin block at full width: (20 + 2 * 4 padded) frames / 4 = 7, 180 / 4
 # = 45 rows padded to 48, 64 / 4 = 16 columns; 12 windows of (7, 8, 8), shift
 # (0, 4, 4)
@@ -98,6 +115,10 @@ TRAIN_STEPS = 4
 TRAIN_LOSS_REL_TOL = 1e-4     # GPU vs CPU train step, 1 unroll
 TRAIN_GRAD_REL_L2_TOL = 1e-3
 RUNS = Path(__file__).resolve().parent / "runs" / "chip_smoke"
+# the dslr phase: the unrolls of the step held against the CPU path, and the
+# jacobi mode's CG steps (configs/quality/dslr_fast.yaml)
+DSLR_CUT_UNROLLS = 2
+JACOBI_CG_STEPS = 6
 # published H100 SXM peaks (NVIDIA data sheet) for the bound
 FP32_FLOPS = 67e12        # float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -106,6 +127,22 @@ HBM_BYTES_PER_S = 3.35e12
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def zero_counts():
+    """Set every kernel's launch counter to 0."""
+    for fn, key in COUNTERS.values():
+        if key is None:
+            fn.launches = 0
+        else:
+            fn.launches[key] = 0
+    LN.llr_normal.systems = dict.fromkeys(LN.llr_normal.systems, 0)
+
+
+def read_counts():
+    """{counter: launches since the last zero_counts()}."""
+    return {name: fn.launches if key is None else fn.launches[key]
+            for name, (fn, key) in COUNTERS.items()}
 
 
 def cuda_ms(fn, runs=TIMING_RUNS, warmup=3):
@@ -179,7 +216,8 @@ def _normal_work(E, C, w):
 def phase_kernels():
     return {"sense_normal": kernels_sense_normal(),
             "window_attention": kernels_window_attention(),
-            "window_attention_bwd": kernels_window_attention_bwd()}
+            "window_attention_bwd": kernels_window_attention_bwd(),
+            "llr_normal": kernels_llr_normal()}
 
 
 def kernels_sense_normal():
@@ -415,6 +453,116 @@ def kernels_window_attention_bwd():
     return results
 
 
+def _llr_work(S, op, C, w2):
+    """(FLOP, bytes) of one block-LLR normal call as the kernel does it: the
+    SENSE-normal passes of each system (DFTs over the R k-space rows of each
+    frame that hold a nonzero weight, the weight, the coil expansion and
+    sum), combine (a real weight times each block value, summed) and
+    extract (a real weight times each value), Dinv once per pixel; the
+    blocks in and out, maps, w2, Dinv and the DFT tables moved once."""
+    T, Y, X = w2.shape
+    E, b = op.ne, op.block_size
+    rows = int((w2 != 0).any(dim=2).sum().item())   # R summed over frames
+    yx = Y * X
+    nel = S * op.num_blocks * E * b * b * T            # block values
+    flops = (S * C * (rows * 8 * X * (2 * Y + 2 * X) + rows * X * 2
+                      + T * 8 * E * yx * 2)
+             + 4 * nel + 2 * nel + 2 * S * E * T * yx)
+    nbytes = (8 * nel * 2 + 8 * E * C * yx + 4 * T * yx + 4 * yx
+              + 8 * (Y * Y + X * X))
+    return flops, nbytes
+
+
+def kernels_llr_normal():
+    """llr_normal kernel vs its plain version vs the operator chain on cuFFT
+    (BlockOp combine, SENSE forward and adjoint, BlockOp extract) at the DSLR
+    training point's shapes: 'pre' and 'post', one system and two (the
+    jacobi mode), the training mask; two calls must be bitwise equal."""
+    cfg = dslr_cfg()
+    T, Y, X, C, E = headline_shape()
+    p = cfg.MODEL.PARAMETERS
+    op = BlockOp(p.DSLR.BLOCK_SIZE, (1, E, T, Y, X), device="cuda")
+    u = cfg.AUG_TRAIN.UNDERSAMPLE
+    mask = VDktMaskFunc(u.ACCELERATIONS, sim_partial_kx=u.PARTIAL_KX,
+                        sim_partial_ky=u.PARTIAL_KY)((1, 1, T, Y, X), SEED)
+    m5 = torch.from_numpy(np.ascontiguousarray(mask, np.float32)).cuda()
+    w2 = (m5[0, 0] * m5[0, 0]).contiguous()
+    rng = np.random.RandomState(SEED + 3)
+
+    def c64(*shape):
+        a = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+        return torch.from_numpy(a.astype(np.complex64)).cuda()
+
+    maps = c64(E, C, Y, X)
+    maps6 = maps[None, :, :, None]
+    py, px, dinv, _ = LN.geometry(op, "cuda")
+    weights = op.weights + 1e-8
+
+    def library(blk, d_side):
+        """The same function by PyTorch calls, system by system ('post'
+        undoes combine's division by the fold weights first)."""
+        outs = []
+        for b in blk:
+            img = op(b, adjoint=True)
+            if d_side == "post":
+                img = img * weights
+            img = _adjoint_impl(_forward_impl(img, maps6, m5), maps6, m5)
+            outs.append(op(img if d_side == "pre" else img / weights))
+        return torch.stack(outs)
+
+    def plain(blk, d_side):
+        return LN.mats_to_blocks(LN.llr_normal_plain(
+            LN.blocks_to_mats(blk, op), maps, w2, py, px, dinv, d_side), op)
+
+    results = {}
+    for S in (1, 2):
+        blk = c64(S, op.num_blocks, E * op.block_size ** 2, T)
+        for d_side in ("pre", "post"):
+            out = LN.llr_normal(blk, maps, w2, op, d_side)
+            again = LN.llr_normal(blk, maps, w2, op, d_side)
+            ref = plain(blk, d_side)
+            lib = library(blk, d_side)
+            torch.cuda.synchronize()
+            scale = ref.abs().max().item()
+            max_abs = (out - ref).abs().max().item()
+            rel = max_abs / scale
+            lib_rel = (lib - ref).abs().max().item() / scale
+            tag = f"{d_side} S={S}"
+            check(torch.isfinite(torch.view_as_real(out)).all().item(),
+                  f"llr_normal output not finite, {tag}")
+            check(torch.equal(out, again),
+                  f"llr_normal differs between two calls, {tag}")
+            check(rel <= KERNEL_REL_TOL,
+                  f"llr_normal vs plain rel err {rel:.3e} > {KERNEL_REL_TOL}, "
+                  f"{tag}")
+            check(lib_rel <= KERNEL_REL_TOL,
+                  f"operator chain vs plain rel err {lib_rel:.3e}, {tag}")
+
+            ms = cuda_ms(lambda: LN.llr_normal(blk, maps, w2, op, d_side))
+            plain_ms = cuda_ms(lambda: plain(blk, d_side))
+            library_ms = cuda_ms(lambda: library(blk, d_side))
+            flops, nbytes = _llr_work(S, op, C, w2)
+            t_ops = flops / FP32_FLOPS * 1e3
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            results[d_side, S] = dict(
+                max_abs_err=max_abs, rel_err=rel, bitwise_equal_calls=True,
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                gflop=flops / 1e9, mbytes=nbytes / 1e6)
+            print(f"kernel llr_normal {tag} blocks {list(blk.shape)} C={C} "
+                  f"{Y}x{X}: max|k-p|/max|p| {rel:.3e} (max abs {max_abs:.3e};"
+                  f" two calls bitwise equal; operator chain {lib_rel:.3e}) "
+                  f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+                  f"{library_ms:.4f} bound_ms {max(t_ops, t_bytes):.4f} by "
+                  f"{results[d_side, S]['bound_by']} ({flops / 1e9:.3f} "
+                  f"GFLOP, {nbytes / 1e6:.2f} MB; operations {t_ops:.4f} ms, "
+                  f"bytes {t_bytes:.4f} ms) achieved "
+                  f"{flops / ms / 1e9:.2f} TFLOP/s, {nbytes / ms / 1e9:.2f} "
+                  f"TB/s")
+    return results
+
+
 def _time_recon(recon, examples, batch_size, repeats):
     """(outputs of the first run, median seconds per run) over all slices."""
     out, times = None, []
@@ -434,8 +582,11 @@ _GROUPS = (("window attention kernel", ("window_attn",)),
            ("window attention backward kernel", ("attn_bwd",)),
            ("layer norm", ("layer_norm",)),
            ("Adam update", ("adam", "multi_tensor")),
-           ("sense_normal kernel", ("coil_normal", "coil_combine")),
-           ("cuFFT (adjoint A^H y)", ("fft",)),
+           ("LLR combine/extract (llr_normal kernel)",
+            ("llr_combine", "llr_extract")),
+           ("SENSE coil passes (sense_normal; llr_normal's middle)",
+            ("coil_normal", "coil_combine")),
+           ("FFTs (cuFFT's A^H y, cuDNN's FFT convs)", ("fft",)),
            ("copies host<->device", ("memcpy",)),
            ("conv trunk (cuDNN)", ("conv", "xmma", "gemm", "cudnn", "implicit",
                                    "wgrad", "dgrad")))
@@ -500,15 +651,14 @@ def run_path(tag, cfg, expected):
     counts = {name: {} for name in COUNTERS}
     outs = {}
     for bs in (1, 4):
-        for fn in COUNTERS.values():
-            fn.launches = 0
+        zero_counts()
         out, _ = _time_recon(recon, examples, bs, repeats=1)
         nbatch = -(-SLICES // bs)
-        for name, fn in COUNTERS.items():
-            counts[name][bs] = fn.launches
-            check(fn.launches == expected[name] * nbatch,
-                  f"{tag} batch {bs}: {fn.launches} {name} launches, "
-                  f"expected {expected[name]} per batch x {nbatch} batches")
+        for name, n in read_counts().items():
+            counts[name][bs] = n
+            check(n == expected.get(name, 0) * nbatch,
+                  f"{tag} batch {bs}: {n} {name} launches, expected "
+                  f"{expected.get(name, 0)} per batch x {nbatch} batches")
         outs[bs] = out
         check(out.shape == (SLICES, E, T, Y, X), f"output shape {out.shape}")
         check(np.isfinite(out).all(), f"non-finite output at batch {bs}")
@@ -518,11 +668,11 @@ def run_path(tag, cfg, expected):
 
     for bs in (1, 4):
         _, sec = _time_recon(recon, examples, bs, repeats=3)
-        launches = ", ".join(f"{counts[n][bs]} {n}" for n in COUNTERS
+        launches = ", ".join(f"{counts[n][bs]} {n}" for n in expected
                              if expected[n])
         print(f"{tag} batch {bs}: {sec / SLICES * 1e3:.2f} ms per slice, "
               f"{SLICES * T / sec:.1f} frames/s, launches {launches} ("
-              + ", ".join(f"{expected[n]} {n}" for n in COUNTERS
+              + ", ".join(f"{expected[n]} {n}" for n in expected
                           if expected[n]) + " per batch)")
     print(f"{tag}: peak device memory {peak_gb:.2f} GB; batch 1 vs 4 rel L2 "
           f"{rel_b:.2e}")
@@ -597,9 +747,9 @@ def _train_launches(cfg):
             "sense_normal": 2 * p.NUM_UNROLLS - 1}
 
 
-def _step_and_grads(cfg, params, batch, device):
+def _step_and_grads(cfg, params, batch, device, trainer_cls=Trainer):
     """(loss, flat gradient, seconds) of one train step from `params`."""
-    trainer = Trainer(cfg, device=device)
+    trainer = trainer_cls(cfg, device=device)
     state = trainer.init_state(state_dict=params)
     t0 = time.perf_counter()
     loss = float(trainer.train_step(state, batch)["Train/complex_l1"])
@@ -638,8 +788,7 @@ def phase_train():
     torch.cuda.reset_peak_memory_stats()
 
     expected = _train_launches(cfg)
-    for fn in COUNTERS.values():
-        fn.launches = 0
+    zero_counts()
     times, losses = [], []
     for b in batches[1:]:
         t0 = time.perf_counter()
@@ -648,11 +797,11 @@ def phase_train():
         times.append(time.perf_counter() - t0)
         losses.append(float(metrics["Train/complex_l1"]))
     steps = len(times)
-    counts = {name: {"steps": fn.launches} for name, fn in COUNTERS.items()}
-    for name, fn in COUNTERS.items():
-        check(fn.launches == expected[name] * steps,
-              f"train: {fn.launches} {name} launches in {steps} steps, "
-              f"expected {expected[name]} per step")
+    counts = {name: {"steps": n} for name, n in read_counts().items()}
+    for name, n in read_counts().items():
+        check(n == expected.get(name, 0) * steps,
+              f"train: {n} {name} launches in {steps} steps, expected "
+              f"{expected.get(name, 0)} per step")
     check(np.isfinite(losses).all(), f"train losses {losses}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"train: {np.median(times) * 1e3:.2f} ms per train step (median of "
@@ -660,7 +809,7 @@ def phase_train():
           f"{cfg.DATALOADER.TRAIN_BATCH_SIZE}, peak device memory "
           f"{peak_gb:.2f} GB; complex_l1 per step "
           f"{', '.join(f'{x:.6f}' for x in losses)}; launches per step "
-          + ", ".join(f"{counts[n]['steps'] // steps} {n}" for n in COUNTERS))
+          + ", ".join(f"{counts[n]['steps'] // steps} {n}" for n in expected))
     profile_device("train: one train step",
                    lambda: trainer.train_step(state, batches[1]))
 
@@ -705,6 +854,174 @@ def phase_train():
     return counts
 
 
+def _dslr_launches(cfg):
+    """Block-LLR normal launches of one DSLR train step, from the code: each
+    unroll runs two factor solves (L, then R), each of which applies the
+    operator once for its initial residual and once per CG step. The solves
+    of the first unroll start from the loader's L0 and R0 and see no
+    parameter, so none of their inputs needs a gradient; every later
+    application runs its adjoint ('post') once in the backward."""
+    p = cfg.MODEL.PARAMETERS
+    per_unroll = 2 * (1 + p.DSLR.NUM_CG_STEPS)
+    return {"llr_normal_pre": p.NUM_UNROLLS * per_unroll,
+            "llr_normal_post": (p.NUM_UNROLLS - 1) * per_unroll}
+
+
+def _dslr_compare_cpu(batch):
+    """One train step and one val_step at DSLR_CUT_UNROLLS unrolls, full
+    width, on the card and on the port's CPU path: the same weights and
+    batch."""
+    cut = dslr_cfg(output_dir=str(RUNS))
+    cut.MODEL.PARAMETERS.NUM_UNROLLS = DSLR_CUT_UNROLLS
+    params = init_params(cut, SEED)
+    gpu = _step_and_grads(cut, params, batch, "cuda", DSLRTrainer)
+    cpu = _step_and_grads(cut, params, batch, "cpu", DSLRTrainer)
+    rel_loss = abs(gpu[0] - cpu[0]) / abs(cpu[0])
+    rel_grad = ((gpu[1] - cpu[1]).norm() / cpu[1].norm()).item()
+    print(f"dslr: one step at {DSLR_CUT_UNROLLS} unrolls vs the port's CPU "
+          f"path ({cpu[2]:.1f} s on the CPU): loss {gpu[0]:.6f} vs "
+          f"{cpu[0]:.6f} (rel {rel_loss:.3e}), gradient rel L2 "
+          f"{rel_grad:.3e} over {cpu[1].numel()} values")
+    check(rel_loss <= TRAIN_LOSS_REL_TOL,
+          f"dslr GPU vs CPU train loss rel {rel_loss:.3e}")
+    check(rel_grad <= TRAIN_GRAD_REL_L2_TOL,
+          f"dslr GPU vs CPU gradient rel L2 {rel_grad:.3e}")
+
+    preds = {}
+    for device in ("cuda", "cpu"):
+        trainer = DSLRTrainer(cut, device=device)
+        state = trainer.init_state(state_dict=params)
+        preds[device] = trainer.val_step(state, batch)[1].cpu().numpy()
+    rel_val = (np.linalg.norm(preds["cuda"] - preds["cpu"])
+               / np.linalg.norm(preds["cpu"]))
+    print(f"dslr: val_step at {DSLR_CUT_UNROLLS} unrolls vs the port's CPU "
+          f"path: rel L2 {rel_val:.3e}")
+    check(rel_val <= CPU_REL_L2_TOL, f"dslr val_step GPU vs CPU rel L2 "
+          f"{rel_val:.3e} > {CPU_REL_L2_TOL}")
+
+
+def _dslr_jacobi(batch):
+    """One val_step of the dslr-cg-jacobi mode: both factor systems in one
+    launch (S=2) for each operator application."""
+    cfg = dslr_cfg(output_dir=str(RUNS))
+    p = cfg.MODEL.PARAMETERS
+    cfg.MODEL.META_ARCHITECTURE = "dslr-cg-jacobi"
+    p.DSLR.NUM_CG_STEPS = JACOBI_CG_STEPS
+    trainer = DSLRTrainer(cfg)
+    state = trainer.init_state(state_dict=init_params(cfg, SEED))
+    trainer.val_step(state, batch)                  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    metrics, pred = trainer.val_step(state, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    expected = p.NUM_UNROLLS * (1 + p.DSLR.NUM_CG_STEPS)
+    systems = LN.llr_normal.systems["pre"]
+    check(counts["llr_normal_pre"] == expected and systems == 2 * expected
+          and sum(counts.values()) == expected,
+          f"jacobi val_step: launches {counts}, {systems} systems, expected "
+          f"{expected} launches of 2 systems")
+    check(torch.isfinite(torch.view_as_real(pred)).all().item(),
+          "jacobi val_step output not finite")
+    print(f"dslr: jacobi ({JACOBI_CG_STEPS} CG steps) val_step {ms:.2f} ms, "
+          f"{expected} llr_normal launches of 2 systems; "
+          + ", ".join(f"{k} {float(v):.6f}" for k, v in metrics.items()))
+    return counts
+
+
+def phase_dslr():
+    """config_dslr.yaml's training path through DSLRTrainer on the card."""
+    cfg = dslr_cfg(output_dir=str(RUNS))
+    p = cfg.MODEL.PARAMETERS
+    T, Y, X, C, E = headline_shape()
+    t0 = time.perf_counter()
+    slices = [make_cine_example(T=T, Y=Y, X=RAW_X, C=C, E=E, seed=SEED + s)
+              for s in range(TRAIN_STEPS + 1)]
+    trainer = DSLRTrainer(cfg)                  # the GPU: no device given
+    check(trainer.device.type == "cuda", f"DSLRTrainer on {trainer.device}")
+    loader = DataLoader(_InMemory(slices, trainer.make_preprocess(
+        use_seed=True)), batch_size=cfg.DATALOADER.TRAIN_BATCH_SIZE,
+        num_workers=1, shuffle=True, seed=cfg.SEED)
+    trainer.set_steps_per_epoch(len(loader))
+    batches = list(loader)
+    host_s = time.perf_counter() - t0
+    op = BlockOp(p.DSLR.BLOCK_SIZE, (1, E, T, Y, X), xp=np)
+    r = p.DSLR.NUM_BASIS
+    check(batches[0]["L_init"].shape == (1, op.num_blocks,
+                                         E * p.DSLR.BLOCK_SIZE ** 2, r)
+          and batches[0]["R_init"].shape == (1, op.num_blocks, T, r),
+          f"L_init {batches[0]['L_init'].shape}, R_init "
+          f"{batches[0]['R_init'].shape}")
+    print(f"dslr: {len(batches)} slices [{C},{T},{Y},{RAW_X}] E={E} through "
+          f"CinePreprocess(lr_decom=True) (readout cropped to {X}, VDkt "
+          f"{tuple(cfg.AUG_TRAIN.UNDERSAMPLE.ACCELERATIONS)}) and DataLoader; "
+          f"{op.num_blocks} blocks of {p.DSLR.BLOCK_SIZE}x{p.DSLR.BLOCK_SIZE},"
+          f" L {list(batches[0]['L_init'].shape[1:])}, R "
+          f"{list(batches[0]['R_init'].shape[1:])}; host data {host_s:.2f} s")
+
+    params = init_params(cfg, SEED)
+    state = trainer.init_state(state_dict=params)
+    trainer.train_step(state, batches[0])       # warm-up (cuDNN, allocator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    expected = _dslr_launches(cfg)
+    zero_counts()
+    times, losses = [], []
+    for b in batches[1:]:
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(state, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["Train/complex_l1"]))
+    steps = len(times)
+    counts = {name: {"train steps": n} for name, n in read_counts().items()}
+    for name, n in read_counts().items():
+        check(n == expected.get(name, 0) * steps,
+              f"dslr: {n} {name} launches in {steps} steps, expected "
+              f"{expected.get(name, 0)} per step")
+    check(np.isfinite(losses).all(), f"dslr losses {losses}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"dslr: {np.median(times) * 1e3:.2f} ms per train step (median of "
+          f"{steps}; {', '.join(f'{t * 1e3:.2f}' for t in times)}), batch "
+          f"{cfg.DATALOADER.TRAIN_BATCH_SIZE}, peak device memory "
+          f"{peak_gb:.2f} GB; complex_l1 per step "
+          f"{', '.join(f'{x:.6f}' for x in losses)}; launches per step "
+          + ", ".join(f"{counts[n]['train steps'] // steps} {n}"
+                      for n in expected))
+    profile_device("dslr: one train step",
+                   lambda: trainer.train_step(state, batches[1]))
+
+    val_times = []
+    for _ in range(3):
+        zero_counts()
+        t0 = time.perf_counter()
+        metrics, pred = trainer.val_step(state, batches[0])
+        torch.cuda.synchronize()
+        val_times.append(time.perf_counter() - t0)
+    val = read_counts()
+    for name, n in val.items():
+        counts[name]["val_step"] = n
+    check(val["llr_normal_pre"] == expected["llr_normal_pre"]
+          and sum(val.values()) == val["llr_normal_pre"],
+          f"dslr val_step launches {val}")
+    check(pred.shape == (1, E, T, Y, X) and torch.isfinite(
+        torch.view_as_real(pred)).all().item(), f"val_step output {pred.shape}")
+    print(f"dslr: val_step {np.median(val_times) * 1e3:.2f} ms per slice "
+          f"(median of 3), {val['llr_normal_pre']} llr_normal launches; "
+          + ", ".join(f"{k} {float(v):.6f}" for k, v in metrics.items()))
+    profile_device("dslr: one val_step",
+                   lambda: trainer.val_step(state, batches[0]))
+
+    _dslr_compare_cpu(batches[0])
+    for name, n in _dslr_jacobi(batches[0]).items():
+        counts[name]["jacobi val_step"] = n
+    shutil.rmtree(RUNS, ignore_errors=True)
+    return counts
+
+
 def _entry(name, source, replaces, res, launches):
     """One kernel's item of the `kernels` line: the numbers of its headline
     variant, then every variant it was measured at."""
@@ -735,10 +1052,15 @@ def main():
     phase_build()
     kres = phase_kernels()
     counts = {"main": phase_main(), "swin": phase_swin(),
-              "train": phase_train()}
+              "train": phase_train(), "dslr": phase_dslr()}
 
     def by_path(name):
         return {path: c[name] for path, c in counts.items()}
+
+    def llr_by_path():
+        return {path: {f"{side} {run}": n for side in ("pre", "post")
+                       for run, n in c[f"llr_normal_{side}"].items()}
+                for path, c in counts.items()}
 
     kernels = [
         _entry("sense_normal",
@@ -758,6 +1080,12 @@ def main():
                {f"B={B} mask={'shift' if m else 'none'}": r
                 for (B, m), r in kres["window_attention_bwd"].items()},
                by_path("window_attention_bwd")),
+        _entry("llr_normal",
+               "dl_swin_gan_tpu_torch/kernels/csrc/llr_normal.cu",
+               "dl_swin_gan_tpu/kernels/llr_normal.py:282",
+               {f"{side} S={S}": r
+                for (side, S), r in kres["llr_normal"].items()},
+               llr_by_path()),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

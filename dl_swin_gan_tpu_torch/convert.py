@@ -1,5 +1,5 @@
-"""Weights for the torch solver: converted from the JAX package's param tree,
-or drawn from a seeded torch-default init.
+"""Weights for the torch solvers: converted from the JAX package's param
+tree, or drawn from a seeded torch-default init.
 
 The JAX tree of a RES/pgd `UnrolledSolver` (nested dicts of arrays):
 
@@ -9,9 +9,17 @@ The JAX tree of a RES/pgd `UnrolledSolver` (nested dicts of arrays):
     step_size [1]
 
 maps to `nets.{i}.head`, `nets.{i}.blocks.{j}.conv{0,1}`, `nets.{i}.tail`
-and `step_size`. Kernels go from [kt, ky, kx, Cin, Cout] to torch's
-[Cout, Cin, kt, ky, kx]; the input channel order [re_0..re_{E-1},
-im_0..im_{E-1}] is the same on both sides.
+and `step_size`. Kernels go from flax's [*k, Cin, Cout] to torch's
+[Cout, Cin, *k]; the input channel order [re_0..re_{E-1}, im_0..im_{E-1}] is
+the same on both sides. With complex convs (CONV_BLOCK.COMPLEX) a ConvBlock
+holds `ComplexConv_0/{kernel_re, kernel_im, bias_re, bias_im}` instead,
+which map to `.conv.kernel_re` etc., the kernels transposed the same way.
+
+The tree of a DSLR `UnrolledLR`:
+
+    ResNet2D_{i}/...        -> spatial.{i}...     (the 2D basis nets)
+    ResNet1D_{i}/...        -> temporal.{i}...    (the 1D basis nets)
+    lambda_l, lambda_r [1]  -> lambda_l, lambda_r (the modslr modes)
 
 The tree of a SWIN solver, with S swinblocks:
 
@@ -42,21 +50,27 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from dl_swin_gan_tpu_torch.solvers import build_solver
+from dl_swin_gan_tpu_torch.solvers import build_model
+
+
+def _kernel(kernel) -> torch.Tensor:
+    """flax [*k, Cin, Cout] -> torch [Cout, Cin, *k]."""
+    kernel = np.asarray(kernel, dtype=np.float32)
+    nd = kernel.ndim - 2
+    return _array(kernel.transpose(nd + 1, nd, *range(nd)))
 
 
 def _conv(block: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
-    leaf = block["Conv_0"]["Conv_0"]
-    if set(leaf) != {"kernel", "bias"}:
-        raise KeyError(f"{prefix}: expected a real conv (kernel, bias), got "
-                       f"{sorted(leaf)}")
-    kernel = np.asarray(leaf["kernel"], dtype=np.float32)
-    return {
-        f"{prefix}.conv.weight": torch.from_numpy(
-            np.ascontiguousarray(kernel.transpose(4, 3, 0, 1, 2))),
-        f"{prefix}.conv.bias": torch.from_numpy(
-            np.asarray(leaf["bias"], dtype=np.float32).copy()),
-    }
+    """A ConvBlock's conv: real (Conv_0/Conv_0) or complex (ComplexConv_0)."""
+    if set(block) == {"ComplexConv_0"}:
+        leaf = _leaf(block["ComplexConv_0"], prefix,
+                     ("kernel_re", "kernel_im", "bias_re", "bias_im"))
+        return {f"{prefix}.conv.{k}": (_kernel(v) if k.startswith("kernel")
+                                       else _array(v))
+                for k, v in leaf.items()}
+    leaf = _leaf(block["Conv_0"]["Conv_0"], prefix, ("kernel", "bias"))
+    return {f"{prefix}.conv.weight": _kernel(leaf["kernel"]),
+            f"{prefix}.conv.bias": _array(leaf["bias"])}
 
 
 def _resnet(tree: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
@@ -77,7 +91,7 @@ def _resnet(tree: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
 
 
 def _array(a) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32)))
+    return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
 
 
 def _leaf(node: Mapping, prefix: str, keys) -> Mapping:
@@ -141,12 +155,12 @@ def _swin_transformer(tree: Mapping, prefix: str):
     for name, node in tree.items():
         if name in ("patch_embed", "patch_unembed"):
             leaf = _leaf(node, f"{prefix}.{name}", ("kernel", "bias"))
-            kernel = np.asarray(leaf["kernel"], np.float32)
             if name == "patch_embed":    # [k.., Cin, Cout] -> [Cout, Cin, k..]
-                kernel = kernel.transpose(4, 3, 0, 1, 2)
+                kernel = _kernel(leaf["kernel"])
             else:                        # flipped, [k.., in, out] -> [in, out, k..]
-                kernel = kernel[::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2)
-            out[f"{prefix}.{name}.weight"] = _array(kernel)
+                kernel = _array(np.asarray(leaf["kernel"], np.float32)[
+                    ::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2))
+            out[f"{prefix}.{name}.weight"] = kernel
             out[f"{prefix}.{name}.bias"] = _array(leaf["bias"])
         elif name.startswith("BasicLayer_"):
             layer = f"{prefix}.layers.{_index(name)}"
@@ -186,27 +200,30 @@ def _swinnet(tree: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
     return out
 
 
-_DENOISERS = {"ResNet3D_": _resnet, "SwinNet3D_": _swinnet}
+# flax submodule name prefix -> (converter, torch module list)
+_DENOISERS = {"ResNet3D_": (_resnet, "nets"), "SwinNet3D_": (_swinnet, "nets"),
+              "ResNet2D_": (_resnet, "spatial"),
+              "ResNet1D_": (_resnet, "temporal")}
+_SCALARS = ("step_size", "lambda_l", "lambda_r")
 
 
 def flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX `UnrolledSolver` params (RES or SWIN denoiser, pgd) -> torch
-    state_dict."""
+    """JAX solver params (an `UnrolledSolver` with a RES or SWIN denoiser,
+    or a DSLR `UnrolledLR`) -> torch state_dict."""
     state = {}
     for name, node in params.items():
-        if name == "step_size":
-            state["step_size"] = torch.from_numpy(
-                np.asarray(node, dtype=np.float32).reshape(1).copy())
+        if name in _SCALARS:
+            state[name] = _array(np.asarray(node).reshape(1))
             continue
-        convert = next((fn for key, fn in _DENOISERS.items()
-                        if name.startswith(key)), None)
-        if convert is None:
+        match = next((v for key, v in _DENOISERS.items()
+                      if name.startswith(key)), None)
+        if match is None:
             raise KeyError(f"no torch counterpart for param {name}")
-        state.update(convert(node, f"nets.{_index(name)}"))
+        convert, modules = match
+        state.update(convert(node, f"{modules}.{_index(name)}"))
     return state
 
 
 def init_params(cfg, seed: int) -> Dict[str, torch.Tensor]:
     """A seeded torch-default init of the solver the config describes."""
-    gen = torch.Generator().manual_seed(seed)
-    return build_solver(cfg, generator=gen).state_dict()
+    return build_model(cfg, torch.Generator().manual_seed(seed)).state_dict()

@@ -12,15 +12,15 @@ bit-identical in both packages:
   4. 95th-percentile magnitude normalisation from the time-averaged
      undersampled k-space
   5. optional sliding-window init
-
-The locally-low-rank decomposition for DSLR (`lr_decom=True`) comes with
-the DSLR slice.
+  6. optional locally-low-rank decomposition for DSLR (`lr_decom=True`):
+     L_init/R_init from a truncated SVD of the init image's blocks
 """
 
 import numpy as np
 
 from dl_swin_gan_tpu_torch.data import host_ops as H
 from dl_swin_gan_tpu_torch.ops import masks as ss
+from dl_swin_gan_tpu_torch.ops.llr import decompose_init
 
 
 class CinePreprocess:
@@ -34,10 +34,6 @@ class CinePreprocess:
 
     def __init__(self, config, aug_node=None, lr_decom: bool = False,
                  use_seed: bool = False):
-        if lr_decom:
-            raise NotImplementedError(
-                "CinePreprocess(lr_decom=True) is not ported to the torch "
-                "package yet: ROADMAP.md Queue 1 item 11 (the DSLR slice)")
         self.config = config
         self.use_seed = use_seed
         self.rng = np.random.RandomState()
@@ -48,7 +44,12 @@ class CinePreprocess:
             sim_partial_kx=aug.UNDERSAMPLE.PARTIAL_KX,
             sim_partial_ky=aug.UNDERSAMPLE.PARTIAL_KY,
         )
-        self.slwin_init = config.MODEL.PARAMETERS.SLWIN_INIT
+        self.lr_decom = lr_decom
+        p = config.MODEL.PARAMETERS
+        self.block_size = p.DSLR.BLOCK_SIZE
+        self.num_basis = p.DSLR.NUM_BASIS
+        self.overlapping = p.DSLR.OVERLAPPING
+        self.slwin_init = p.SLWIN_INIT
 
     # -- augmentation -------------------------------------------------------
     def _augment(self, kspace, maps, target, seed):
@@ -124,7 +125,7 @@ class CinePreprocess:
             init_kspace = masked_kspace
         init_image = H.sense_adjoint(init_kspace, maps)
 
-        return dict(
+        out = dict(
             kspace=np.ascontiguousarray(masked_kspace[0]).astype(np.complex64),
             mask=np.ascontiguousarray(mask[0]).astype(np.float32),
             maps=np.ascontiguousarray(maps[0]).astype(np.complex64),
@@ -132,3 +133,8 @@ class CinePreprocess:
             scale=np.float32(scale),
             target=np.ascontiguousarray(target[0]).astype(np.complex64),
         )
+        if self.lr_decom:
+            out["L_init"], out["R_init"] = decompose_init(
+                init_image, self.block_size, self.num_basis,
+                overlapping=self.overlapping)
+        return out

@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc` for
 Hopper (`sm_90a`) at first use, into `kernels/_build/<name>-<hash>/` (listed
-in `.gitignore`). The hash covers the source and the flags, so an edited
+in `.gitignore`). The hash covers the source, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited
 source is rebuilt and an unchanged one is loaded as it is. Nothing is built
 when a module is imported: the CPU paths never call `load`.
 """
@@ -47,6 +48,8 @@ def load(name: str) -> Library:
     """Compile (if needed) and load `csrc/<name>.cu`; raises if the build fails."""
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):    # the shared device code
+        digest.update(header.read_bytes())
     out_dir = BUILD_ROOT / f"{name}-{digest.hexdigest()[:16]}"
     lib_path = out_dir / f"lib{name}.so"
     log_path = out_dir / "build.log"

@@ -1,6 +1,7 @@
-"""Denoiser backbones. Ported so far: the real-valued RES trunk and the Swin
-trunk (SwinNet3D); every other backbone raises NotImplementedError naming its
-ROADMAP.md queue item."""
+"""Denoiser backbones. Ported so far: the RES trunk (real or complex convs)
+and the Swin trunk (SwinNet3D); every other backbone raises
+NotImplementedError naming its ROADMAP.md queue item. The DSLR solver builds
+its 2D and 1D ResNets itself (`solvers/dslr.py`)."""
 
 from typing import Optional
 
@@ -30,16 +31,12 @@ def build_denoiser(cfg, generator: Optional[torch.Generator] = None):
             f"ROADMAP.md {_NOT_PORTED[model_type]}")
     if model_type not in ("RES", "SWIN"):
         raise ValueError(f"Unknown MODEL_TYPE: {model_type}")
-    if cb.COMPLEX:
-        if model_type == "SWIN":
-            # as in the JAX package: the Swin trunk runs on real/imag channels
-            raise NotImplementedError(
-                "MODEL_TYPE=SWIN with CONV_BLOCK.COMPLEX=True is not "
-                "implemented (nor in the JAX package): the Swin trunk runs on "
-                "real/imag channels")
+    if cb.COMPLEX and model_type == "SWIN":
+        # as in the JAX package: the Swin trunk runs on real/imag channels
         raise NotImplementedError(
-            "CONV_BLOCK.COMPLEX=True (ComplexConv) is not ported yet: "
-            "ROADMAP.md Queue 1 item 4")
+            "MODEL_TYPE=SWIN with CONV_BLOCK.COMPLEX=True is not "
+            "implemented (nor in the JAX package): the Swin trunk runs on "
+            "real/imag channels")
     if str(cb.DTYPE) != "float32":
         raise NotImplementedError(
             f"CONV_BLOCK.DTYPE={cb.DTYPE!r}: the bf16 trunk is not ported "
@@ -66,4 +63,5 @@ def build_denoiser(cfg, generator: Optional[torch.Generator] = None):
     return ResNet3D(num_resblocks=p.NUM_RESBLOCKS, num_emaps=p.NUM_EMAPS,
                     num_features=p.NUM_FEATURES,
                     kernel_size=cb.KERNEL_SIZE[0], act_type=cb.ACTIVATION,
-                    circular_pad=cb.CIRCULAR_PAD, generator=generator)
+                    circular_pad=cb.CIRCULAR_PAD, generator=generator,
+                    use_complex_layers=cb.COMPLEX)

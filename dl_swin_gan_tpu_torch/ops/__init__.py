@@ -1,5 +1,6 @@
 """Complex linear-operator core: FFTs, SENSE operators, VDkt masks; image
-metrics."""
+metrics. The LLR block operators (`ops.llr`) and conjugate gradient
+(`ops.cg`) are imported from their modules."""
 
 from dl_swin_gan_tpu_torch.ops import masks, metrics
 from dl_swin_gan_tpu_torch.ops.fft import fftc, fftmod, ifftc

@@ -1,0 +1,71 @@
+"""Conjugate gradient with a fixed iteration count.
+
+Counterpart of `ops/cg.py` in the JAX package (the reference's
+`dl_cs/mri/algorithms.py` ConjugateGradient): no early exit, no
+preconditioner, complex dot products, and autograd through every
+iteration, as the reference backpropagates through its unrolled CG. The
+scalars alpha and beta stay 0-d tensors on the device: nothing in the loop
+waits for the host.
+
+`power_method` (the step sizes of `dslr-pgd`) is not ported: the JAX
+package draws its start vector from `jax.random.PRNGKey(0)`, which the port
+cannot reproduce (ROADMAP.md Queue 1 item 11).
+"""
+
+from typing import Callable
+
+import torch
+
+
+def zdot(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    """Complex inner product <x1, x2> = sum(conj(x1) * x2), a 0-d tensor."""
+    return torch.sum(x1.conj() * x2)
+
+
+def zdot_single(x: torch.Tensor) -> torch.Tensor:
+    """The real <x, x>."""
+    return zdot(x, x).real
+
+
+def conjugate_gradient(A: Callable, x0: torch.Tensor, y: torch.Tensor,
+                       num_iter: int) -> torch.Tensor:
+    """Solve A x = y for a Hermitian positive (normal-equation) operator A
+    with `num_iter` iterations from x0."""
+    r = y - A(x0)
+    x, p, rsold = x0, r, zdot_single(r)
+    for _ in range(num_iter):
+        Ap = A(p)
+        alpha = rsold / zdot(p, Ap)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        rsnew = zdot_single(r)
+        p = (rsnew / rsold) * p + r
+        rsold = rsnew
+    return x
+
+
+def paired_conjugate_gradient(A2: Callable, x0a: torch.Tensor,
+                              x0b: torch.Tensor, ya: torch.Tensor,
+                              yb: torch.Tensor, num_iter: int):
+    """Two independent CG solves advanced in lockstep, with one call of the
+    batched operator A2(pa, pb) -> (A_a pa, A_b pb) per iteration (the
+    `dslr-cg-jacobi` mode runs both factor systems in one kernel launch).
+    Each solve keeps its own alpha, beta and residual."""
+    Ax0a, Ax0b = A2(x0a, x0b)
+    ra, rb = ya - Ax0a, yb - Ax0b
+    xa, pa, rsa = x0a, ra, zdot_single(ra)
+    xb, pb, rsb = x0b, rb, zdot_single(rb)
+    for _ in range(num_iter):
+        Apa, Apb = A2(pa, pb)
+        alpha_a = rsa / zdot(pa, Apa)
+        alpha_b = rsb / zdot(pb, Apb)
+        xa = xa + alpha_a * pa
+        xb = xb + alpha_b * pb
+        ra = ra - alpha_a * Apa
+        rb = rb - alpha_b * Apb
+        rsa_new = zdot_single(ra)
+        rsb_new = zdot_single(rb)
+        pa = (rsa_new / rsa) * pa + ra
+        pb = (rsb_new / rsb) * pb + rb
+        rsa, rsb = rsa_new, rsb_new
+    return xa, xb

@@ -1,3 +1,20 @@
-"""Unrolled meta-architectures composed with a denoiser backbone."""
+"""Unrolled meta-architectures: the SENSE-unrolled solver composed with a
+denoiser backbone, and the DSLR low-rank solver."""
 
+from typing import Optional
+
+import torch
+
+from dl_swin_gan_tpu_torch.solvers.dslr import (
+    DSLR_MODES, UnrolledLR, build_dslr_solver,
+)
 from dl_swin_gan_tpu_torch.solvers.unrolled import UnrolledSolver, build_solver
+
+
+def build_model(cfg, generator: Optional[torch.Generator] = None):
+    """The solver the config describes: a DSLR `UnrolledLR` when
+    META_ARCHITECTURE names a DSLR mode, else an `UnrolledSolver`;
+    `generator` seeds its weights."""
+    if cfg.MODEL.META_ARCHITECTURE.lower() in DSLR_MODES:
+        return build_dslr_solver(cfg, generator=generator)
+    return build_solver(cfg, generator=generator)

@@ -1,7 +1,9 @@
 """Training: metrics and losses, train state, checkpoints, the Trainer and
-its command line (`python -m dl_swin_gan_tpu_torch.train`)."""
+DSLRTrainer, and their command lines (`python -m dl_swin_gan_tpu_torch.train`,
+`python -m dl_swin_gan_tpu_torch.train.train_lr`)."""
 
 from dl_swin_gan_tpu_torch.train.checkpoint import CheckpointManager
+from dl_swin_gan_tpu_torch.train.dslr_trainer import DSLRTrainer
 from dl_swin_gan_tpu_torch.train.losses import compute_metrics, select_loss
 from dl_swin_gan_tpu_torch.train.train_state import (
     TrainState, clip_by_global_norm_, ema_update, make_lr_schedule,

@@ -2,9 +2,10 @@
 
 Counterpart of `train/trainer.py` in the JAX package (the reference's
 `scripts/train.py`: LitUnrolled and the Lightning Trainer). One `Trainer`
-drives every unrolled variant the port has (RES, SWIN); the DSLR, GAN and
-diffusion trainers of later slices subclass it through the hooks
-`make_preprocess`, `_val_params`, `_extra_metrics` and
+drives the SENSE-unrolled variants (RES, SWIN); `DSLRTrainer`
+(`train/dslr_trainer.py`) and the GAN and diffusion trainers of later slices
+subclass it through the hooks `build_model`, `batch_keys`,
+`make_preprocess`, `_apply`, `_val_params`, `_extra_metrics` and
 `_device_pipeline_kwargs`.
 
 It runs on one device, `cuda` unless the caller asks for the CPU. The JAX
@@ -38,8 +39,6 @@ from dl_swin_gan_tpu_torch.train.train_state import (
 from dl_swin_gan_tpu_torch.utils.device import resolve_device, use_ieee_fp32
 
 logger = logging.getLogger(__name__)
-
-_BATCH_KEYS = ("kspace", "maps", "mask", "init_image", "scale", "target")
 
 
 def dropout_seed(base: int, step: int) -> int:
@@ -82,6 +81,9 @@ class MetricsWriter:
 class Trainer:
     """Config-driven trainer for unrolled reconstruction models."""
 
+    # the loader's arrays a step copies to the device
+    batch_keys = ("kspace", "maps", "mask", "init_image", "scale", "target")
+
     def __init__(self, cfg, device=None, use_ema: bool = False,
                  ema_decay: float = 0.9999):
         if cfg.DATALOADER.DEVICE_PIPELINE:
@@ -123,9 +125,14 @@ class Trainer:
     def make_preprocess(self, aug_node=None, use_seed=False):
         return CinePreprocess(self.cfg, aug_node=aug_node, use_seed=use_seed)
 
+    def build_model(self, generator: torch.Generator) -> torch.nn.Module:
+        """The solver the trainer trains, its weights drawn from
+        `generator`."""
+        return build_solver(self.cfg, generator=generator)
+
     def _extra_metrics(self, model) -> Dict[str, torch.Tensor]:
-        """Scalar learnables worth logging (the PGD step size; the DSLR and
-        MoDL weights once those solvers are ported)."""
+        """Scalar learnables worth logging: the PGD step size, the modslr
+        lambdas (the MoDL weight once hqs is ported)."""
         out = {}
         for name, tag in (("step_size", "StepSize"), ("lamda", "Lambda/MoDL"),
                           ("lambda_l", "Lambda/L"), ("lambda_r", "Lambda/R")):
@@ -152,8 +159,7 @@ class Trainer:
         `convert.flax_to_torch` of the JAX trainer's params), and a new
         optimizer."""
         seed = self.cfg.SEED if seed is None else seed
-        model = build_solver(self.cfg,
-                             generator=torch.Generator().manual_seed(seed))
+        model = self.build_model(torch.Generator().manual_seed(seed))
         if state_dict is not None:
             model.load_state_dict(state_dict)
         model.to(self.device)
@@ -173,7 +179,8 @@ class Trainer:
     # -- steps ---------------------------------------------------------------
     def _to_device(self, batch: dict) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(
-            self.device, non_blocking=True) for k in _BATCH_KEYS if k in batch}
+            self.device, non_blocking=True) for k in self.batch_keys
+            if k in batch}
 
     def _apply(self, model, b: Dict[str, torch.Tensor]) -> torch.Tensor:
         return model(b["kspace"], b["maps"], b["mask"],

@@ -9,6 +9,11 @@ JAX package's `utils/headline.py`; `chip_smoke.py` runs it.
 swinblock x 160 features; the denoiser fixes depths (6,), 8 heads, window
 (7, 8, 8)) on the same slice, with its training settings (complex L1, Adam
 at 1e-4, per-epoch StepLR, batch 1); `chip_smoke.py` serves and trains it.
+
+`configs/config_dslr.yaml`: DSLR low-rank alternating minimisation
+(dslr-cg-v1, 5 unrolls, 10 CG steps per factor solve, 8 basis vectors per
+16x16 block, 2D and 1D complex ResNets of 2 resblocks x 64 features) on the
+same slice; `chip_smoke.py` trains and validates it.
 """
 
 
@@ -74,5 +79,50 @@ def swin_cfg(output_dir: str = "runs/swin"):
     cfg.LOGGER.LOG_METRICS_EVERY_N_STEPS = 50
     cfg.LOGGER.LOG_IMAGES_EVERY_N_STEPS = 50
     cfg.SEED = 1000
+    cfg.OUTPUT_DIR = output_dir
+    return cfg
+
+
+def dslr_cfg(output_dir: str = "runs/dslr"):
+    """`configs/config_dslr.yaml` built in code (no YAML): every field it
+    sets."""
+    from dl_swin_gan_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.MODEL.MODEL_TYPE = "RES"
+    cfg.MODEL.META_ARCHITECTURE = "dslr-cg-v1"
+    p = cfg.MODEL.PARAMETERS
+    p.NUM_UNROLLS = 5
+    p.NUM_RESBLOCKS = 2
+    p.NUM_FEATURES = 64
+    p.NUM_EMAPS = 2
+    p.SHARE_WEIGHTS = False
+    p.FIX_STEP_SIZE = False
+    p.SLWIN_INIT = True
+    p.GRAD_CHECKPOINT = False
+    p.DSLR.NUM_BASIS = 8
+    p.DSLR.BLOCK_SIZE = 16
+    p.DSLR.OVERLAPPING = True
+    p.DSLR.NUM_CG_STEPS = 10
+    p.CONV_BLOCK.ACTIVATION = "relu"
+    p.CONV_BLOCK.NORM = "none"
+    p.CONV_BLOCK.CIRCULAR_PAD = True
+    p.CONV_BLOCK.COMPLEX = True
+    cfg.MODEL.RECON_LOSS.NAME = "complex_l1"
+    cfg.MODEL.RECON_LOSS.RENORMALIZE_DATA = False
+    cfg.DATALOADER.TRAIN_BATCH_SIZE = 1
+    cfg.DATALOADER.VAL_BATCH_SIZE = 1
+    cfg.AUG_TRAIN.CROP_READOUT = 64
+    cfg.AUG_TRAIN.UNDERSAMPLE.NAME = "VDktMaskFunc"
+    cfg.AUG_TRAIN.UNDERSAMPLE.ACCELERATIONS = (10, 15)
+    cfg.AUG_TRAIN.UNDERSAMPLE.PARTIAL_KX = 0.25
+    cfg.AUG_TRAIN.UNDERSAMPLE.PARTIAL_KY = 0.0
+    cfg.OPTIMIZER.MAX_EPOCHS = 1000
+    cfg.OPTIMIZER.ADAM.LR = 0.0001
+    cfg.EVAL.RUN_EVERY_N_EPOCHS = 1
+    cfg.LOGGER.LOG_METRICS_EVERY_N_STEPS = 50
+    cfg.LOGGER.LOG_IMAGES_EVERY_N_STEPS = 100
+    cfg.SEED = 1000
+    cfg.VERSION = 1
     cfg.OUTPUT_DIR = output_dir
     return cfg

@@ -16,11 +16,13 @@ from dl_swin_gan_tpu_torch.data.preprocess import CinePreprocess
 from dl_swin_gan_tpu_torch.data.synthetic import make_cine_example
 from dl_swin_gan_tpu_torch.infer import Reconstructor, ResampleTransform
 from dl_swin_gan_tpu_torch.infer.reconstruct import batched
+from dl_swin_gan_tpu_torch.kernels import llr_normal as LN
 from dl_swin_gan_tpu_torch.kernels import sense_normal as SN
 from dl_swin_gan_tpu_torch.kernels import window_attn as WA
 from dl_swin_gan_tpu_torch.models.swin import compute_shift_mask
 from dl_swin_gan_tpu_torch.ops import sense
-from dl_swin_gan_tpu_torch.train import Trainer
+from dl_swin_gan_tpu_torch.ops.llr import BlockOp
+from dl_swin_gan_tpu_torch.train import DSLRTrainer, Trainer
 
 pytestmark = pytest.mark.cuda
 
@@ -309,6 +311,119 @@ def test_swin_train_step_on_card_matches_cpu(dev):
             assert (WA.window_attention.launches - counts[0],
                     WA.window_attention_bwd.launches - counts[1],
                     SN.sense_normal.launches - counts[2]) == (24, 12, 3)
+        results.append((loss, torch.cat([
+            q.grad.flatten().cpu() for q in state.model.parameters()
+            if q.grad is not None])))
+    (lg, gg), (lc, gc) = results
+    assert abs(lg - lc) / abs(lc) <= REL_TOL
+    assert (gg - gc).norm() / gc.norm() <= 1e-3
+
+
+# ---------------------------------------------------------------- block-LLR normal
+
+def _llr_inputs(dev, S, E, C, T, Y, X, b, seed=0):
+    """Blocks of S systems, maps, and a k-space weight that samples whole
+    rows (with partial rows), as the DSLR training masks do."""
+    rng = np.random.RandomState(seed)
+    op = BlockOp(b, (1, E, T, Y, X), device=dev)
+    blk = _c64(rng, dev, S, op.num_blocks, E * b * b, T)
+    maps = _c64(rng, dev, E, C, Y, X)
+    w = (rng.rand(T, Y, 1) < 0.1) & (rng.rand(T, Y, X) < 0.75)
+    return op, blk, maps, torch.from_numpy(w.astype(np.float32)).to(dev)
+
+
+def _llr_plain(op, blk, maps, w2, d_side):
+    py, px, dinv, _ = LN.geometry(op, blk.device)
+    return LN.mats_to_blocks(LN.llr_normal_plain(
+        LN.blocks_to_mats(blk, op), maps, w2, py, px, dinv, d_side), op)
+
+
+@pytest.mark.parametrize("d_side", ["pre", "post"])
+@pytest.mark.parametrize("shape", [
+    (1, 2, 8, 20, 180, 64, 16),     # the DSLR training point
+    (2, 2, 8, 20, 180, 64, 16),     # its jacobi pair
+    (1, 1, 2, 4, 18, 12, 4),        # the CPU tests' toy geometry
+    (2, 2, 3, 3, 37, 21, 8),        # odd sizes, ragged tiles
+])
+def test_llr_normal_matches_plain(dev, shape, d_side):
+    op, blk, maps, w2 = _llr_inputs(dev, *shape)
+    before = dict(LN.llr_normal.launches)
+    out = LN.llr_normal(blk, maps, w2, op, d_side)
+    again = LN.llr_normal(blk, maps, w2, op, d_side)
+    torch.cuda.synchronize()
+    assert LN.llr_normal.launches[d_side] == before[d_side] + 2
+    assert torch.equal(out, again)           # no atomics: bitwise equal
+    assert _rel(out, _llr_plain(op, blk, maps, w2, d_side)) <= REL_TOL
+
+
+def test_llr_normal_rejects_what_it_cannot_take(dev):
+    op, blk, maps, w2 = _llr_inputs(dev, 1, 1, 2, 2, 18, 12, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        LN.llr_normal(blk.transpose(1, 2).contiguous().transpose(1, 2),
+                      maps, w2, op)
+    with pytest.raises(TypeError):
+        LN.llr_normal(blk, maps, w2.double(), op)
+    with pytest.raises(ValueError, match="block-LLR"):
+        LN.make_fused_block_normal(op, maps[None, :, :, None].repeat(
+            1, 1, 1, 2, 1, 1), None)
+
+
+def test_llr_normal_resolves_conj_and_neg_views(dev):
+    op, blk, maps, w2 = _llr_inputs(dev, 1, 2, 2, 3, 18, 12, 4, seed=2)
+    want = LN.llr_normal(blk.conj().resolve_conj(), maps, w2, op)
+    torch.testing.assert_close(LN.llr_normal(blk.conj(), maps, w2, op), want,
+                               rtol=0, atol=0)
+    torch.testing.assert_close(
+        LN.llr_normal(torch._neg_view(blk), maps, w2, op, "post"),
+        LN.llr_normal(-blk, maps, w2, op, "post"), rtol=0, atol=0)
+    assert _rel(want, LN.llr_normal(blk, maps, w2, op)) > 1e-2
+
+
+def test_llr_autograd_on_card_matches_cpu(dev):
+    """The gradient through make_fused_block_normal (forward 'pre', backward
+    'post' on the cotangent) on the card against the CPU."""
+    op, blk, maps, w2 = _llr_inputs(dev, 1, 2, 3, 4, 24, 20, 8, seed=3)
+    maps6 = maps[None, :, :, None]
+    mask = w2.sqrt()[None, None]
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        o = BlockOp(8, (1, 2, 4, 24, 20), device=d)
+        v = blk[0].detach().to(d, copy=True).requires_grad_(True)
+        f = LN.make_fused_block_normal(o, maps6.to(d), mask.to(d))
+        before = dict(LN.llr_normal.launches)
+        (f(v).abs() ** 2).sum().backward()
+        if d == dev:
+            assert {k: LN.llr_normal.launches[k] - before[k]
+                    for k in before} == {"pre": 1, "post": 1}
+        grads.append(v.grad.cpu())
+    assert _rel(grads[0], grads[1]) <= REL_TOL
+
+
+def test_dslr_train_step_on_card_matches_cpu(dev):
+    """One toy DSLR train step (dslr-cg-v1, 2 unrolls, 3 CG steps) on the
+    card against the CPU: the loss, the gradients, and the launches (16
+    'pre', 8 'post')."""
+    from dl_swin_gan_tpu_torch.utils.headline import dslr_cfg
+
+    cfg = dslr_cfg()
+    p = cfg.MODEL.PARAMETERS
+    p.NUM_UNROLLS, p.NUM_RESBLOCKS, p.NUM_FEATURES = 2, 1, 16
+    p.DSLR.BLOCK_SIZE, p.DSLR.NUM_BASIS, p.DSLR.NUM_CG_STEPS = 8, 4, 3
+    cfg.AUG_TRAIN.CROP_READOUT = 32
+    cfg.AUG_TRAIN.UNDERSAMPLE.ACCELERATIONS = (4, 5)
+    k, m, t = make_cine_example(T=8, Y=40, X=48, C=4, E=2, seed=0)
+    ex = CinePreprocess(cfg, use_seed=True, lr_decom=True)(k, m, t, "dslr")
+    batch = {key: np.asarray(val)[None] for key, val in ex.items()}
+    params = init_params(cfg, 0)
+    results = []
+    for d in ("cuda", "cpu"):
+        trainer = DSLRTrainer(cfg, device=d)
+        state = trainer.init_state(state_dict=params)
+        before = dict(LN.llr_normal.launches)
+        loss = float(trainer.train_step(state, batch)["Train/complex_l1"])
+        if d == "cuda":
+            assert {k: LN.llr_normal.launches[k] - before[k]
+                    for k in before} == {"pre": 16, "post": 8}
         results.append((loss, torch.cat([
             q.grad.flatten().cpu() for q in state.model.parameters()
             if q.grad is not None])))

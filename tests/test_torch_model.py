@@ -14,7 +14,7 @@ from dl_swin_gan_tpu_torch.config import get_cfg
 from dl_swin_gan_tpu_torch.convert import flax_to_torch, init_params
 from dl_swin_gan_tpu_torch.models import build_denoiser
 from dl_swin_gan_tpu_torch.models.resnet import ResNet3D
-from dl_swin_gan_tpu_torch.solvers import build_solver
+from dl_swin_gan_tpu_torch.solvers import build_model, build_solver
 
 torch.set_num_threads(1)
 
@@ -88,6 +88,28 @@ def test_unrolled_pgd_matches_flax(rng, share, use_x0):
     np.testing.assert_allclose(out, ref, **TOL)
 
 
+def test_unrolled_pgd_complex_res_matches_flax(rng):
+    """RES with CONV_BLOCK.COMPLEX (ComplexConv, the x residual) builds and
+    matches flax on converted weights."""
+    jcfg, cfg = _tiny(jax_get_cfg()), _tiny(get_cfg())
+    for c in (jcfg, cfg):
+        c.MODEL.PARAMETERS.CONV_BLOCK.COMPLEX = True
+    y, maps, mask, x0 = _solver_inputs(rng)
+    jmodel = jax_build_solver(jcfg, lambda: jax_build_denoiser(jcfg))
+    params = jax.jit(lambda *a: jmodel.init(jax.random.PRNGKey(2), *a, x0=x0)
+                     )(y, maps, mask)["params"]
+    ref = np.asarray(jax.jit(lambda p, *a: jmodel.apply({"params": p}, *a,
+                                                        x0=x0))(
+        params, y, maps, mask))
+    model = build_solver(cfg)
+    model.load_state_dict(flax_to_torch(params))
+    assert model.nets[0].head.conv.kernel_re.shape[0] == int(8 / 1.4142) + 1
+    with torch.no_grad():
+        out = model(torch.from_numpy(y), torch.from_numpy(maps),
+                    torch.from_numpy(mask), x0=torch.from_numpy(x0)).numpy()
+    np.testing.assert_allclose(out, ref, **TOL)
+
+
 def test_flax_to_torch_layout(rng):
     kernel = rng.standard_normal((3, 3, 3, 4, 8)).astype(np.float32)
     tree = {"ResNet3D_0": {"ConvBlock_0": {"Conv_0": {"Conv_0": {
@@ -102,11 +124,18 @@ def test_flax_to_torch_layout(rng):
 
 
 def test_flax_to_torch_rejects_complex_conv():
-    tree = {"ResNet3D_0": {"ConvBlock_0": {"Conv_0": {"Conv_0": {
-        "kernel_re": np.zeros(1), "kernel_im": np.zeros(1),
-        "bias_re": np.zeros(1), "bias_im": np.zeros(1)}}}}}
+    """A complex conv converts from `ComplexConv_0` with all four leaves
+    (tests/test_torch_dslr.py holds it against flax); its leaves under the
+    real conv's path, or with one missing, are rejected."""
+    leaves = {"kernel_re": np.zeros(1), "kernel_im": np.zeros(1),
+              "bias_re": np.zeros(1), "bias_im": np.zeros(1)}
+    misplaced = {"ResNet3D_0": {"ConvBlock_0": {"Conv_0": {"Conv_0": leaves}}}}
     with pytest.raises(KeyError):
-        flax_to_torch(tree)
+        flax_to_torch(misplaced)
+    partial = {"ResNet3D_0": {"ConvBlock_0": {"ComplexConv_0": {
+        k: v for k, v in leaves.items() if k != "bias_im"}}}}
+    with pytest.raises(KeyError, match="bias_im"):
+        flax_to_torch(partial)
 
 
 def test_init_params_seeded_torch_default():
@@ -123,7 +152,7 @@ def test_init_params_seeded_torch_default():
 
 
 @pytest.mark.parametrize("change", [
-    ("MODEL.PARAMETERS.CONV_BLOCK.COMPLEX", True),
+    ("MODEL.META_ARCHITECTURE", "dslr-pgd"),   # the other DSLR modes build
     ("MODEL.PARAMETERS.CONV_BLOCK.SEPARABLE", True),
     ("MODEL.PARAMETERS.CONV_BLOCK.NORM", "instance"),
     ("MODEL.PARAMETERS.CONV_BLOCK.DTYPE", "bfloat16"),
@@ -140,7 +169,7 @@ def test_unported_options_raise(change):
     cfg = _tiny(get_cfg())
     cfg.merge_from_list(list(change))
     with pytest.raises(NotImplementedError, match="not ported"):
-        build_solver(cfg)
+        build_model(cfg)
 
 
 def test_unknown_model_type_is_an_error():

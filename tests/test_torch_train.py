@@ -105,8 +105,16 @@ def test_cine_preprocess_bit_exact_with_jax(crop_readout, zpad_pe, slwin):
 
 
 def test_preprocess_lr_decom_raises():
-    with pytest.raises(NotImplementedError, match="DSLR"):
-        CinePreprocess(get_cfg(), lr_decom=True)
+    """lr_decom works (tests/test_torch_dslr.py holds it bit for bit against
+    the JAX package); blocks that do not overlap, which the reference never
+    had, raise."""
+    cfg = get_cfg()
+    cfg.AUG_TRAIN.CROP_READOUT = 0
+    cfg.AUG_TRAIN.UNDERSAMPLE.ACCELERATIONS = (4, 5)
+    cfg.MODEL.PARAMETERS.DSLR.OVERLAPPING = False
+    pre = CinePreprocess(cfg, use_seed=True, lr_decom=True)
+    with pytest.raises(ValueError, match="overlapping"):
+        pre(*make_cine_example(T=4, Y=24, X=16, C=2, E=1, seed=0), "x.h5")
 
 
 class _Examples:
@@ -534,6 +542,7 @@ def test_train_package_imports_no_jax_subprocess():
         "import sys\n"
         "import dl_swin_gan_tpu_torch.train\n"
         "import dl_swin_gan_tpu_torch.train.__main__\n"
+        "import dl_swin_gan_tpu_torch.train.train_lr\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'dl_swin_gan_tpu')]\n"
         "print(bad)\n"
