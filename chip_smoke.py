@@ -11,13 +11,15 @@ then exits non-zero and prints no result:
               versions, and the two TF32 flags (both off: true float32)
   2. build    compile every kernel of the paths from kernels/csrc, one nvcc
               per source, all started together; ptxas registers and spills
+              (none allowed in the window-attention backward)
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the main paths' shapes (batch 1 and 4; window attention, forward
               and backward, with and without the shift mask; the block-LLR
               normal op, 'pre' and 'post', one and two systems), with its
               time, the plain version's, the PyTorch library call's, and its
-              bound; the backwards also called twice for bitwise-equal
-              results
+              bound (the window-attention backward's at the 3xTF32 tensor-core
+              rate, its time also split by launch with torch.profiler); the
+              backwards also called twice for bitwise-equal results
   4. main     the headline config (configs/basic/example.yaml: 5 unrolls x 2
               resblocks x 64 features, float32, seeded torch-default weights)
               on 4 synthetic 20x180x64 slices with 8 coils and 2 maps, through
@@ -121,6 +123,7 @@ DSLR_CUT_UNROLLS = 2
 JACOBI_CG_STEPS = 6
 # published H100 SXM peaks (NVIDIA data sheet) for the bound
 FP32_FLOPS = 67e12        # float32 outside the tensor cores
+TF32_FLOPS = 495e12       # dense TF32 on the tensor cores; 3xTF32 runs at 1/3
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -193,6 +196,11 @@ def phase_build():
                 print(f"  ptxas: {entry.group(1)}")
             elif "registers" in ln or "spill" in ln:
                 print(f"  ptxas: {ln.strip()}")
+    # the tensor-core backward holds its split operands in registers
+    spills = [ln.strip() for ln in libs["window_attn_bwd"].log.splitlines()
+              if "spill" in ln and "0 bytes spill stores, 0 bytes spill "
+              "loads" not in ln]
+    check(not spills, f"window_attn_bwd spills registers: {spills}")
 
 
 def _normal_work(E, C, w):
@@ -349,21 +357,53 @@ def _attention_bwd_work(W, H, N, D, nW):
     return flops, nbytes
 
 
-def _sdpa_backend(fn):
-    """The SDPA kernels fn() ran, by name, from the profiler."""
+def device_ms_by_kernel(fn, runs=10):
+    """{kernel name: device ms per fn() call}, from torch.profiler over runs
+    back-to-back calls (L2 warm), after one call outside the profile."""
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(runs):
+            fn()
         torch.cuda.synchronize()
-    names = {e.key for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA}
+    return {e.key: e.self_device_time_total / 1e3 / runs
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0}
+
+
+def _short(name):
+    """A backward kernel's profiler name without its template and
+    arguments."""
+    found = re.search(r"attn_bwd_\w+", name)
+    return found.group(0) if found else name
+
+
+def _sdpa_backend(names):
+    """The SDPA backend that ran the kernels of these profiler names."""
     for backend, keys in (("flash", ("flash",)),
                           ("efficient", ("fmha", "efficient", "mem_eff")),
                           ("cudnn", ("cudnn_sdpa", "sdpa_cudnn"))):
         if any(k in n.lower() for n in names for k in keys):
             return backend
     return "math"
+
+
+def sdpa_backward(q, k, v, bias, mask, g):
+    """SDPA's backward at the window-attention backward's inputs: a function
+    of no arguments giving the gradients of q, k, v and of the float mask
+    bias (+ mask of window w mod nW), which requires grad."""
+    W, H, N, _ = q.shape
+    full = bias[None] + (mask.repeat(W // mask.shape[0], 1, 1)[:, None]
+                         if mask is not None else 0)
+    full = full.expand(W, H, N, N).contiguous().requires_grad_(True)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = torch.nn.functional.scaled_dot_product_attention(*leaves,
+                                                           attn_mask=full)
+    return lambda: torch.autograd.grad(out, (*leaves, full), g,
+                                       retain_graph=True)
 
 
 def kernels_window_attention_bwd():
@@ -377,7 +417,6 @@ def kernels_window_attention_bwd():
         *SWIN_GRID, SWIN_WINDOW, SWIN_SHIFT)).cuda()
     nW = mask.shape[0]
     rng = np.random.RandomState(SEED + 2)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     results = {}
     for B in (1, 4):
         W = nW * B
@@ -410,18 +449,9 @@ def kernels_window_attention_bwd():
                       f"backward {name} vs plain rel err {rels[name]:.3e} > "
                       f"{KERNEL_REL_TOL} at B={B} mask={masked}")
 
-            full = bias[None] + (mask.repeat(B, 1, 1)[:, None] if masked
-                                 else 0)
-            full = full.expand(W, H, N, N).contiguous().requires_grad_(True)
-            leaves = [t.detach().clone().requires_grad_(True)
-                      for t in (q, k, v)]
-            lib_out = sdpa(*leaves, attn_mask=full)
-
-            def library():
-                return torch.autograd.grad(lib_out, (*leaves, full), g,
-                                           retain_graph=True)
-
-            backend = _sdpa_backend(library)
+            library = sdpa_backward(q, k, v, bias, m, g)
+            lib_kernels = device_ms_by_kernel(library)
+            backend = _sdpa_backend(lib_kernels)
             lib_dq = library()[0]
             lib_rel = ((lib_dq - plain[0]).abs().max()
                        / plain[0].abs().max()).item()
@@ -429,27 +459,41 @@ def kernels_window_attention_bwd():
             plain_ms = cuda_ms(
                 lambda: WA.window_attention_bwd_plain(q, k, v, bias, m, g))
             library_ms = cuda_ms(library)
-            del lib_out, full, leaves
+            launches = {_short(n): t for n, t in
+                        device_ms_by_kernel(kernel).items()}
+            lib_device_ms = sum(lib_kernels.values())
+            del library
             flops, nbytes = _attention_bwd_work(W, H, N, D,
                                                 nW if masked else 0)
-            t_ops = flops / FP32_FLOPS * 1e3
+            t_ops = flops / (TF32_FLOPS / 3) * 1e3     # 3xTF32
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            bound = max(t_ops, t_bytes)
+            device_ms = sum(launches.values())
             results[B, masked] = dict(
                 max_abs_err=max_abs, rel_err=max(rels.values()),
                 rel_err_by_grad=rels, bitwise_equal_calls=True, ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms,
-                library_backend=backend, bound_ms=max(t_ops, t_bytes),
+                library_backend=backend, bound_ms=bound,
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
+                fma_bound_ms=flops / FP32_FLOPS * 1e3, bound_share=bound / ms,
+                device_ms=device_ms, device_ms_by_launch=launches,
+                library_device_ms=lib_device_ms,
                 gflop=flops / 1e9, mbytes=nbytes / 1e6)
             print(f"kernel window_attention_bwd B={B} [{W},{H},{N},{D}] "
                   f"mask={'shift' if masked else 'none'}: max|k-p|/max|p| "
                   + " ".join(f"{n} {r:.3e}" for n, r in rels.items())
                   + f" (max abs {max_abs:.3e}; two calls bitwise equal; SDPA "
-                  f"dq {lib_rel:.3e}) kernel_ms {ms:.4f} plain_ms "
-                  f"{plain_ms:.4f} library_ms {library_ms:.4f} (SDPA backward, "
-                  f"{backend} backend) bound_ms {max(t_ops, t_bytes):.4f} "
-                  f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB) "
-                  f"achieved {flops / ms / 1e9:.2f} TFLOP/s")
+                  f"dq {lib_rel:.3e}) kernel_ms {ms:.4f} (profiler device "
+                  f"{device_ms:.4f}: "
+                  + ", ".join(f"{n} {t:.4f}" for n, t in launches.items())
+                  + f") plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
+                  f"(SDPA backward, {backend} backend; profiler device "
+                  f"{lib_device_ms:.4f}) bound_ms {bound:.4f} at 3xTF32 "
+                  f"({t_ops:.4f} by operations, {t_bytes:.4f} by bytes; "
+                  f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; fp32 FMA "
+                  f"{flops / FP32_FLOPS * 1e3:.4f}) achieved "
+                  f"{flops / ms / 1e9:.2f} TFLOP/s, {bound / ms:.1%} of the "
+                  "3xTF32 bound")
     return results
 
 
@@ -575,11 +619,12 @@ def _time_recon(recon, examples, batch_size, repeats):
     return out, float(np.median(times))
 
 
-# kernel-name fragments -> the layer they belong to, first match wins; the
-# conv group also takes the Swin trunk's linear layers (cuBLAS GEMMs) and,
-# in training, their weight and data gradients
-_GROUPS = (("window attention kernel", ("window_attn",)),
-           ("window attention backward kernel", ("attn_bwd",)),
+# kernel-name fragments -> the layer they belong to, first match wins (the
+# backward's kernels before the forward's); the conv group also takes the
+# Swin trunk's linear layers (cuBLAS GEMMs) and, in training, their weight
+# and data gradients
+_GROUPS = (("window attention backward kernel", ("attn_bwd",)),
+           ("window attention kernel", ("window_attn",)),
            ("layer norm", ("layer_norm",)),
            ("Adam update", ("adam", "multi_tensor")),
            ("LLR combine/extract (llr_normal kernel)",

@@ -14,91 +14,299 @@
 //     dbias = sum over w of ds; the mask gets no gradient
 //
 // Layout, all float32 and contiguous:
-//   q, k, v, g, out, dq, dk, dv  [W, H, N, D]   D % 4 == 0, D <= 32
+//   q, k, v, g, out, dq, dk, dv  [W, H, N, D]   D % 4 == 0, D <= 32, any N
 //   bias, dbias                  [H, N, N]
 //   mask                         [nW, N, N], or null
 //   lse                          [W, H, N]      from window_attn.cu
-//   ds                           [W, H, N, N]   scratch
+//
+// Arithmetic: every product runs on the tensor cores as 3xTF32
+// (`mma.sync.m16n8k8` with TF32 operands). Each float32 operand x is split
+// into hi = tf32(x) and lo = tf32(x - hi), and a product accumulates
+// a_hi b_lo + a_lo b_hi, then a_hi b_hi, in float32: about as accurate as
+// float32 FMA (errors against float64 of 4e-7 to 6e-7 where FMA gives 5e-7
+// to 8e-7). Plain TF32 (a_hi b_hi alone) misses the 1e-4 limit by 6x to 10x,
+// so it is not used anywhere. head_dim is zero-padded to a multiple of 8
+// (20 -> 24) in shared memory; only the real D columns are stored.
 //
 // Bound: 10*W*H*N^2*D FLOP (s, dp, dv, dq, dk) against 4*(7*W*H*N*D +
 // 2*H*N^2 + nW*N^2) bytes (q, k, v, g in, dq, dk, dv out, bias in, dbias
 // out, the mask in). At the Swin denoiser's full width (N = 448, D = 20,
-// H = 8, W = 12 per slice) that is 3.85 GFLOP against 47 MB: the float32 FMA
-// rate (67 TFLOP/s without tensor cores) bounds it at 0.0575 ms per slice,
-// ahead of the bytes (0.014 ms at 3.35 TB/s). All arithmetic is float32 FMA.
+// H = 8, W = 12 per slice) that is 3.85 GFLOP against 47 MB: at 3xTF32 on
+// the tensor cores (495 TFLOP/s of TF32 / 3) the operations bound it at
+// 0.0234 ms per slice, ahead of the bytes (0.0139 ms at 3.35 TB/s).
 //
-// Design. The TPU runs its grid (H, W) in order, one (window, head) per step
-// with the [N, N] matrices in VMEM, and sums dbias over the windows in one
-// VMEM block that consecutive steps revisit. CUDA blocks run in no order,
-// and dK/dV sum over query rows while dQ sums over keys, so no block can own
-// all three. Three launches, none with atomics, so two calls on the same
-// inputs give bitwise-equal gradients:
-//   1. kv: one block per (32-key tile, head, window), one key per lane. The
-//      block stages q * scale, g, lse and delta (computed here from g and
-//      out) of all N query rows in shared memory (75 KB at N = 448, D = 20:
-//      3 blocks per SM). Each warp walks every fourth row, two rows at a
-//      time for ILP, recomputes s, p, dp and ds for its 32 keys with the
-//      forward's operation order, and accumulates dk and dv in registers.
-//      All lanes read the same staged row, which broadcasts; the bias and
-//      mask reads and the ds store are 32 consecutive floats, coalesced. The
-//      four warps' partial dk and dv are summed in a fixed order in shared
-//      memory. ds goes to the scratch (77 MB per slice).
-//   2. dq: one block per (64-row query tile, head, window); tiles of 32 keys
-//      of ds and K staged in shared memory; dq = ds k * scale.
-//   3. dbias: one thread per (head, i, j) sums ds over w = 0 .. W-1 in order,
-//      as the TPU's revisited block does.
-// The scratch costs three passes over 77 MB (about 0.07 ms at 3.35 TB/s)
-// and buys determinism without a second recomputation of p; a block per
-// (query tile, key tile, head) that loops over the windows would avoid it,
-// but then dq, dk and dv would need reductions across blocks. Tensor cores
-// and fusing the passes are left for later work.
+// Design. CUDA blocks run in no order, and dk/dv sum over query rows, dq
+// over keys, dbias over windows, so no block can own all four, and float
+// atomics would make the sums run in no fixed order. So ds [W, H, N, N]
+// (77 MB per slice) goes through a scratch in device memory, written once
+// and read twice, and every sum runs in a fixed order: two calls on the same
+// inputs give bitwise-equal gradients. Three launches:
+//   1. kv:    a block per (64-key tile, head, window) owns dk and dv and
+//             writes its ds columns. Each warp keeps its 16 keys of k and v
+//             as split mma operands and walks the query tiles, computing
+//             s^T = k q^T and dp^T = v g^T, so p^T and ds^T come out of the
+//             mma already as the A operand of dv += p^T g and dk += ds^T q.
+//   2. dq:    a block per (64-row query tile, head, window) owns dq: it
+//             streams 64 x 64 tiles of ds and 64 rows of k, dq += ds k.
+//   3. dbias: a thread per (head, i, j) sums ds over the windows
+//             w = 0 .. W-1 in order; it writes every element of dbias.
+// The scratch costs 3 x 77 MB of traffic per slice (0.069 ms at 3.35 TB/s,
+// more than the operations bound). Recomputing s and dp in the dq and dbias
+// kernels instead (one owner per result, no scratch: 9 products, a floor of
+// 0.042 ms) was built first and measured slower on the H100: its dq and
+// dbias kernels, each rebuilding p and ds from four tiles, took longer than
+// reading ds back (PERF.md, Findings). The kv pass is the one that computes.
+//
+// A C fragment of m16n8k8 holds columns 2t and 2t+1 of its rows; the A
+// fragment wants columns t and t+4. So a ds or p tile is fed back as A with
+// its 8 columns permuted (A's k = t is column 2t, k = t+4 is column 2t+1),
+// and the B operand reads its rows in the same order: no shuffles, no
+// transposes through shared memory. Tiles stream in with cp.async, double
+// buffered: the raw float32 rows of tile i+1 arrive while tile i is in the
+// mma loop; each staged tile is split once into hi and lo planes of
+// [64][Dpad + 4] floats, a stride at which every fragment load is free of
+// bank conflicts. delta = rowsum(g o out) is computed once per staged query
+// tile. The bias and mask are read through L1 and L2 (6.4 and 9.6 MB at
+// batch 1), as the forward reads them, a chunk of 16 queries ahead of their
+// use. Keys past N get p = 0; query rows past N read zeros (and a clamped
+// bias index) and store nothing.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;               // 4 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kKeys = 32;                   // pass 1: one key per lane
-constexpr int kRows = 64;                   // pass 2: query rows per block
-constexpr int kTile = 32;                   // pass 2: keys per staged tile
-constexpr int kReduceThreads = 256;         // pass 3
-static_assert(kThreads == 2 * kRows, "pass 2 splits D in two halves");
+constexpr int kThreads = 128;              // 4 warps, 16 rows of a tile each
+constexpr int kTile = 64;                  // query rows or keys per tile
+constexpr int kChunk = 16;                 // columns of s a warp holds at once
+constexpr int kChunkTiles = kChunk / 8;    // n-tiles of m16n8k8 per chunk
+constexpr int kReduceThreads = 256;        // the dbias sum
+constexpr int kDsStride = kTile + 8;       // floats per staged row of ds
 
-// floats of pass 1's shared memory: q * scale and g of N rows, lse and
-// delta, reused afterwards for the four warps' partial dk and dv
-__host__ __device__ inline long long kv_smem_floats(int N, int D) {
-  const long long staged = 2LL * N * D + 2LL * N;
-  const long long partial = 2LL * kWarps * kKeys * (D + 1);
-  return staged > partial ? staged : partial;
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// acc + a . b[0..3], in the order of the forward's score FMAs
-__device__ __forceinline__ float dot4(const float4 a, const float* b,
-                                      float acc) {
-  acc = fmaf(a.x, b[0], acc);
-  acc = fmaf(a.y, b[1], acc);
-  acc = fmaf(a.z, b[2], acc);
-  return fmaf(a.w, b[3], acc);
-}
-
-// acc[0..3] += s * a
-__device__ __forceinline__ void axpy4(const float s, const float4 a,
-                                      float* acc) {
-  acc[0] = fmaf(s, a.x, acc[0]);
-  acc[1] = fmaf(s, a.y, acc[1]);
-  acc[2] = fmaf(s, a.z, acc[2]);
-  acc[3] = fmaf(s, a.w, acc[3]);
-}
-
-// blocks per SM the registers must allow: 3 fit in shared memory at N = 448
-// and D <= 20, which caps a thread at 170 registers
+// blocks per SM the registers must allow: 3 cap a thread at 168 registers,
+// which the kv pass's split fragments outgrow (spill) from head_dim 24 on
 constexpr int min_blocks(int D) { return D <= 20 ? 3 : 2; }
 
+template <int D>
+struct Dims {
+  static constexpr int kPad = (D + 7) / 8 * 8;    // head_dim padded to the mma's k
+  static constexpr int kSteps = kPad / 8;         // k-steps (or n-tiles) over it
+  static constexpr int kStride = kPad + 4;        // floats per staged row
+  static constexpr int kPlane = kTile * kStride;  // one hi (or lo) plane
+  static constexpr int kRaw = kTile * D;          // one raw float32 tile
+};
+
+struct AFrag {   // an m16n8k8 A operand, split
+  uint32_t hi[4], lo[4];
+};
+struct BFrag {   // an m16n8k8 B operand, split
+  uint32_t hi[2], lo[2];
+};
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma(float c[4], const uint32_t a[4],
+                                    const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b in 3xTF32: the two cross terms, then hi * hi
+__device__ __forceinline__ void mma3(float c[4], const AFrag& a,
+                                     const BFrag& b) {
+  mma(c, a.hi, b.lo);
+  mma(c, a.lo, b.hi);
+  mma(c, a.hi, b.hi);
+}
+
+// B operand of x y^T with y staged: n runs over the staged rows n0 .. n0+7,
+// k over head_dim step ks (b[0] = (k = t, n = g), b[1] = (k = t+4, n = g))
+template <int D>
+__device__ __forceinline__ BFrag load_b_rows(const uint32_t* plane, int n0,
+                                             int ks, int g, int t) {
+  using C = Dims<D>;
+  const int e = (n0 + g) * C::kStride + 8 * ks + t;
+  BFrag f;
+  f.hi[0] = plane[e];
+  f.hi[1] = plane[e + 4];
+  f.lo[0] = plane[C::kPlane + e];
+  f.lo[1] = plane[C::kPlane + e + 4];
+  return f;
+}
+
+// B operand of p y with p from a C fragment: k runs over the staged rows
+// k0 .. k0+7 in the fragment's order (k = t is row k0+2t, k = t+4 is row
+// k0+2t+1), n over head_dim columns 8 nd .. 8 nd + 7
+template <int D>
+__device__ __forceinline__ BFrag load_b_perm(const uint32_t* plane, int k0,
+                                             int nd, int g, int t) {
+  using C = Dims<D>;
+  const int e = (k0 + 2 * t) * C::kStride + 8 * nd + g;
+  BFrag f;
+  f.hi[0] = plane[e];
+  f.hi[1] = plane[e + C::kStride];
+  f.lo[0] = plane[C::kPlane + e];
+  f.lo[1] = plane[C::kPlane + e + C::kStride];
+  return f;
+}
+
+// a C fragment (rows g, g+8; columns 2t, 2t+1) as the A operand whose k = t
+// is column 2t and k = t+4 column 2t+1
+__device__ __forceinline__ AFrag a_from_c(const float c[4]) {
+  AFrag f;
+  split(c[0], f.hi[0], f.lo[0]);
+  split(c[2], f.hi[1], f.lo[1]);
+  split(c[1], f.hi[2], f.lo[2]);
+  split(c[3], f.hi[3], f.lo[3]);
+  return f;
+}
+
+// A operand straight from device memory: rows r0 .. r0+15 of x [N, D]
+// (times mult), zero past row N-1 and column D-1
+template <int D>
+__device__ __forceinline__ void load_a_global(AFrag f[Dims<D>::kSteps],
+                                              const float* x, int r0, int N,
+                                              float mult, int g, int t) {
+#pragma unroll
+  for (int ks = 0; ks < Dims<D>::kSteps; ++ks) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = r0 + g + 8 * (i & 1);
+      const int d = 8 * ks + t + 4 * (i >> 1);
+      const float v =
+          (r < N && d < D) ? __ldg(x + (long long)r * D + d) * mult : 0.f;
+      split(v, f[ks].hi[i], f[ks].lo[i]);
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(s), "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+               :: "r"(s), "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;");
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
+}
+
+// rows i0 .. i0+63 of x [N, D] into dst [64 * D], zero past row N-1
+template <int D>
+__device__ __forceinline__ void stage_raw(float* dst, const float* x, int i0,
+                                          int N) {
+  const float* src = x + (long long)i0 * D;
+  for (int e = threadIdx.x; e < kTile * D / 4; e += kThreads) {
+    const bool ok = i0 + 4 * e / D < N;
+    cp_async16(dst + 4 * e, ok ? src + 4 * e : x, ok);
+  }
+}
+
+// the [64, 64] tile at (i0, j0) of x [N, N] into dst [64][kDsStride], zero
+// outside x; 16-byte copies where N % 4 == 0 keeps them aligned
+__device__ __forceinline__ void stage_square(float* dst, const float* x,
+                                             int i0, int j0, int N) {
+  if (N % 4 == 0) {
+    for (int e = threadIdx.x; e < kTile * kTile / 4; e += kThreads) {
+      const int r = e / (kTile / 4), c = 4 * (e % (kTile / 4));
+      const bool ok = i0 + r < N && j0 + c < N;
+      cp_async16(dst + r * kDsStride + c,
+                 ok ? x + (long long)(i0 + r) * N + j0 + c : x, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kTile * kTile; e += kThreads) {
+      const int r = e / kTile, c = e % kTile;
+      const bool ok = i0 + r < N && j0 + c < N;
+      cp_async4(dst + r * kDsStride + c,
+                ok ? x + (long long)(i0 + r) * N + j0 + c : x, ok);
+    }
+  }
+}
+
+// x[i0 .. i0+63] into dst [64], zero past N-1
+__device__ __forceinline__ void stage_row_values(float* dst, const float* x,
+                                                 int i0, int N) {
+  for (int r = threadIdx.x; r < kTile; r += kThreads) {
+    const bool ok = i0 + r < N;
+    cp_async4(dst + r, ok ? x + i0 + r : x, ok);
+  }
+}
+
+// a raw tile (times mult) into its hi and lo planes, four columns at a
+// time, zero in the padding columns
+template <int D>
+__device__ __forceinline__ void split_tile(uint32_t* plane, const float* raw,
+                                           float mult) {
+  using C = Dims<D>;
+  constexpr int kQuads = C::kPad / 4;
+  for (int e = threadIdx.x; e < kTile * kQuads; e += kThreads) {
+    const int r = e / kQuads;
+    const int d = 4 * (e % kQuads);
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (d < D) x = *reinterpret_cast<const float4*>(raw + r * D + d);
+    uint4 hi, lo;
+    split(x.x * mult, hi.x, lo.x);
+    split(x.y * mult, hi.y, lo.y);
+    split(x.z * mult, hi.z, lo.z);
+    split(x.w * mult, hi.w, lo.w);
+    *reinterpret_cast<uint4*>(plane + r * C::kStride + d) = hi;
+    *reinterpret_cast<uint4*>(plane + C::kPlane + r * C::kStride + d) = lo;
+  }
+}
+
+// delta = rowsum(g o out) of a staged tile's rows, in a fixed order
+template <int D>
+__device__ __forceinline__ void tile_delta(float* delta, const float* g,
+                                           const float* out) {
+  for (int r = threadIdx.x; r < kTile; r += kThreads) {
+    float d = 0.f;
+#pragma unroll
+    for (int c = 0; c < D; ++c) d = fmaf(g[r * D + c], out[r * D + c], d);
+    delta[r] = d;
+  }
+}
+
+// bias plus mask (none: bias alone) at the elements of a warp's chunk of
+// s^T: keys j0 + g and j0 + g + 8, queries i0 + 8 n + 2t and + 1; indices
+// clamped into [N, N]
+__device__ __forceinline__ void load_bias_t(float bm[kChunkTiles][4],
+                                            const float* bias,
+                                            const float* mask, int i0, int j0,
+                                            int g, int t, int N) {
+#pragma unroll
+  for (int n = 0; n < kChunkTiles; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const long long x =
+          (long long)min(i0 + 8 * n + 2 * t + (e & 1), N - 1) * N +
+          min(j0 + g + 8 * (e >> 1), N - 1);
+      bm[n][e] = __ldg(bias + x) + (mask ? __ldg(mask + x) : 0.f);
+    }
+}
+
+// dk, dv and ds of one (64-key tile, head, window); see the note at the top
 template <int D>
 __global__ void __launch_bounds__(kThreads, min_blocks(D))
 attn_bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -110,182 +318,177 @@ attn_bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ lse, float* __restrict__ dk,
                    float* __restrict__ dv, float* __restrict__ ds, int H,
                    int N, int nW, float scale) {
-  static_assert(D % 4 == 0, "D must be a multiple of 4");
+  using C = Dims<D>;
+  constexpr int kStage = 3 * C::kRaw + kTile;   // raw q, g, out, lse
   extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);   // [N, D] q * scale
-  float* gs = qs + N * D;                          // [N, D] g
-  float* ls = gs + N * D;                          // [N] lse
-  float* dl = ls + N;                              // [N] delta
+  float* raw = reinterpret_cast<float*>(smem4);
+  uint32_t* qs = reinterpret_cast<uint32_t*>(raw + 2 * kStage);   // q * scale
+  uint32_t* gs = qs + 2 * C::kPlane;
+  float* delta = reinterpret_cast<float*>(gs + 2 * C::kPlane);
 
-  const int h = blockIdx.y;
-  const int w = blockIdx.z;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int gr = lane / 4, tc = lane % 4;   // the mma's group, thread in group
+  const int h = blockIdx.y, w = blockIdx.z;
   const long long rows = ((long long)w * H + h) * N;   // row 0 of (w, h)
-  const float* qg = q + rows * D;
-  const float* gg = g + rows * D;
-  const float* og = out + rows * D;
+  const float* bh = bias + (long long)h * N * N;
+  const float* mw = mask ? mask + (long long)(w % nW) * N * N : nullptr;
+  const int j0 = blockIdx.x * kTile + 16 * warp;       // this warp's keys
 
-  // 1. stage q * scale and g of every query row; lse and delta per row
-  for (int e = threadIdx.x; e < N * D / 4; e += kThreads) {
-    float4 a = __ldg(reinterpret_cast<const float4*>(qg) + e);
-    a.x *= scale; a.y *= scale; a.z *= scale; a.w *= scale;
-    reinterpret_cast<float4*>(qs)[e] = a;
-    reinterpret_cast<float4*>(gs)[e] =
-        __ldg(reinterpret_cast<const float4*>(gg) + e);
-  }
-  for (int i = threadIdx.x; i < N; i += kThreads) {
-    float d = 0.f;
-#pragma unroll
-    for (int c = 0; c < D; c += 4) {
-      const float4 a = __ldg(reinterpret_cast<const float4*>(gg + i * D + c));
-      const float4 b = __ldg(reinterpret_cast<const float4*>(og + i * D + c));
-      d = fmaf(a.x, b.x, d);
-      d = fmaf(a.y, b.y, d);
-      d = fmaf(a.z, b.z, d);
-      d = fmaf(a.w, b.w, d);
-    }
-    dl[i] = d;
-    ls[i] = __ldg(lse + rows + i);
-  }
+  AFrag kf[C::kSteps], vf[C::kSteps];
+  load_a_global<D>(kf, k + rows * D, j0, N, 1.f, gr, tc);
+  load_a_global<D>(vf, v + rows * D, j0, N, 1.f, gr, tc);
+  float dkc[C::kSteps][4] = {}, dvc[C::kSteps][4] = {};
+  // bias plus mask of the next chunk, loaded a chunk ahead of its use
+  float nb[kChunkTiles][4];
+  load_bias_t(nb, bh, mw, 0, j0, gr, tc, N);
 
-  // 2. this lane's key (keys past N compute on key N - 1 and store nothing)
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int j = blockIdx.x * kKeys + lane;
-  const bool live = j < N;
-  const int jc = min(j, N - 1);
-  float kr[D], vr[D], dkr[D], dvr[D];
-#pragma unroll
-  for (int d = 0; d < D; d += 4) {
-    const float4 a = __ldg(reinterpret_cast<const float4*>(k + (rows + jc) * D + d));
-    const float4 b = __ldg(reinterpret_cast<const float4*>(v + (rows + jc) * D + d));
-    kr[d] = a.x; kr[d + 1] = a.y; kr[d + 2] = a.z; kr[d + 3] = a.w;
-    vr[d] = b.x; vr[d + 1] = b.y; vr[d + 2] = b.z; vr[d + 3] = b.w;
-  }
-#pragma unroll
-  for (int d = 0; d < D; ++d) dkr[d] = dvr[d] = 0.f;
-  const float* bcol = bias + (long long)h * N * N + jc;   // bias[h, i, jc]
-  const float* mcol =
-      mask ? mask + (long long)(w % nW) * N * N + jc : nullptr;
-  float* dscol = ds + rows * N + jc;                       // ds[w, h, i, jc]
-  __syncthreads();
-
-  // 3. this warp's query rows, two at a time: row i0 and row i0 + kWarps
-  for (int i0 = warp; i0 < N; i0 += 2 * kWarps) {
-    const int i1 = i0 + kWarps;
-    const bool has1 = i1 < N;
-    const int c1 = has1 ? i1 : i0;
-    // bias and mask first, so their loads are in flight during the dots
-    const float b0 = __ldg(bcol + (long long)i0 * N);
-    const float b1 = __ldg(bcol + (long long)c1 * N);
-    const float m0 = mask ? __ldg(mcol + (long long)i0 * N) : 0.f;
-    const float m1 = mask ? __ldg(mcol + (long long)c1 * N) : 0.f;
-    const float* q0 = qs + i0 * D;
-    const float* q1 = qs + c1 * D;
-    const float* g0 = gs + i0 * D;
-    const float* g1 = gs + c1 * D;
-    float s0 = 0.f, s1 = 0.f, dp0 = 0.f, dp1 = 0.f;
-#pragma unroll
-    for (int d = 0; d < D; d += 4) {
-      s0 = dot4(ld4(q0 + d), kr + d, s0);
-      s1 = dot4(ld4(q1 + d), kr + d, s1);
-      dp0 = dot4(ld4(g0 + d), vr + d, dp0);
-      dp1 = dot4(ld4(g1 + d), vr + d, dp1);
-    }
-    s0 = (s0 + b0) + m0;
-    s1 = (s1 + b1) + m1;
-    const float p0 = expf(s0 - ls[i0]);
-    const float p1 = has1 ? expf(s1 - ls[c1]) : 0.f;
-    const float ds0 = p0 * (dp0 - dl[i0]);
-    const float ds1 = has1 ? p1 * (dp1 - dl[c1]) : 0.f;
-#pragma unroll
-    for (int d = 0; d < D; d += 4) {
-      axpy4(p0, ld4(g0 + d), dvr + d);
-      axpy4(p1, ld4(g1 + d), dvr + d);
-      axpy4(ds0, ld4(q0 + d), dkr + d);
-      axpy4(ds1, ld4(q1 + d), dkr + d);
-    }
-    if (live) {
-      dscol[(long long)i0 * N] = ds0;
-      if (has1) dscol[(long long)i1 * N] = ds1;
-    }
-  }
-
-  // 4. sum the four warps' partial dk and dv in a fixed order
-  constexpr int kStride = D + 1;   // odd: a warp's lanes hit distinct banks
-  __syncthreads();                 // every warp is done with the staged rows
-  float* part = qs;                // [kWarps][2][kKeys][kStride]
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    part[((warp * 2) * kKeys + lane) * kStride + d] = dkr[d];
-    part[((warp * 2 + 1) * kKeys + lane) * kStride + d] = dvr[d];
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < kKeys * D; e += kThreads) {
-    const int key = e / D;
-    const int d = e % D;
-    const int jj = blockIdx.x * kKeys + key;
-    if (jj >= N) continue;
-    float sk = 0.f, sv = 0.f;
-#pragma unroll
-    for (int u = 0; u < kWarps; ++u) {
-      sk += part[((u * 2) * kKeys + key) * kStride + d];
-      sv += part[((u * 2 + 1) * kKeys + key) * kStride + d];
-    }
-    dk[(rows + jj) * D + d] = sk;
-    dv[(rows + jj) * D + d] = sv;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dq_kernel(const float* __restrict__ ds, const float* __restrict__ k,
-                   float* __restrict__ dq, int H, int N, float scale) {
-  constexpr int kHalf = D / 2;     // even, since D % 4 == 0
-  __shared__ float dss[kRows][kTile + 1];
-  __shared__ __align__(16) float kts[kTile * D];
-  const int h = blockIdx.y;
-  const int w = blockIdx.z;
-  const long long rows = ((long long)w * H + h) * N;
-  const int r = threadIdx.x % kRows;
-  const int half = threadIdx.x / kRows;
-  const int row0 = blockIdx.x * kRows;
-  float acc[kHalf];
-#pragma unroll
-  for (int d = 0; d < kHalf; ++d) acc[d] = 0.f;
-
-  for (int j0 = 0; j0 < N; j0 += kTile) {
-    for (int e = threadIdx.x; e < kRows * kTile; e += kThreads) {
-      const int rr = e / kTile;
-      const int jj = e % kTile;
-      const int i = row0 + rr;
-      const int j = j0 + jj;
-      dss[rr][jj] = (i < N && j < N) ? ds[(rows + i) * N + j] : 0.f;
-    }
-    for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
-      kts[e] = (j0 + e / D < N) ? k[(rows + j0) * D + e] : 0.f;
-    }
+  const int tiles = (N + kTile - 1) / kTile;
+  auto prefetch = [&](int it) {
+    float* st = raw + (it & 1) * kStage;
+    stage_raw<D>(st, q + rows * D, it * kTile, N);
+    stage_raw<D>(st + C::kRaw, g + rows * D, it * kTile, N);
+    stage_raw<D>(st + 2 * C::kRaw, out + rows * D, it * kTile, N);
+    stage_row_values(st + 3 * C::kRaw, lse + rows, it * kTile, N);
+  };
+  prefetch(0);
+  cp_async_commit();
+  for (int it = 0; it < tiles; ++it) {
+    __syncthreads();                 // every warp is done with tile it - 1
+    if (it + 1 < tiles) prefetch(it + 1);
+    cp_async_commit();
+    cp_async_wait_one();             // tile it has landed
     __syncthreads();
-#pragma unroll 4
-    for (int jj = 0; jj < kTile; ++jj) {
-      const float x = dss[r][jj];
-      const float* kr = kts + jj * D + half * kHalf;
+    const float* st = raw + (it & 1) * kStage;
+    const float* ls = st + 3 * C::kRaw;
+    split_tile<D>(qs, st, scale);
+    split_tile<D>(gs, st + C::kRaw, 1.f);
+    tile_delta<D>(delta, st + C::kRaw, st + 2 * C::kRaw);
+    __syncthreads();
+
+    const int i0 = it * kTile;
+#pragma unroll 1
+    for (int c = 0; c < kTile; c += kChunk) {
+      // s^T and dp^T: rows are this warp's keys, columns the chunk's queries
+      float bm[kChunkTiles][4];
 #pragma unroll
-      for (int d = 0; d < kHalf; d += 2) {
-        const float2 kk = *reinterpret_cast<const float2*>(kr + d);
-        acc[d] = fmaf(x, kk.x, acc[d]);
-        acc[d + 1] = fmaf(x, kk.y, acc[d + 1]);
+      for (int n = 0; n < kChunkTiles; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) bm[n][e] = nb[n][e];
+      load_bias_t(nb, bh, mw, i0 + c + kChunk, j0, gr, tc, N);
+      float sc[kChunkTiles][4] = {}, dp[kChunkTiles][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < C::kSteps; ++ks)
+#pragma unroll
+        for (int n = 0; n < kChunkTiles; ++n) {
+          mma3(sc[n], kf[ks], load_b_rows<D>(qs, c + 8 * n, ks, gr, tc));
+          mma3(dp[n], vf[ks], load_b_rows<D>(gs, c + 8 * n, ks, gr, tc));
+        }
+#pragma unroll
+      for (int n = 0; n < kChunkTiles; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int il = c + 8 * n + 2 * tc + (e & 1);   // query in the tile
+          const int i = i0 + il;
+          const int j = j0 + gr + 8 * (e >> 1);
+          const float p = i < N ? __expf(sc[n][e] + bm[n][e] - ls[il]) : 0.f;
+          sc[n][e] = p;
+          dp[n][e] = p * (dp[n][e] - delta[il]);
+          if (i < N && j < N) ds[(rows + i) * N + j] = dp[n][e];
+        }
+      // dv += p^T g and dk += ds^T (q * scale) over the chunk's queries
+#pragma unroll
+      for (int kk = 0; kk < kChunkTiles; ++kk) {
+        const AFrag pa = a_from_c(sc[kk]);
+        const AFrag da = a_from_c(dp[kk]);
+#pragma unroll
+        for (int nd = 0; nd < C::kSteps; ++nd) {
+          mma3(dvc[nd], pa, load_b_perm<D>(gs, c + 8 * kk, nd, gr, tc));
+          mma3(dkc[nd], da, load_b_perm<D>(qs, c + 8 * kk, nd, gr, tc));
+        }
       }
     }
-    __syncthreads();
   }
-  const int i = row0 + r;
-  if (i < N) {
+
 #pragma unroll
-    for (int d = 0; d < kHalf; ++d)
-      dq[(rows + i) * D + half * kHalf + d] = acc[d] * scale;
-  }
+  for (int nd = 0; nd < C::kSteps; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = j0 + gr + 8 * (e >> 1);
+      const int d = 8 * nd + 2 * tc + (e & 1);
+      if (j < N && d < D) {
+        dk[(rows + j) * D + d] = dkc[nd][e];
+        dv[(rows + j) * D + d] = dvc[nd][e];
+      }
+    }
 }
 
+// dq = ds k * scale of one (64-row query tile, head, window), ds read back
+// from the kv pass's scratch
+template <int D>
+__global__ void __launch_bounds__(kThreads, min_blocks(D))
+attn_bwd_dq_kernel(const float* __restrict__ ds, const float* __restrict__ k,
+                   float* __restrict__ dq, int H, int N, float scale) {
+  using C = Dims<D>;
+  constexpr int kStage = C::kRaw + kTile * kDsStride;   // raw k, ds
+  extern __shared__ float4 smem4[];
+  float* raw = reinterpret_cast<float*>(smem4);
+  uint32_t* kpl = reinterpret_cast<uint32_t*>(raw + 2 * kStage);
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int gr = lane / 4, tc = lane % 4;
+  const int h = blockIdx.y, w = blockIdx.z;
+  const long long rows = ((long long)w * H + h) * N;
+  const int i0 = blockIdx.x * kTile;
+  const int r0 = 16 * warp;                      // this warp's rows in the tile
+  const float* dsw = ds + rows * N;              // ds [N, N] of (w, h)
+  float dqc[C::kSteps][4] = {};
+
+  const int tiles = (N + kTile - 1) / kTile;
+  auto prefetch = [&](int jt) {
+    float* st = raw + (jt & 1) * kStage;
+    stage_raw<D>(st, k + rows * D, jt * kTile, N);
+    stage_square(st + C::kRaw, dsw, i0, jt * kTile, N);
+  };
+  prefetch(0);
+  cp_async_commit();
+  for (int jt = 0; jt < tiles; ++jt) {
+    __syncthreads();
+    if (jt + 1 < tiles) prefetch(jt + 1);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    const float* st = raw + (jt & 1) * kStage;
+    split_tile<D>(kpl, st, 1.f);
+    __syncthreads();
+
+    // A = ds with its 8 columns in the C fragment's order (k = t is column
+    // 2t, k = t+4 column 2t+1), so B reads k's rows as load_b_perm does
+    const float* dst = st + C::kRaw + (r0 + gr) * kDsStride + 2 * tc;
+#pragma unroll 2
+    for (int kk = 0; kk < kTile / 8; ++kk) {
+      const float2 top = *reinterpret_cast<const float2*>(dst + 8 * kk);
+      const float2 bot =
+          *reinterpret_cast<const float2*>(dst + 8 * kDsStride + 8 * kk);
+      const float c[4] = {top.x, top.y, bot.x, bot.y};
+      const AFrag da = a_from_c(c);
+#pragma unroll
+      for (int nd = 0; nd < C::kSteps; ++nd)
+        mma3(dqc[nd], da, load_b_perm<D>(kpl, 8 * kk, nd, gr, tc));
+    }
+  }
+
+#pragma unroll
+  for (int nd = 0; nd < C::kSteps; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = i0 + r0 + gr + 8 * (e >> 1);
+      const int d = 8 * nd + 2 * tc + (e & 1);
+      if (i < N && d < D) dq[(rows + i) * D + d] = dqc[nd][e] * scale;
+    }
+}
+
+// dbias = the sum of ds over the windows, in order w = 0 .. W-1, one
+// thread per (head, i, j): the reads of a warp are 32 consecutive floats
 __global__ void __launch_bounds__(kReduceThreads)
 attn_bwd_dbias_kernel(const float* __restrict__ ds, float* __restrict__ dbias,
                       int W, int H, long long NN) {
@@ -298,23 +501,39 @@ attn_bwd_dbias_kernel(const float* __restrict__ ds, float* __restrict__ dbias,
   dbias[e] = acc;
 }
 
+// dynamic shared memory of each kernel, in bytes
+template <int D>
+constexpr size_t kv_smem() {
+  using C = Dims<D>;
+  return sizeof(float) * (2 * (3 * C::kRaw + kTile) + 4 * C::kPlane + kTile);
+}
+template <int D>
+constexpr size_t dq_smem() {
+  using C = Dims<D>;
+  return sizeof(float) * (2 * (C::kRaw + kTile * kDsStride) + 2 * C::kPlane);
+}
+
 template <int D>
 int launch(const float* q, const float* k, const float* v, const float* bias,
            const float* mask, const float* g, const float* out,
            const float* lse, float* ds, float* dq, float* dk, float* dv,
            float* dbias, int W, int H, int N, int nW, float scale,
            cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)kv_smem_floats(N, D);
   cudaError_t err = cudaFuncSetAttribute(
       attn_bwd_kv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      static_cast<int>(kv_smem<D>()));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(attn_bwd_dq_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(dq_smem<D>()));
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_bwd_kv_kernel<D><<<dim3((N + kKeys - 1) / kKeys, H, W), kThreads,
-                          smem, stream>>>(
-      q, k, v, bias, mask, g, out, lse, dk, dv, ds, H, N, nW, scale);
+  const int tiles = (N + kTile - 1) / kTile;
+  attn_bwd_kv_kernel<D><<<dim3(tiles, H, W), kThreads, kv_smem<D>(),
+                          stream>>>(q, k, v, bias, mask, g, out, lse, dk, dv,
+                                    ds, H, N, nW, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_bwd_dq_kernel<D><<<dim3((N + kRows - 1) / kRows, H, W), kThreads, 0,
+  attn_bwd_dq_kernel<D><<<dim3(tiles, H, W), kThreads, dq_smem<D>(),
                           stream>>>(ds, k, dq, H, N, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -329,15 +548,11 @@ int launch(const float* q, const float* k, const float* v, const float* bias,
 
 extern "C" {
 
-// Dynamic shared memory of one block of pass 1, in bytes.
-long long window_attn_bwd_smem_bytes(int N, int D) {
-  return static_cast<long long>(sizeof(float)) * kv_smem_floats(N, D);
-}
-
-// Launches the three passes on `stream`; returns the CUDA error code (0 =
+// Launches the three kernels on `stream`; returns the CUDA error code (0 =
 // ok). `mask` may be null (then nW is not read). `ds` is scratch of
 // W * H * N * N floats. D is a multiple of 4 up to 32; any other head_dim
-// returns cudaErrorInvalidValue.
+// returns cudaErrorInvalidValue. Every element of dq, dk, dv and dbias is
+// written.
 int window_attn_bwd_launch(const void* q, const void* k, const void* v,
                            const void* bias, const void* mask, const void* g,
                            const void* out, const void* lse, void* ds,
@@ -359,10 +574,10 @@ int window_attn_bwd_launch(const void* q, const void* k, const void* v,
   auto* dbf = static_cast<float*>(dbias);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-#define WINDOW_ATTN_BWD_CASE(DIM)                                           \
-    case DIM:                                                               \
-      return launch<DIM>(qf, kf, vf, bf, mf, gf, of, lf, dsf, dqf, dkf, dvf, \
-                         dbf, W, H, N, nW, scale, s);
+#define WINDOW_ATTN_BWD_CASE(DIM)                                          \
+    case DIM:                                                              \
+      return launch<DIM>(qf, kf, vf, bf, mf, gf, of, lf, dsf, dqf, dkf,    \
+                         dvf, dbf, W, H, N, nW, scale, s);
     WINDOW_ATTN_BWD_CASE(4)
     WINDOW_ATTN_BWD_CASE(8)
     WINDOW_ATTN_BWD_CASE(12)

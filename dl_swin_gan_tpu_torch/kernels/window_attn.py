@@ -7,9 +7,11 @@ package's `kernels/window_attn.py`) for tensors on a CUDA device, and runs
 `window_attention_plain` for tensors on the CPU. When q, k, v or the bias
 require grad, the call goes through a `torch.autograd.Function` whose
 backward is `window_attention_bwd`: `csrc/window_attn_bwd.cu` (the port of
-`_pallas_attention_bwd`) on the GPU, `window_attention_bwd_plain` on the
-CPU. `window_attention_fwd` is the forward kernel with each row's
-log-sum-exp, which the backward kernel reads. There is no other route: a
+`_pallas_attention_bwd`: three launches on 3xTF32 tensor cores, no
+atomics) on the GPU,
+`window_attention_bwd_plain` on the CPU. `window_attention_fwd` is the
+forward kernel with each row's log-sum-exp, which the backward kernel
+reads. There is no other route: a
 CUDA tensor the kernels cannot take raises. The source notes in the `.cu`
 files give each kernel's design and bound.
 
@@ -30,7 +32,8 @@ from typing import Optional
 import torch
 
 # the largest dynamic shared memory a Hopper block may opt into; the forward
-# keeps K and V of one (window, head) there, the backward q and g
+# keeps K and V of one (window, head) there (the backward streams tiles of
+# 64 rows, whatever N is)
 _SMEM_LIMIT = 232_448
 # gridDim.z holds the window index, gridDim.y the head
 _MAX_WINDOWS = 65_535
@@ -151,8 +154,6 @@ def _bwd_library():
         [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_float,
                                                        ctypes.c_void_p])
     lib.window_attn_bwd_launch.restype = ctypes.c_int
-    lib.window_attn_bwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.window_attn_bwd_smem_bytes.restype = ctypes.c_longlong
     lib.window_attn_bwd_error_string.argtypes = [ctypes.c_int]
     lib.window_attn_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -230,16 +231,13 @@ def window_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v, bias, g, out, lse = tensors[:7]
     mask = tensors[7] if mask is not None else None
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    dbias = torch.zeros_like(bias)
-    if q.numel() == 0:
-        return dq, dk, dv, dbias
+    if q.numel() == 0:    # no window: dbias sums nothing
+        return dq, dk, dv, torch.zeros_like(bias)
+    dbias = torch.empty_like(bias)    # the kernel writes every element
     _check_kernel_shape(q, "window_attention_bwd")
     lib = _bwd_library()
-    smem = lib.window_attn_bwd_smem_bytes(N, D)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"a window of {N} tokens at head_dim {D} needs {smem} "
-                         f"bytes of shared memory in the backward; the kernel "
-                         f"takes at most {_SMEM_LIMIT}")
+    # each window's ds, written once by the kv pass, read back by the dq
+    # pass and summed over the windows in order by the dbias pass
     ds = torch.empty((W, H, N, N), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -236,9 +236,16 @@ def _bwd_case(dev, shape, seed=0):
 @pytest.mark.parametrize("shape", [
     (12, 8, 448, 20, 12),       # the full-width Swin block, batch 1, shifted
     (48, 8, 448, 20, None),     # batch 4, unshifted
-    (6, 3, 100, 8, 3),          # ragged against 32 keys and 64 rows
+    (6, 3, 100, 8, 3),          # ragged against the 64-row and 64-key tiles
     (4, 2, 40, 32, None),       # the widest head_dim
     (2, 1, 3, 4, 1),            # fewer keys and rows than a tile
+    # every head_dim the wrapper takes: each pads differently against the
+    # mma's k = 8
+    *((4, 2, 100, d, 2) for d in (4, 8, 12, 16, 20, 24, 28, 32)),
+    (3, 2, 63, 20, 3),          # one key and row short of a tile
+    (3, 2, 65, 20, None),       # one past a tile
+    (2, 2, 449, 20, 1),         # one past seven tiles
+    (48, 8, 448, 20, 12),       # batch 4 with the full-width shift mask
 ])
 def test_window_attention_bwd_matches_plain(dev, shape):
     q, k, v, bias, mask, g, out, lse = _bwd_case(dev, shape)

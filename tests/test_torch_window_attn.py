@@ -196,3 +196,103 @@ def test_bwd_wrapper_checks_shapes():
         WA.window_attention_bwd(q, k, v, bias, mask, g[:, :1])
     with pytest.raises(ValueError, match="multiple"):
         WA.window_attention_bwd(q, k, v, bias, torch.zeros(4, 64, 64), g)
+
+
+def test_bwd_kernel_takes_every_head_dim_the_wrapper_admits():
+    """The CUDA backward is built for head_dim 4, 8, ..., 32 (zero-padded to
+    a multiple of 8 for the mma); the shared shape check refuses the rest
+    before any kernel is built."""
+    for d in range(4, 33, 4):
+        WA._check_kernel_shape(torch.empty(2, 1, 3, d), "window_attention_bwd")
+    for d in (2, 6, 30, 36):
+        with pytest.raises(ValueError, match="head_dim"):
+            WA._check_kernel_shape(torch.empty(2, 1, 3, d),
+                                   "window_attention_bwd")
+
+
+# ------------------------------------------- the backward kernel's arithmetic
+#
+# csrc/window_attn_bwd.cu runs every product on the tensor cores with TF32
+# operands (mma.sync m16n8k8), split 3xTF32: x = hi + lo with hi = tf32(x),
+# lo = tf32(x - hi), and a b = (a_hi b_lo + a_lo b_hi) + a_hi b_hi. Below,
+# that arithmetic in plain torch: it must hold the kernel's 1e-4 limit at the
+# full-width window, and plain TF32 (a_hi b_hi alone) must not.
+
+
+def _tf32(x):
+    """x rounded to TF32 as cvt.rna.tf32.f32 rounds it: to nearest, ties away
+    from zero, 10 mantissa bits (the low 13 of float32's 23 cleared)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm(a, b, three):
+    """a @ b as the kernel's mma computes it: TF32 operands; with `three`
+    also their remainders, the two cross terms first, then hi @ hi."""
+    ah, bh = _tf32(a), _tf32(b)
+    if not three:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (ah @ bl + al @ bh) + ah @ bh
+
+
+def _bwd_as_the_kernel(q, k, v, bias, mask, g, three):
+    """(dq, dk, dv, dbias) in the kernel's order: s = (q scale) k^T, then
+    + (bias + mask); p = exp(s - lse) with the forward's float32 lse;
+    delta = rowsum(g o out); ds = p (dp - delta); every product through
+    _mm."""
+    W, _, _, D = q.shape
+    scale = D ** -0.5
+    bm = bias[None] if mask is None else bias[None] + mask[:, None]
+    n = bm.shape[0]
+
+    def add_bm(s):
+        return (s.reshape(W // n, n, *s.shape[1:]) + bm[None]).reshape(s.shape)
+
+    qs = q * scale
+    lse = torch.logsumexp(add_bm(qs @ k.transpose(-1, -2)), -1, keepdim=True)
+    out = WA.window_attention_plain(q, k, v, bias, mask)
+    p = torch.exp(add_bm(_mm(qs, k.transpose(-1, -2), three)) - lse)
+    dp = _mm(g, v.transpose(-1, -2), three)
+    ds = p * (dp - (g * out).sum(-1, keepdim=True))
+    return (_mm(ds, k, three) * scale, _mm(ds.transpose(-1, -2), qs, three),
+            _mm(p.transpose(-1, -2), g, three), ds.sum(0))
+
+
+def test_tf32_rounding_and_split():
+    one = torch.tensor([1 + 2.0 ** -11, 1 + 2.0 ** -12, -(1 + 2.0 ** -11),
+                        1 + 3 * 2.0 ** -11], dtype=torch.float32)
+    torch.testing.assert_close(
+        _tf32(one), torch.tensor([1 + 2.0 ** -10, 1.0, -(1 + 2.0 ** -10),
+                                  1 + 2.0 ** -9]), rtol=0, atol=0)
+    x = torch.from_numpy(np.random.RandomState(9).standard_normal(
+        1000).astype(np.float32))
+    hi = _tf32(x)
+    lo = _tf32(x - hi)
+    assert (hi.view(torch.int32) & 0x1FFF).eq(0).all()
+    assert ((hi + lo - x).abs() <= x.abs() * 2.0 ** -21).all()
+    assert ((hi - x).abs() > x.abs() * 2.0 ** -14).any()
+
+
+@pytest.fixture(scope="module")
+def full_width_bwd():
+    """The full-width shifted block's window (N 448, D 20; 12 windows of the
+    7x48x16 grid with its shift mask) at 2 heads, and the plain backward."""
+    mask = jax_shift_mask(7, 48, 16, (7, 8, 8), (0, 4, 4))
+    q, k, v, bias, _ = _data(12, 2, 448, 20, seed=8)
+    g = np.random.RandomState(108).standard_normal(q.shape).astype(np.float32)
+    tensors = _torch(q, k, v, bias, mask, g)
+    return tensors, WA.window_attention_bwd_plain(*tensors)
+
+
+@pytest.mark.parametrize("three", [True, False], ids=["3xTF32", "TF32"])
+def test_bwd_kernel_arithmetic_against_plain(full_width_bwd, three):
+    """3xTF32 stays within the kernel's 1e-4 of the plain float32 backward
+    on every gradient; plain TF32, the control, misses it on every one."""
+    tensors, plain = full_width_bwd
+    rels = [_rel(a.numpy(), b.numpy()) for a, b in
+            zip(_bwd_as_the_kernel(*tensors, three=three), plain)]
+    if three:
+        assert max(rels) <= BWD_TOL, rels
+    else:
+        assert min(rels) > BWD_TOL, rels
