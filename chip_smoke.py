@@ -11,15 +11,20 @@ then exits non-zero and prints no result:
               versions, and the two TF32 flags (both off: true float32)
   2. build    compile every kernel of the paths from kernels/csrc, one nvcc
               per source, all started together; ptxas registers and spills
-              (none allowed in the window-attention backward)
+              (none allowed in the SENSE, block-LLR and window-attention
+              backward kernels, whose tensor-core products hold split
+              operands in registers)
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the main paths' shapes (batch 1 and 4; window attention, forward
               and backward, with and without the shift mask; the block-LLR
               normal op, 'pre' and 'post', one and two systems), with its
               time, the plain version's, the PyTorch library call's, and its
-              bound (the window-attention backward's at the 3xTF32 tensor-core
-              rate, its time also split by launch with torch.profiler); the
-              backwards also called twice for bitwise-equal results
+              bound (the SENSE and block-LLR kernels' and the window-attention
+              backward's at the 3xTF32 tensor-core rate, with the fp32-FMA
+              figure beside it; their times also split by launch with
+              torch.profiler); the coil pass's blocks per SM at 180x64 (two
+              at least); the backwards and the block-LLR op also called twice
+              for bitwise-equal results
   4. main     the headline config (configs/basic/example.yaml: 5 unrolls x 2
               resblocks x 64 features, float32, seeded torch-default weights)
               on 4 synthetic 20x180x64 slices with 8 coils and 2 maps, through
@@ -196,29 +201,47 @@ def phase_build():
                 print(f"  ptxas: {entry.group(1)}")
             elif "registers" in ln or "spill" in ln:
                 print(f"  ptxas: {ln.strip()}")
-    # the tensor-core backward holds its split operands in registers
-    spills = [ln.strip() for ln in libs["window_attn_bwd"].log.splitlines()
-              if "spill" in ln and "0 bytes spill stores, 0 bytes spill "
-              "loads" not in ln]
-    check(not spills, f"window_attn_bwd spills registers: {spills}")
+    # the tensor-core backward holds its split operands in registers, and the
+    # coil pass runs two blocks per SM, which caps its registers
+    for name in ("sense_normal", "window_attn_bwd", "llr_normal"):
+        spills = [ln.strip() for ln in libs[name].log.splitlines()
+                  if "spill" in ln and "0 bytes spill stores, 0 bytes spill "
+                  "loads" not in ln]
+        check(not spills, f"{name} spills registers: {spills}")
 
 
 def _normal_work(E, C, w):
-    """(FLOP, bytes) of one SENSE-normal call as the kernel does it: DFTs as
-    dense complex products (8 FLOP per complex multiply-add) over the R
-    k-space rows of each frame that hold a nonzero weight: the y-DFT to
-    those rows, both x-DFTs on them, the inverse y-DFT from them."""
+    """(DFT FLOP, other FLOP, bytes) of one SENSE-normal call as the kernel
+    does it: DFTs as dense complex products (8 FLOP per complex
+    multiply-add) over the R k-space rows of each frame that hold a nonzero
+    weight: the y-DFT to those rows, both x-DFTs on them, the inverse y-DFT
+    from them; then the weight, the coil expansion and the coil sum. The
+    DFT tables count as the complex64 matrices the function needs, 8 bytes
+    per entry (the kernel's hi/lo split of them is its own choice)."""
     B, T, Y, X = w.shape
     rows = int((w != 0).any(dim=3).sum().item())   # R summed over (b, t)
     yx = Y * X
-    flops = C * (rows * 8 * X * (2 * Y + 2 * X)     # the four DFT passes
-                 + rows * X * 2                     # k-space weight
+    dft = C * rows * 8 * X * (2 * Y + 2 * X)        # the four DFT passes
+    other = C * (rows * X * 2                       # k-space weight
                  + B * T * 8 * E * yx * 2)          # coil expansion, combine
     nbytes = (8 * B * E * T * yx * 2                # x in, out
               + 8 * B * E * C * yx                  # maps
               + 4 * B * T * yx                      # w
               + 8 * (Y * Y + X * X))                # DFT tables
-    return flops, nbytes
+    return dft, other, nbytes
+
+
+def _coil_bound(dft, other, nbytes):
+    """The bound of a call whose coil-pass DFTs run 3xTF32 on the tensor
+    cores (TF32_FLOPS / 3) and the rest as float32 FMA, against its bytes;
+    with the float32-FMA figure for all of it beside it."""
+    t_ops = (dft / (TF32_FLOPS / 3) + other / FP32_FLOPS) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                ops_ms=t_ops, bytes_ms=t_bytes,
+                fma_bound_ms=max((dft + other) / FP32_FLOPS * 1e3, t_bytes),
+                gflop=(dft + other) / 1e9, mbytes=nbytes / 1e6)
 
 
 def phase_kernels():
@@ -228,23 +251,40 @@ def phase_kernels():
             "llr_normal": kernels_llr_normal()}
 
 
+def sense_inputs(rng, B):
+    """The SENSE-normal kernel's inputs at the headline shape, batch B, on
+    the 12x parity mask: x, maps, w and the operator chain's maps6, m5."""
+    T, Y, X, C, E = headline_shape()
+    mask = VDktMaskFunc((ACCEL, ACCEL))((1, 1, T, Y, X), PARITY_SEED)[0, 0]
+
+    def c64(*shape):
+        a = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+        return torch.from_numpy(a.astype(np.complex64)).cuda()
+
+    x = c64(B, E, T, Y, X)
+    maps = c64(B, E, C, Y, X)
+    m5 = torch.from_numpy(np.broadcast_to(mask, (B, 1, T, Y, X)).copy()).cuda()
+    w = (m5[:, 0] * m5[:, 0]).contiguous()
+    return x, maps, w, maps.unsqueeze(3), m5
+
+
+def coil_launches(fn):
+    """{kernel: device ms per fn() call} of the coil-pass launches."""
+    return {_short(n): t for n, t in device_ms_by_kernel(fn).items()
+            if "coil_" in n}
+
+
 def kernels_sense_normal():
     """sense_normal kernel vs plain vs the cuFFT chain at batch 1 and 4."""
     T, Y, X, C, E = headline_shape()
+    blocks = SN.blocks_per_sm(Y, X)
+    print(f"kernel sense_normal: coil_normal_kernel blocks per SM at {Y}x{X}: "
+          f"{blocks}")
+    check(blocks >= 2, f"coil_normal_kernel fits {blocks} block(s) per SM")
     rng = np.random.RandomState(SEED)
-    mask = VDktMaskFunc((ACCEL, ACCEL))((1, 1, T, Y, X), PARITY_SEED)[0, 0]
     results = {}
     for B in (1, 4):
-        def c64(*shape):
-            a = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
-            return torch.from_numpy(a.astype(np.complex64)).cuda()
-
-        x = c64(B, E, T, Y, X)
-        maps = c64(B, E, C, Y, X)
-        m5 = torch.from_numpy(np.broadcast_to(mask, (B, 1, T, Y, X)).copy()).cuda()
-        w = (m5[:, 0] * m5[:, 0]).contiguous()
-        maps6 = maps.unsqueeze(3)
-
+        x, maps, w, maps6, m5 = sense_inputs(rng, B)
         out = SN.sense_normal(x, maps, w)
         plain = SN.sense_normal_plain(x, maps, w)
         library = _adjoint_impl(_forward_impl(x, maps6, m5), maps6, m5)
@@ -264,21 +304,28 @@ def kernels_sense_normal():
         plain_ms = cuda_ms(lambda: SN.sense_normal_plain(x, maps, w))
         library_ms = cuda_ms(
             lambda: _adjoint_impl(_forward_impl(x, maps6, m5), maps6, m5))
-        flops, nbytes = _normal_work(E, C, w)
-        t_ops = flops / FP32_FLOPS * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        launches = coil_launches(lambda: SN.sense_normal(x, maps, w))
+        bound = _coil_bound(*_normal_work(E, C, w))
         results[B] = dict(
             max_abs_err=max_abs, rel_err=rel, ms=ms, plain_ms=plain_ms,
-            library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
-            bound_by="operations" if t_ops >= t_bytes else "bytes",
-            gflop=flops / 1e9, mbytes=nbytes / 1e6)
+            library_ms=library_ms, device_ms_by_launch=launches,
+            blocks_per_sm=blocks, **bound)
         print(f"kernel sense_normal B={B} [{B},{E},{T},{Y},{X}] C={C}: "
               f"max|k-p|/max|p| {rel:.3e} (max abs {max_abs:.3e}; cuFFT chain "
-              f"{lib_rel:.3e}) kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
-              f"library_ms {library_ms:.4f} bound_ms {max(t_ops, t_bytes):.4f} "
-              f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB) "
-              f"achieved {flops / ms / 1e9:.2f} TFLOP/s")
+              f"{lib_rel:.3e}) kernel_ms {ms:.4f} (profiler device: "
+              + ", ".join(f"{n} {t:.4f}" for n, t in launches.items())
+              + f") plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
+              + _bound_text(bound, ms))
     return results
+
+
+def _bound_text(bound, ms):
+    return (f"bound_ms {bound['bound_ms']:.4f} by {bound['bound_by']} at "
+            f"3xTF32 DFTs ({bound['ops_ms']:.4f} by operations, "
+            f"{bound['bytes_ms']:.4f} by bytes; {bound['gflop']:.3f} GFLOP, "
+            f"{bound['mbytes']:.2f} MB; fp32 FMA {bound['fma_bound_ms']:.4f}) "
+            f"achieved {bound['gflop'] / ms:.2f} TFLOP/s, "
+            f"{bound['bound_ms'] / ms:.1%} of the bound")
 
 
 def _attention_work(W, H, N, D, nW):
@@ -375,9 +422,10 @@ def device_ms_by_kernel(fn, runs=10):
 
 
 def _short(name):
-    """A backward kernel's profiler name without its template and
+    """A kernel's profiler name without its namespace, template and
     arguments."""
-    found = re.search(r"attn_bwd_\w+", name)
+    found = re.search(r"attn_bwd_\w+|(?:coil|llr)_\w+_kernel|"
+                      r"at::native::\w+", name)
     return found.group(0) if found else name
 
 
@@ -498,30 +546,32 @@ def kernels_window_attention_bwd():
 
 
 def _llr_work(S, op, C, w2):
-    """(FLOP, bytes) of one block-LLR normal call as the kernel does it: the
-    SENSE-normal passes of each system (DFTs over the R k-space rows of each
-    frame that hold a nonzero weight, the weight, the coil expansion and
-    sum), combine (a real weight times each block value, summed) and
-    extract (a real weight times each value), Dinv once per pixel; the
-    blocks in and out, maps, w2, Dinv and the DFT tables moved once."""
+    """(DFT FLOP, other FLOP, bytes) of one block-LLR normal call as the
+    kernel does it: the SENSE-normal passes of each system (DFTs over the R
+    k-space rows of each frame that hold a nonzero weight; the weight, the
+    coil expansion and sum), combine (a real weight times each block value,
+    summed) and extract (a real weight times each value), Dinv once per
+    pixel; the blocks in and out, maps, w2, Dinv and the complex64 DFT
+    tables moved once."""
     T, Y, X = w2.shape
     E, b = op.ne, op.block_size
     rows = int((w2 != 0).any(dim=2).sum().item())   # R summed over frames
     yx = Y * X
     nel = S * op.num_blocks * E * b * b * T            # block values
-    flops = (S * C * (rows * 8 * X * (2 * Y + 2 * X) + rows * X * 2
-                      + T * 8 * E * yx * 2)
+    dft = S * C * rows * 8 * X * (2 * Y + 2 * X)
+    other = (S * C * (rows * X * 2 + T * 8 * E * yx * 2)
              + 4 * nel + 2 * nel + 2 * S * E * T * yx)
     nbytes = (8 * nel * 2 + 8 * E * C * yx + 4 * T * yx + 4 * yx
               + 8 * (Y * Y + X * X))
-    return flops, nbytes
+    return dft, other, nbytes
 
 
-def kernels_llr_normal():
-    """llr_normal kernel vs its plain version vs the operator chain on cuFFT
-    (BlockOp combine, SENSE forward and adjoint, BlockOp extract) at the DSLR
-    training point's shapes: 'pre' and 'post', one system and two (the
-    jacobi mode), the training mask; two calls must be bitwise equal."""
+def llr_inputs():
+    """The block-LLR kernel's setting at the DSLR training point: (op, maps,
+    w2, c64, plain, library); c64(*shape) draws seeded complex64 on the
+    card, plain(blk, d_side) is the plain version and library(blk, d_side)
+    the same function by PyTorch calls (BlockOp combine, the SENSE forward
+    and adjoint on cuFFT, BlockOp extract)."""
     cfg = dslr_cfg()
     T, Y, X, C, E = headline_shape()
     p = cfg.MODEL.PARAMETERS
@@ -543,8 +593,7 @@ def kernels_llr_normal():
     weights = op.weights + 1e-8
 
     def library(blk, d_side):
-        """The same function by PyTorch calls, system by system ('post'
-        undoes combine's division by the fold weights first)."""
+        """('post' undoes combine's division by the fold weights first)"""
         outs = []
         for b in blk:
             img = op(b, adjoint=True)
@@ -558,9 +607,24 @@ def kernels_llr_normal():
         return LN.mats_to_blocks(LN.llr_normal_plain(
             LN.blocks_to_mats(blk, op), maps, w2, py, px, dinv, d_side), op)
 
+    return op, maps, w2, c64, plain, library
+
+
+def kernels_llr_normal():
+    """llr_normal kernel vs its plain version vs the operator chain on cuFFT
+    at the DSLR training point's shapes: 'pre' and 'post', one system and
+    two (the jacobi mode), the training mask; two calls must be bitwise
+    equal."""
+    op, maps, w2, c64, plain, library = llr_inputs()
+    T, Y, X = w2.shape
+    C = maps.shape[1]
+    blocks = SN.blocks_per_sm(Y, X, LN._library())
+    print(f"kernel llr_normal: coil_normal_kernel blocks per SM at {Y}x{X}: "
+          f"{blocks}")
+    check(blocks >= 2, f"llr coil pass fits {blocks} block(s) per SM")
     results = {}
     for S in (1, 2):
-        blk = c64(S, op.num_blocks, E * op.block_size ** 2, T)
+        blk = c64(S, op.num_blocks, op.ne * op.block_size ** 2, T)
         for d_side in ("pre", "post"):
             out = LN.llr_normal(blk, maps, w2, op, d_side)
             again = LN.llr_normal(blk, maps, w2, op, d_side)
@@ -585,25 +649,20 @@ def kernels_llr_normal():
             ms = cuda_ms(lambda: LN.llr_normal(blk, maps, w2, op, d_side))
             plain_ms = cuda_ms(lambda: plain(blk, d_side))
             library_ms = cuda_ms(lambda: library(blk, d_side))
-            flops, nbytes = _llr_work(S, op, C, w2)
-            t_ops = flops / FP32_FLOPS * 1e3
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            launches = coil_launches(
+                lambda: LN.llr_normal(blk, maps, w2, op, d_side))
+            bound = _coil_bound(*_llr_work(S, op, C, w2))
             results[d_side, S] = dict(
                 max_abs_err=max_abs, rel_err=rel, bitwise_equal_calls=True,
                 ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
-                gflop=flops / 1e9, mbytes=nbytes / 1e6)
+                device_ms_by_launch=launches, blocks_per_sm=blocks, **bound)
             print(f"kernel llr_normal {tag} blocks {list(blk.shape)} C={C} "
                   f"{Y}x{X}: max|k-p|/max|p| {rel:.3e} (max abs {max_abs:.3e};"
                   f" two calls bitwise equal; operator chain {lib_rel:.3e}) "
-                  f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-                  f"{library_ms:.4f} bound_ms {max(t_ops, t_bytes):.4f} by "
-                  f"{results[d_side, S]['bound_by']} ({flops / 1e9:.3f} "
-                  f"GFLOP, {nbytes / 1e6:.2f} MB; operations {t_ops:.4f} ms, "
-                  f"bytes {t_bytes:.4f} ms) achieved "
-                  f"{flops / ms / 1e9:.2f} TFLOP/s, {nbytes / ms / 1e9:.2f} "
-                  f"TB/s")
+                  f"kernel_ms {ms:.4f} (profiler device, coil pass: "
+                  + ", ".join(f"{n} {t:.4f}" for n, t in launches.items())
+                  + f") plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
+                  + _bound_text(bound, ms))
     return results
 
 

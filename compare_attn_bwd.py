@@ -108,11 +108,16 @@ def main():
                                                        out, lse)}
             plain = WA.window_attention_bwd_plain(q, k, v, bias, m, g)
             row = {}
+            grads = {}
             for name, fn in versions.items():
-                rel = max_rel(fn(), plain)
+                grads[name] = fn()
+                rel = max_rel(grads[name], plain)
                 CS.check(rel <= CS.KERNEL_REL_TOL,
                          f"{name} vs plain rel err {rel:.3e}")
                 row[name] = {"rel_err": rel, "ms": []}
+            row["new"]["bitwise_equal_to_old"] = all(
+                torch.equal(a, b) for a, b in zip(grads["old"], grads["new"]))
+            del grads
             for name in ("old", "new", "new", "old"):
                 row[name]["ms"].append(CS.cuda_ms(versions[name]))
             for name, fn in versions.items():
@@ -129,6 +134,8 @@ def main():
             print(f"compare {key}: " + "; ".join(
                 f"{name} ms {', '.join(f'{t:.4f}' for t in r['ms'])}"
                 + (f" rel {r['rel_err']:.3e}" if "rel_err" in r else "")
+                + (f" bitwise equal to old {r['bitwise_equal_to_old']}"
+                   if "bitwise_equal_to_old" in r else "")
                 + " device " + (", ".join(
                     f"{n} {t:.4f}" for n, t in
                     r["device_ms_by_launch"].items())

@@ -12,7 +12,8 @@
 //                                     of S systems, N = nby*nbx row-major
 //   maps  [S, E, C, Y, X]   w2 [S, T, Y, X] f32 (mask^2)   dinv [Y, X] f32
 //   win   [b] f32           the periodic sqrt-Hann window of one axis
-//   fy [Y, Y], fx [X, X]    ortho DFT matrices
+//   fy, fx                  the ortho DFT matrices, split into TF32 hi and
+//                           lo parts by the wrapper (coil_normal.cuh)
 //   img, img_out [S, E, T, Y, X] and coil [S, T, C, Y, X]: scratch the
 //                           wrapper allocates
 //
@@ -46,12 +47,13 @@
 // Bound: at the DSLR training point (S=1, T=20, E=2, C=8, 180x64, b=16,
 // 207 blocks, about 15 of 180 k-space rows sampled per frame) the kernel
 // moves the blocks in and out (17 MB each way) and does about 0.6 GFLOP of
-// DFTs, so bytes (about 10 us at 3.35 TB/s) and float32 operations (about
-// 9 us at 67 TFLOP/s) bound it about equally. All arithmetic is float32
-// FMA: no TF32 or bf16. The coil passes keep the SENSE kernel's shape (one
-// frame per block, 160 blocks for the 132 SMs at S=1) and its cost; fusing
-// combine and extract into them, and a grid finer than one frame per
-// block, are left for later work.
+// DFTs, on the tensor cores in 3xTF32, and 0.1 GFLOP of float32 FMA, so
+// the bytes (about 11 us at 3.35 TB/s) bound it ahead of the operations
+// (about 5 us). No plain TF32 or bf16. The coil passes are the SENSE
+// kernel's (coil_normal.cuh): one block per (coil, frame, system), two
+// blocks per SM, so 160 blocks at S=1 run in one wave on the 132 SMs;
+// sense_normal.cu's note gives their design. Fusing combine and extract
+// into them, and the coil sum on chip, are left for later work.
 
 #include "coil_normal.cuh"
 
@@ -215,8 +217,8 @@ int llr_normal_launch(const void* blocks, const void* maps, const void* w2,
 
   err = launch_coil_normal(
       static_cast<const float2*>(img), static_cast<const float2*>(maps),
-      static_cast<const float*>(w2), static_cast<const float2*>(fy),
-      static_cast<const float2*>(fx), static_cast<float2*>(coil),
+      static_cast<const float*>(w2), static_cast<const float4*>(fy),
+      static_cast<const uint4*>(fx), static_cast<float2*>(coil),
       static_cast<float2*>(img_out), S, E, C, T, Y, X, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 

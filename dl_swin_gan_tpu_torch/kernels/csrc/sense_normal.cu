@@ -14,8 +14,10 @@
 //
 // Layout: complex64 values as interleaved float2 (torch's complex64),
 //   x, out  [B, E, T, Y, X]     maps [B, E, C, Y, X]     w [B, T, Y, X] f32
-//   fy [Y, Y], fx [X, X]        ortho DFT matrices, built in float64 and
-//                               rounded to complex64 by the wrapper
+//   fy, fx                      the ortho DFT matrices (built in float64,
+//                               rounded to complex64), split into TF32 hi
+//                               and lo parts by the wrapper once per shape
+//                               and device (coil_normal.cuh gives the layout)
 //   coil    [B, T, C, Y, X]     scratch the wrapper allocates
 //
 // Sampled rows: k-space rows whose weights are all zero contribute exact
@@ -26,37 +28,54 @@
 // inputs the result is the dense product's; a row of zero weight whose
 // k-space holds inf or NaN is dropped, not spread as NaN.
 //
-// Bound: the DFTs are done as dense products over the rows they need:
-// 8*R*X*(2Y + 2X) FLOP per (b,t,c), 3.7 MFLOP at 180x64 and R=15, and
-// 0.66 GFLOP per slice with the coil sums, against ~10 MB moved, so the
-// float32 operations (67 TFLOP/s without tensor cores) bound it ahead of
-// the bytes (3.35 TB/s), by about 3x. All arithmetic is float32 FMA: no
-// TF32 or bf16, whose rounding the reconstruction cannot absorb.
+// Bound: the DFTs are dense products over the rows they need: 8*R*X*(2Y +
+// 2X) FLOP per (b,t,c), 3.7 MFLOP at 180x64 and R=15, 0.60 GFLOP per slice,
+// plus 0.06 GFLOP of coil expansion and sum in float32 FMA, against about
+// 10 MB moved. With the DFTs on the tensor cores in 3xTF32 (495/3 TFLOP/s)
+// and the rest at 67 TFLOP/s, the operations bound a slice at about 4.5 us,
+// ahead of the bytes (3.0 us at 3.35 TB/s); all in float32 FMA it would be
+// 9.8 us. No plain TF32 or bf16: its rounding misses the 1e-4 limit.
 //
 // Design: the TPU grid is (B, T) and loops over coils inside the body; here
-// the grid is (C, T, B), so one slice gives 160 blocks for the 132 SMs. Each
-// block keeps its frame in two dynamic shared-memory buffers (2*Y*(X+1)*8
-// bytes, 187,200 at 180x64) and ping-pongs between them, one pass per DFT
-// axis, so no intermediate goes to device memory. Each DFT pass is a small
-// complex matrix product in which every thread holds a tile of outputs in
-// registers (4x8 on the inverse y-DFT, 1x4 on the passes over R rows): per
-// step of the contraction the 4x8 tile loads 4 + 8 operands for 32 complex
-// multiply-adds (128 FMA), where a one-output-per-thread loop loads 2 for 4
-// FMA and is bound by the load/store units. Lanes take strided rows and
-// columns, so a warp's loads of the frame hit distinct banks or broadcast
-// and its loads of a DFT row are contiguous. Operands are loaded a few
-// steps ahead of their use; the DFT tables are read through the read-only
-// cache (fy is 259 KB and stays in L2). The coil sum runs in a second
-// launch, one thread per output element, so it needs no atomics and its
-// summation order is fixed. Tensor cores (3xTF32), TMA staging and a grid
-// finer than one frame per block are left for later work.
+// the grid is (C, T, B), one block of 256 threads per (coil, frame, batch). A
+// block keeps the expanded frame s_c in shared memory (Y rows of 2X floats,
+// 92,160 bytes at 180x64) and two planes of 16 rows, 109,268 bytes in all, so
+// two blocks fit an SM: a slice's 160 blocks run in one wave on the 132 SMs. A
+// frame of few rows and a wide readout (fewer than 34 rows, from 433 columns
+// on), for which that does not fit, gets planes and chunks of 8, 4, 2 or 1
+// rows; frames of one or two rows wider than 9,680 or 7,252 columns do not fit
+// at all. The expansion also flags the k-space rows that hold a nonzero
+// weight. The sampled rows go through passes 2-5 in chunks of 16 (the mma's
+// M): the y-DFT to the chunk's rows, the x-DFT and the weight, the inverse
+// x-DFT, each into a chunk plane, then the inverse y-DFT from the chunk into
+// the coil scratch, where later chunks add to what the same thread wrote (no
+// atomics; the order is fixed). Each pass is a complex product done as two
+// real ones on the tensor cores (mma.sync.m16n8k8, 3xTF32: every operand split
+// into TF32 hi and lo): P1 = Re(A) B and P2 = Im(A) B over B as stored, (re,
+// im) interleaved, which each lane finishes into re = P1.re -+ P2.im and im =
+// P1.im +- P2.re; conjugates are those signs. The wrapper splits the DFT
+// tables once: fy into (re hi, re lo, im hi, im lo) entries, whose chunk rows
+// (pass 2) and columns (pass 5) stream through the chunk planes in slices with
+// cp.async (pass 2's double-buffered in both planes, pass 5's through one) and
+// are read with one 16-byte load per operand; fx in the mma's B-fragment
+// order, one 16-byte load per lane from device memory. The x-DFTs sum at most
+// 128 terms on the tensor cores before they add the partial sum into the chunk
+// plane, so a long readout keeps the 1e-4 limit. The frame and the chunks are
+// split as they are read. Each warp owns two n-tiles of a pass, so an operand
+// it splits is split once. The shared-memory planes are XOR-swizzled so that
+// the fragment loads hit 32 banks. The coil sum runs in a second launch, one
+// thread per output element, in a fixed order. The expansion, which reads maps
+// and x again for every (coil, frame) block, is now the largest phase; the
+// coil sum on chip (a cluster of a frame's C blocks, which could also share x)
+// and TMA staging are left for later work.
 
 #include "coil_normal.cuh"
 
 extern "C" {
 
-// Dynamic shared memory of one block, in bytes: two padded complex frames,
-// the list of sampled rows and its length. The kernel uses no other.
+// Dynamic shared memory of one block, in bytes: the frame and two chunks of
+// 16 rows (fewer where those do not fit), the list of sampled rows and its
+// length. The kernel uses no other.
 long long sense_normal_smem_bytes(int Y, int X) {
   return coil_normal_smem_bytes(Y, X);
 }
@@ -68,8 +87,8 @@ int sense_normal_launch(const void* x, const void* maps, const void* w,
                         void* stream) {
   return static_cast<int>(launch_coil_normal(
       static_cast<const float2*>(x), static_cast<const float2*>(maps),
-      static_cast<const float*>(w), static_cast<const float2*>(fy),
-      static_cast<const float2*>(fx), static_cast<float2*>(coil),
+      static_cast<const float*>(w), static_cast<const float4*>(fy),
+      static_cast<const uint4*>(fx), static_cast<float2*>(coil),
       static_cast<float2*>(out), B, E, C, T, Y, X,
       static_cast<cudaStream_t>(stream)));
 }

@@ -74,6 +74,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_tf32.cuh"  // AFrag, BFrag, split, mma, mma3
+
 namespace {
 
 constexpr int kThreads = 128;              // 4 warps, 16 rows of a tile each
@@ -95,40 +97,6 @@ struct Dims {
   static constexpr int kPlane = kTile * kStride;  // one hi (or lo) plane
   static constexpr int kRaw = kTile * D;          // one raw float32 tile
 };
-
-struct AFrag {   // an m16n8k8 A operand, split
-  uint32_t hi[4], lo[4];
-};
-struct BFrag {   // an m16n8k8 B operand, split
-  uint32_t hi[2], lo[2];
-};
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma(float c[4], const uint32_t a[4],
-                                    const uint32_t b[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a b in 3xTF32: the two cross terms, then hi * hi
-__device__ __forceinline__ void mma3(float c[4], const AFrag& a,
-                                     const BFrag& b) {
-  mma(c, a.hi, b.lo);
-  mma(c, a.lo, b.hi);
-  mma(c, a.hi, b.hi);
-}
 
 // B operand of x y^T with y staged: n runs over the staged rows n0 .. n0+7,
 // k over head_dim step ks (b[0] = (k = t, n = g), b[1] = (k = t+4, n = g))

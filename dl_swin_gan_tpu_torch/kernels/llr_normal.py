@@ -30,7 +30,7 @@ import functools
 import numpy as np
 import torch
 
-from dl_swin_gan_tpu_torch.kernels.sense_normal import ortho_dft
+from dl_swin_gan_tpu_torch.kernels.sense_normal import coil_tables, ortho_dft
 from dl_swin_gan_tpu_torch.ops.llr import BlockOp, hann_sqrt_1d
 
 # the largest dynamic shared memory a Hopper block may opt into
@@ -166,19 +166,23 @@ def _check(blocks, maps, w2, block_op, d_side):
         raise ValueError("blocks, maps and w2 must be on one device")
 
 
+def bind(cdll):
+    """Declare the C interface of a built llr_normal.cu on `cdll`."""
+    cdll.llr_normal_launch.argtypes = (
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
+    cdll.llr_normal_launch.restype = ctypes.c_int
+    cdll.llr_normal_smem_bytes.argtypes = [ctypes.c_int] * 4
+    cdll.llr_normal_smem_bytes.restype = ctypes.c_longlong
+    cdll.llr_normal_error_string.argtypes = [ctypes.c_int]
+    cdll.llr_normal_error_string.restype = ctypes.c_char_p
+    return cdll
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     from dl_swin_gan_tpu_torch.kernels import _build
 
-    lib = _build.load("llr_normal").cdll
-    lib.llr_normal_launch.argtypes = (
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
-    lib.llr_normal_launch.restype = ctypes.c_int
-    lib.llr_normal_smem_bytes.argtypes = [ctypes.c_int] * 4
-    lib.llr_normal_smem_bytes.restype = ctypes.c_longlong
-    lib.llr_normal_error_string.argtypes = [ctypes.c_int]
-    lib.llr_normal_error_string.restype = ctypes.c_char_p
-    return lib
+    return bind(_build.load("llr_normal").cdll)
 
 
 def llr_normal(blocks: torch.Tensor, maps: torch.Tensor, w2: torch.Tensor,
@@ -205,23 +209,32 @@ def llr_normal(blocks: torch.Tensor, maps: torch.Tensor, w2: torch.Tensor,
     if not (blocks.is_contiguous() and maps.is_contiguous()
             and w2.is_contiguous()):
         raise ValueError("llr_normal's kernel needs contiguous inputs")
+    if block_op.block_size % 2:
+        raise ValueError(f"block size {block_op.block_size} is odd; the "
+                         "kernel takes stride b/2")
+    if blocks.numel() == 0:
+        return torch.zeros_like(blocks)
+    out = launch(_library(), blocks, maps, w2, block_op, d_side,
+                 *coil_tables(block_op.ny, block_op.nx, blocks.device))
+    llr_normal.launches[d_side] += 1
+    llr_normal.systems[d_side] += blocks.shape[0]
+    return out
+
+
+def launch(lib, blocks, maps, w2, block_op, d_side, fy, fx):
+    """One launch of a built llr_normal.cu (`lib`, declared by `bind`) on
+    checked, contiguous CUDA inputs with the DFT tables it reads
+    (`sense_normal.coil_tables`); counts nothing."""
+    py, px, dinv, win = geometry(block_op, blocks.device)
     S = blocks.shape[0]
     E, C, Y, X = maps.shape
     T, b = block_op.nt, block_op.block_size
-    if b % 2:
-        raise ValueError(f"block size {b} is odd; the kernel takes stride b/2")
-    if blocks.numel() == 0:
-        return torch.zeros_like(blocks)
-
-    lib = _library()
     smem = lib.llr_normal_smem_bytes(T, Y, X, b)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"T={T}, {Y}x{X}, b={b} needs {smem} bytes of shared "
                          f"memory; the kernel takes at most {_SMEM_LIMIT}")
     maps_s = maps.unsqueeze(0).expand(S, E, C, Y, X).contiguous()
     w2_s = w2.unsqueeze(0).expand(S, T, Y, X).contiguous()
-    fy = ortho_dft(Y, blocks.device)
-    fx = ortho_dft(X, blocks.device)
     img = torch.empty((S, E, T, Y, X), dtype=torch.complex64,
                       device=blocks.device)
     coil = torch.empty((S, T, C, Y, X), dtype=torch.complex64,
@@ -240,8 +253,6 @@ def llr_normal(blocks: torch.Tensor, maps: torch.Tensor, w2: torch.Tensor,
     if err != 0:
         raise RuntimeError("llr_normal kernel launch failed: "
                            + lib.llr_normal_error_string(err).decode())
-    llr_normal.launches[d_side] += 1
-    llr_normal.systems[d_side] += S
     return out
 
 

@@ -21,7 +21,8 @@ import numpy as np
 import torch
 
 # the largest dynamic shared memory a Hopper block may opt into; the kernel
-# keeps two complex64 [Y, X + 1] frames there (rows padded by one)
+# keeps the complex64 frame and two chunks of 16 rows there (rows of 2X
+# floats rounded up to 32), or of 8, 4, 2 or 1 rows where 16 do not fit
 _SMEM_LIMIT = 232_448
 
 
@@ -35,6 +36,45 @@ def ortho_dft(n: int, device: torch.device) -> torch.Tensor:
     m = np.exp(-2j * np.pi * np.outer(k, k) / n) / np.sqrt(n)
     with torch.inference_mode(False):
         return torch.from_numpy(m.astype(np.complex64)).to(device)
+
+
+def _tf32_split(a: torch.Tensor) -> torch.Tensor:
+    """float32 `a` as (hi, lo) pairs stacked on a new last axis: hi = a
+    rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
+    from zero: the low 13 mantissa bits cleared), lo = a - hi rounded the
+    same way; hi + lo holds a to about 2^-22."""
+    def tf32(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    hi = tf32(a)
+    return torch.stack([hi, tf32(a - hi)], -1)
+
+
+@functools.lru_cache(maxsize=None)
+def coil_tables(Y: int, X: int, device: torch.device):
+    """The DFT tables the coil pass reads, split into TF32 (hi, lo) parts
+    for its 3xTF32 products (built once per shape and device, as normal
+    tensors):
+
+        fy  [Y, Y, 4]               ortho_dft(Y), each entry as (re hi,
+                                    re lo, im hi, im lo)
+        fx  [X/8, 2X/8, 8, 4, 2, 2]  ortho_dft(X) as stored, [X, 2X] floats
+                                    zero-padded to multiples of 8, each
+                                    (hi, lo), in the order of
+                                    mma.sync.m16n8k8's B operand: per
+                                    k-step, n-tile and lane (4g + t), rows
+                                    t and t + 4 of column g of the tile
+    """
+    with torch.inference_mode(False):
+        fy = _tf32_split(torch.view_as_real(ortho_dft(Y, device)))
+        fx = torch.view_as_real(ortho_dft(X, device)).reshape(X, 2 * X)
+        kp, n2 = -(-X // 8) * 8, -(-2 * X // 8) * 8
+        b = torch.zeros((kp, n2), dtype=torch.float32, device=device)
+        b[:X, :2 * X] = fx
+        frags = b.reshape(kp // 8, 2, 4, n2 // 8, 8).permute(0, 3, 4, 2, 1)
+        return (fy.reshape(Y, Y, 4).contiguous(),
+                _tf32_split(frags).contiguous())
 
 
 def sense_normal_plain(x: torch.Tensor, maps: torch.Tensor,
@@ -71,19 +111,36 @@ def _check(x, maps, w):
         raise ValueError("x, maps and w must be on one device")
 
 
+def bind(cdll):
+    """Declare the C interface of a built sense_normal.cu on `cdll`."""
+    cdll.sense_normal_launch.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    cdll.sense_normal_launch.restype = ctypes.c_int
+    cdll.sense_normal_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    cdll.sense_normal_smem_bytes.restype = ctypes.c_longlong
+    cdll.sense_normal_error_string.argtypes = [ctypes.c_int]
+    cdll.sense_normal_error_string.restype = ctypes.c_char_p
+    return cdll
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     from dl_swin_gan_tpu_torch.kernels import _build
 
-    lib = _build.load("sense_normal").cdll
-    lib.sense_normal_launch.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    lib.sense_normal_launch.restype = ctypes.c_int
-    lib.sense_normal_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.sense_normal_smem_bytes.restype = ctypes.c_longlong
-    lib.sense_normal_error_string.argtypes = [ctypes.c_int]
-    lib.sense_normal_error_string.restype = ctypes.c_char_p
-    return lib
+    return bind(_build.load("sense_normal").cdll)
+
+
+def blocks_per_sm(Y: int, X: int, lib=None) -> int:
+    """Blocks of the coil-pass kernel that fit one SM of the current card for
+    a Y x X frame, in `lib` (a built sense_normal.cu or llr_normal.cu, both
+    of which hold it; this module's by default, built on first use)."""
+    fn = (lib or _library()).coil_normal_blocks_per_sm
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    n = fn(Y, X)
+    if n < 0:
+        raise RuntimeError(f"occupancy query failed for a {Y}x{X} frame")
+    return n
 
 
 def sense_normal(x: torch.Tensor, maps: torch.Tensor,
@@ -103,18 +160,23 @@ def sense_normal(x: torch.Tensor, maps: torch.Tensor,
     x, maps, w = (t.resolve_conj().resolve_neg() for t in (x, maps, w))
     if not (x.is_contiguous() and maps.is_contiguous() and w.is_contiguous()):
         raise ValueError("sense_normal's kernel needs contiguous inputs")
+    if x.numel() == 0 or maps.shape[2] == 0:
+        return torch.zeros_like(x)
+    out = launch(_library(), x, maps, w, *coil_tables(*x.shape[3:], x.device))
+    sense_normal.launches += 1
+    return out
+
+
+def launch(lib, x, maps, w, fy, fx):
+    """One launch of a built sense_normal.cu (`lib`, declared by `bind`) on
+    checked, contiguous CUDA inputs with the DFT tables it reads
+    (`coil_tables`); counts nothing."""
     B, E, T, Y, X = x.shape
     C = maps.shape[2]
-    if x.numel() == 0 or C == 0:
-        return torch.zeros_like(x)
-
-    lib = _library()
     smem = lib.sense_normal_smem_bytes(Y, X)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"a {Y}x{X} frame needs {smem} bytes of shared "
                          f"memory; the kernel takes at most {_SMEM_LIMIT}")
-    fy = ortho_dft(Y, x.device)
-    fx = ortho_dft(X, x.device)
     coil = torch.empty((B, T, C, Y, X), dtype=torch.complex64, device=x.device)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
@@ -126,7 +188,6 @@ def sense_normal(x: torch.Tensor, maps: torch.Tensor,
     if err != 0:
         raise RuntimeError("sense_normal kernel launch failed: "
                            + lib.sense_normal_error_string(err).decode())
-    sense_normal.launches += 1
     return out
 
 

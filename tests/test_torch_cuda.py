@@ -47,16 +47,24 @@ def _c64(rng, dev, *shape):
 def _inputs(dev, B, E, C, T, Y, X, seed=0, rows=False):
     """Random images and maps; weights sampled elementwise, or (rows=True)
     on whole k-space rows as a Cartesian mask samples them, with partial
-    rows and, where there are several frames, the last one left empty."""
+    rows and, where there are several frames, the last one left empty; or
+    (rows an int) on exactly min(rows, Y) partial rows of each frame, all Y
+    for rows=-1."""
     rng = np.random.RandomState(seed)
     x = _c64(rng, dev, B, E, T, Y, X)
     maps = _c64(rng, dev, B, E, C, Y, X)
-    if rows:
+    if isinstance(rows, bool) and rows:
         w = (rng.rand(B, T, Y, 1) < 0.1) & (rng.rand(B, T, Y, X) < 0.75)
         if B * T > 1:
             w[-1, -1] = False
-    else:
+    elif isinstance(rows, bool):
         w = rng.rand(B, T, Y, X) < 0.4
+    else:
+        count = Y if rows < 0 else min(rows, Y)
+        w = rng.rand(B, T, Y, X) < 0.75
+        for frame in w.reshape(B * T, Y, X):
+            frame[np.arange(Y), rng.randint(0, X, Y)] = True
+            frame[rng.permutation(Y)[count:]] = False
     return x, maps, torch.from_numpy(w.astype(np.float32)).to(dev)
 
 
@@ -64,13 +72,22 @@ def _rel(a, b):
     return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
 
 
-@pytest.mark.parametrize("rows", [False, True], ids=["elements", "rows"])
+# sampled rows per frame: the kernel runs its passes on chunks of 16
+@pytest.mark.parametrize("rows", [False, True, 16, 17, 33, -1],
+                         ids=["elements", "rows", "R16", "R17", "R33", "Rall"])
 @pytest.mark.parametrize("shape", [
     (1, 2, 8, 20, 180, 64),     # the headline slice
     (3, 1, 1, 2, 12, 10),
     (2, 2, 3, 3, 33, 7),        # ragged against warps and rows
     (1, 3, 2, 2, 7, 100),       # wider than tall
     (1, 2, 4, 1, 119, 120),     # near the largest frame the kernel takes
+    # few rows and a wide readout: chunk planes of 8, 8, 8, 4, 2 and 1 rows
+    (1, 1, 2, 1, 33, 433),
+    (1, 1, 2, 2, 16, 800),
+    (1, 2, 1, 1, 8, 900),
+    (1, 1, 2, 1, 4, 2400),
+    (1, 1, 1, 1, 3, 4000),
+    (1, 1, 1, 1, 1, 9000),
 ])
 def test_kernel_matches_plain(dev, shape, rows):
     x, maps, w = _inputs(dev, *shape, rows=rows)
@@ -88,9 +105,31 @@ def test_kernel_rejects_what_it_cannot_take(dev):
                         w.transpose(2, 3))
     with pytest.raises(TypeError):
         SN.sense_normal(x, maps, w.double())
-    big = _inputs(dev, 1, 1, 1, 1, 256, 64)
+    big = _inputs(dev, 1, 1, 1, 1, 256, 128)
     with pytest.raises(ValueError, match="shared memory"):
         SN.sense_normal(*big)
+
+
+@pytest.mark.parametrize("rows", [15, 17, 33, -1],
+                         ids=["R15", "R17", "R33", "Rall"])
+@pytest.mark.parametrize("frame", [(180, 64), (119, 120)])
+def test_kernel_repeat_calls_bitwise_equal(dev, frame, rows):
+    """No atomics: the coil sum and the chunks' sums run in a fixed order,
+    so ten calls in a row give the same bits."""
+    x, maps, w = _inputs(dev, 1, 2, 8, 4, *frame, seed=3, rows=rows)
+    out = SN.sense_normal(x, maps, w)
+    for _ in range(9):
+        again = SN.sense_normal(x, maps, w)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again)
+
+
+def test_coil_pass_fits_two_blocks_per_sm(dev):
+    """At the headline frame (180x64) the coil pass of both kernels runs two
+    blocks per SM: 160 blocks of a slice in one wave on 132 SMs."""
+    assert SN.blocks_per_sm(180, 64) >= 2
+    assert SN.blocks_per_sm(180, 64, LN._library()) >= 2
+    assert SN.blocks_per_sm(119, 120) >= 1
 
 
 def test_normal_gradient_on_card_matches_cpu(dev):
