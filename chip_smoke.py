@@ -11,20 +11,19 @@ then exits non-zero and prints no result:
               versions, and the two TF32 flags (both off: true float32)
   2. build    compile every kernel of the paths from kernels/csrc, one nvcc
               per source, all started together; ptxas registers and spills
-              (none allowed in the SENSE, block-LLR and window-attention
-              backward kernels, whose tensor-core products hold split
-              operands in registers)
+              (none allowed in any of them: their tensor-core products
+              hold split operands in registers)
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the main paths' shapes (batch 1 and 4; window attention, forward
               and backward, with and without the shift mask; the block-LLR
               normal op, 'pre' and 'post', one and two systems), with its
               time, the plain version's, the PyTorch library call's, and its
-              bound (the SENSE and block-LLR kernels' and the window-attention
-              backward's at the 3xTF32 tensor-core rate, with the fp32-FMA
-              figure beside it; their times also split by launch with
+              bound (at the 3xTF32 tensor-core rate, with the fp32-FMA
+              figure beside it; their device times by launch from
               torch.profiler); the coil pass's blocks per SM at 180x64 (two
-              at least); the backwards and the block-LLR op also called twice
-              for bitwise-equal results
+              at least) and the attention forward's at full width; the
+              backwards and the block-LLR op also called twice for
+              bitwise-equal results
   4. main     the headline config (configs/basic/example.yaml: 5 unrolls x 2
               resblocks x 64 features, float32, seeded torch-default weights)
               on 4 synthetic 20x180x64 slices with 8 coils and 2 maps, through
@@ -201,9 +200,11 @@ def phase_build():
                 print(f"  ptxas: {entry.group(1)}")
             elif "registers" in ln or "spill" in ln:
                 print(f"  ptxas: {ln.strip()}")
-    # the tensor-core backward holds its split operands in registers, and the
-    # coil pass runs two blocks per SM, which caps its registers
-    for name in ("sense_normal", "window_attn_bwd", "llr_normal"):
+    # the tensor-core attention kernels hold their split operands in
+    # registers, and the coil pass runs two blocks per SM, which caps its
+    # registers
+    for name in ("sense_normal", "window_attn", "window_attn_bwd",
+                 "llr_normal"):
         spills = [ln.strip() for ln in libs[name].log.splitlines()
                   if "spill" in ln and "0 bytes spill stores, 0 bytes spill "
                   "loads" not in ln]
@@ -341,6 +342,9 @@ def kernels_window_attention():
     block's shapes, batch 1 and 4, with and without the shift mask."""
     N = SWIN_WINDOW[0] * SWIN_WINDOW[1] * SWIN_WINDOW[2]
     H, D = SWIN_HEADS, SWIN_HEAD_DIM
+    blocks = WA.blocks_per_sm(D)
+    print(f"kernel window_attention: window_attn_fwd_kernel blocks per SM at "
+          f"head_dim {D}: {blocks}")
     mask = torch.from_numpy(compute_shift_mask(
         *SWIN_GRID, SWIN_WINDOW, SWIN_SHIFT)).cuda()
     nW = mask.shape[0]
@@ -376,21 +380,30 @@ def kernels_window_attention():
             plain_ms = cuda_ms(
                 lambda: WA.window_attention_plain(q, k, v, bias, m))
             library_ms = cuda_ms(lambda: sdpa(q, k, v, attn_mask=full))
+            device_ms = sum(device_ms_by_kernel(
+                lambda: WA.window_attention(q, k, v, bias, m)).values())
             flops, nbytes = _attention_work(W, H, N, D, nW if masked else 0)
-            t_ops = flops / FP32_FLOPS * 1e3
+            t_ops = flops / (TF32_FLOPS / 3) * 1e3     # 3xTF32
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            bound = max(t_ops, t_bytes)
+            fma_bound = max(flops / FP32_FLOPS * 1e3, t_bytes)
             results[B, masked] = dict(
                 max_abs_err=max_abs, rel_err=rel, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
+                library_ms=library_ms, bound_ms=bound,
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
+                fma_bound_ms=fma_bound, bound_share=bound / ms,
+                device_ms=device_ms, blocks_per_sm=blocks,
                 gflop=flops / 1e9, mbytes=nbytes / 1e6)
             print(f"kernel window_attention B={B} [{W},{H},{N},{D}] "
                   f"mask={'shift' if masked else 'none'}: max|k-p|/max|p| "
                   f"{rel:.3e} (max abs {max_abs:.3e}; SDPA {lib_rel:.3e}) "
-                  f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-                  f"{library_ms:.4f} bound_ms {max(t_ops, t_bytes):.4f} "
-                  f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB) "
-                  f"achieved {flops / ms / 1e9:.2f} TFLOP/s")
+                  f"kernel_ms {ms:.4f} (profiler device {device_ms:.4f}) "
+                  f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
+                  f"bound_ms {bound:.4f} at 3xTF32 ({t_ops:.4f} by "
+                  f"operations, {t_bytes:.4f} by bytes; {flops / 1e9:.3f} "
+                  f"GFLOP, {nbytes / 1e6:.2f} MB; fp32 FMA {fma_bound:.4f}) "
+                  f"achieved {flops / ms / 1e9:.2f} TFLOP/s, "
+                  f"{bound / ms:.1%} of the 3xTF32 bound")
     return results
 
 

@@ -1,6 +1,7 @@
 // 3xTF32 products on Hopper's tensor cores (`mma.sync.m16n8k8`, TF32
-// operands, float32 accumulators), shared by the window-attention backward
-// (window_attn_bwd.cu) and the SENSE coil pass (coil_normal.cuh).
+// operands, float32 accumulators), shared by the window-attention kernels
+// (window_attn.cu, window_attn_bwd.cu) and the SENSE coil pass
+// (coil_normal.cuh).
 //
 // Each float32 operand x is split into hi = tf32(x) (cvt.rna: to nearest,
 // ties away from zero) and lo = tf32(x - hi); a product accumulates
@@ -37,6 +38,14 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   hi = to_tf32(x);
   lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// split on the integer pipes instead of cvt: the same rounding (to nearest,
+// ties away from zero), bitwise the same as split for finite x
+__device__ __forceinline__ void split_int(float x, uint32_t& hi,
+                                          uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
 }
 
 __device__ __forceinline__ void mma(float c[4], const uint32_t a[4],

@@ -15,74 +15,143 @@
 //   lse           [W, H, N]       each row's log-sum-exp, or null; written
 //                                 for the backward (window_attn_bwd.cu)
 //
+// Arithmetic: both products run on the tensor cores as 3xTF32
+// (`mma.sync.m16n8k8`, mma_tf32.cuh), as in the backward: each float32
+// operand is split into hi = tf32(x) and lo = tf32(x - hi), rounded to
+// nearest, and a product accumulates a_hi b_lo + a_lo b_hi, then a_hi b_hi,
+// in float32. That is about as accurate as float32 FMA; plain TF32 would
+// miss the 1e-4 limit (tests/test_torch_window_attn.py emulates both).
+// head_dim is zero-padded to a multiple of 8 (20 -> 24); only the real D
+// columns are stored. The softmax is float32; exp(s - m) is taken as
+// 2^(s log2 e - m log2 e) on ex2.approx.
+//
 // Bound: 4*W*H*N^2*D FLOP (the two products) against about 4*(4*W*H*N*D +
 // H*N^2 + nW*N^2) bytes. At the Swin denoiser's full width (N = 448,
-// D = 20, H = 8, W = 12 per slice) that is 1.54 GFLOP against 30 MB: the
-// float32 FMA rate (67 TFLOP/s without tensor cores) bounds it at about
-// 0.023 ms per slice, ahead of the bytes (0.009 ms at 3.35 TB/s). All
-// arithmetic is float32 FMA: no TF32.
+// D = 20, H = 8, W = 12 per slice) that is 1.54 GFLOP against 30 MB: at
+// 3xTF32 (495 TFLOP/s of TF32 / 3) the operations bound it at 0.0093 ms
+// per slice, ahead of the bytes (0.0090 ms at 3.35 TB/s). mma.sync itself
+// reaches about 300 TFLOP/s of TF32 on the H100 (compare_attn_fwd.py
+// --probe), and the padding to 24 adds a fifth: 0.018 ms. Every block also
+// reads its rows of bias[h] and mask[w % nW] through L2: 77 MB of each per
+// slice (16 MB distinct).
 //
-// Design: the TPU grid is (H, W), one (window, head) per step with the whole
-// [N, N] score matrix in VMEM; here that would give 96 blocks per slice for
-// 132 SMs and a 0.8 MB matrix no SM can hold. Instead one block takes one
-// (window, head) and a tile of 64 query rows (7 tiles at N = 448, 672
-// blocks per slice), stages K and V of its (window, head) in shared memory
-// (2 * 448 * 20 * 4 B = 72 KB, zero-padded to a multiple of 32 keys), and
-// runs an online softmax over the keys, so no score leaves the registers.
-// Each lane holds two query rows (pre-scaled) and their two accumulators in
-// registers, so every K and V element it reads from shared memory feeds two
-// rows. Four lanes share a row pair and split the keys: per step each takes
-// a chunk of 8 consecutive keys, scores them, folds them into its running
-// max, sum and accumulator, and at the end the four partial results are
-// merged with warp shuffles. Staged keys carry 4 floats of padding after
-// every chunk of 8, so the four lanes' loads start in different banks;
-// lanes of the same split read the same address, which broadcasts. Bias and
-// mask rows are read straight from global memory through the read-only
-// cache: 16 MB at batch 1, they stay in the 50 MB L2. A lane issues the
-// bias and mask loads of a chunk (on a clamped index, so unconditionally)
-// before it scores the chunk, and their L2 latency overlaps the score FMAs;
-// loaded after the scores, they stalled every chunk. Shared memory admits 3
-// blocks per SM at N = 448, and the launch bound keeps the registers within
-// what 3 blocks may hold. Tensor cores (a head_dim padded to 24 or 32 for
-// `wgmma`), TMA staging and a larger tile per block are left for later
-// work.
+// Design, the backward's kv pass mirrored (window_attn_bwd.cu). A block
+// takes one (window, head) and kRows = 128 query rows: 4 warps of two
+// 16-row groups, each group's rows held, pre-scaled, as split A fragments
+// in registers. At N = 448 that is 4 tiles per window and head (the last
+// one's two upper warps hold no row and only stage), 384 blocks per slice:
+// one wave at 3 blocks per SM, which 168 registers a thread allow. K and V
+// stream through the block in 64-key tiles: cp.async brings tile j+1 in raw
+// while tile j is in use (double-buffered), and each staged tile is split
+// once into hi and lo planes (attn_tiles.cuh), so shared memory does not
+// grow with N. For every chunk of 16 keys a warp computes s = q k^T on the
+// mma, each B fragment read once from the K planes for both of its groups;
+// adds the bias and mask at the C fragments' positions (8-byte loads from
+// row offsets taken once, issued a chunk ahead of their use); and runs the
+// online softmax on the fragments: a row lives in one quad of lanes, so its
+// chunk max takes two shuffles. p goes back into the mma as the A operand
+// with its columns permuted (its split on the integer pipes) and V's rows
+// are read in the same order (load_b_perm): o += p v with no trip through
+// shared memory. Where D % 8 != 0, V's first padding column holds ones, so
+// that product also sums p's rows; else each lane sums its share. At the
+// end each row is divided by its sum. Keys past N get p = 0; a chunk wholly
+// past N is skipped; query rows past N read zeros (and a clamped bias row)
+// and store nothing. Measured against the fp32-FMA kernel it replaces, SDPA
+// and the designs tried on the way: PERF.md, Findings.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "attn_tiles.cuh"  // Dims, tiles and fragments, kTile
+#include "mma_tf32.cuh"    // AFrag, BFrag, mma3
 
 namespace {
 
-constexpr int kThreads = 128;                 // 4 warps
-constexpr int kSplits = 4;                    // lanes that share a row pair
-constexpr int kPairs = kThreads / kSplits;    // 32 row pairs
-constexpr int kRows = 2 * kPairs;             // 64 query rows per block
-constexpr int kChunk = 8;                     // keys a lane takes per step
-constexpr int kRound = kSplits * kChunk;      // keys per step of the block
-constexpr int kPad = 4;                       // floats after each chunk
+constexpr int kWarps = 4;                   // warps per block
+constexpr int kGroups = 2;                  // 16-row query groups per warp
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kGroups * kWarps;   // query rows per block
+constexpr int kChunk = 16;                  // keys per online-softmax step
+constexpr int kChunkTiles = kChunk / 8;     // n-tiles of m16n8k8 per chunk
+constexpr float kLog2e = 1.4426950408889634f;
 
-// blocks per SM the registers must allow: 3 fit in shared memory at N = 448;
-// at D = 20 that caps a thread at 170 registers, beyond which wider heads
-// would spill
+// blocks per SM the registers must allow: 3 up to head_dim 20 (3 blocks of
+// 128 threads cap a thread at 168 registers), 2 for wider heads, whose
+// fragments outgrow that cap
 constexpr int min_blocks(int D) { return D <= 20 ? 3 : 2; }
 
-__host__ __device__ inline int padded_keys(int N) {
-  return (N + kRound - 1) / kRound * kRound;
-}
-
-// floats of one staged tensor (K or V)
-__host__ __device__ inline int staged_floats(int N, int D) {
-  const int npad = padded_keys(N);
-  return npad * D + npad / kChunk * kPad;
-}
-
-// float offset of key j in a staged tensor
+// dynamic shared memory of a block, in bytes: two raw (K, V) stages and
+// the split K and V planes
 template <int D>
-__device__ __forceinline__ int key_offset(int j) {
-  return j * D + (j / kChunk) * kPad;
+constexpr size_t fwd_smem() {
+  using C = Dims<D>;
+  return sizeof(float) * (2 * 2 * C::kRaw + 4 * C::kPlane);
+}
+// it depends on head_dim only, and the widest fits a Hopper block's opt-in
+static_assert(fwd_smem<32>() <= 232448, "shared memory past the opt-in");
+
+__device__ __forceinline__ float ex2(float x) {   // 2^x, approximate
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+// one 16-row group's chunk of s (+ bias, + mask; -inf past key N - 1 where
+// the chunk is ragged) -> p = exp(s - m) in place; the group's running max
+// m updated and its accumulator rescaled by exp(m_old - m_new). With Sum,
+// this lane's share of each row's sum is kept in sum (rescaled with it);
+// else the sum is the accumulator's column of V's ones. j is the lane's
+// first key in the chunk.
+template <int Steps, bool Sum>
+__device__ __forceinline__ void online_softmax(
+    float sc[kChunkTiles][4], const float bm[kChunkTiles][4],
+    const float mk[kChunkTiles][4], float mx[2], float sum[2],
+    float acc[Steps][4], int j, bool ragged, int N) {
+#pragma unroll
+  for (int n = 0; n < kChunkTiles; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[n][e] = (sc[n][e] + bm[n][e]) + mk[n][e];
+  if (ragged) {   // the last chunk: -inf past key N - 1
+#pragma unroll
+    for (int n = 0; n < kChunkTiles; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (j + 8 * n + (e & 1) >= N) sc[n][e] = -CUDART_INF_F;
+  }
+  // the chunk's row maxima; a row lives in the four lanes of one mma group
+  float top[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+  for (int n = 0; n < kChunkTiles; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) top[e >> 1] = fmaxf(top[e >> 1], sc[n][e]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    top[r] = fmaxf(top[r], __shfl_xor_sync(0xffffffffu, top[r], 1));
+    top[r] = fmaxf(top[r], __shfl_xor_sync(0xffffffffu, top[r], 2));
+  }
+  float alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m = fmaxf(mx[r], top[r]);
+    alpha[r] = ex2((mx[r] - m) * kLog2e);   // 0 at the first chunk
+    mx[r] = m;
+    if (Sum) sum[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int nd = 0; nd < Steps; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] *= alpha[e >> 1];
+  const float ml[2] = {mx[0] * kLog2e, mx[1] * kLog2e};
+#pragma unroll
+  for (int n = 0; n < kChunkTiles; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sc[n][e] = ex2(fmaf(sc[n][e], kLog2e, -ml[e >> 1]));
+      if (Sum) sum[e >> 1] += sc[n][e];
+    }
 }
 
 template <int D>
@@ -94,203 +163,198 @@ window_attn_fwd_kernel(const float* __restrict__ q,
                        const float* __restrict__ mask,
                        float* __restrict__ out, float* __restrict__ lse,
                        int H, int N, int nW, float scale) {
-  static_assert(D % 4 == 0 && D % kSplits == 0, "D must be a multiple of 4");
+  using C = Dims<D>;
+  // the row sums come out of the p v product where V has a padding column
+  constexpr bool kOnes = D % 8 != 0;
+  constexpr int kStage = 2 * C::kRaw;   // raw k, v
   extern __shared__ float4 smem4[];
-  float* ks = reinterpret_cast<float*>(smem4);
-  float* vs = ks + staged_floats(N, D);
-  const int npad = padded_keys(N);
+  float* raw = reinterpret_cast<float*>(smem4);
+  uint32_t* kpl = reinterpret_cast<uint32_t*>(raw + 2 * kStage);
+  uint32_t* vpl = kpl + 2 * C::kPlane;
 
-  const int h = blockIdx.y;
-  const int w = blockIdx.z;
-  const long long wh = (long long)w * H + h;
-  const float* qg = q + wh * N * D;
-  const float* kg = k + wh * N * D;
-  const float* vg = v + wh * N * D;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int gr = lane / 4, tc = lane % 4;   // the mma's group, thread in group
+  const int h = blockIdx.y, w = blockIdx.z;
+  const long long rows = ((long long)w * H + h) * N;   // row 0 of (w, h)
+  const float* bh = bias + (long long)h * N * N;
+  const float* mw = mask ? mask + (long long)(w % nW) * N * N : nullptr;
+  // this warp's first query row; group gi takes rows i0 + 16 gi .. + 15
+  const int i0 = blockIdx.x * kRows + 16 * kGroups * warp;
+  const bool live = i0 < N;   // a warp wholly past N only stages tiles
 
-  // 1. stage K and V of this (window, head), zero past key N - 1
-  for (int e = threadIdx.x; e < npad * D / 4; e += kThreads) {
-    const int j = e * 4 / D;
-    const int off = e * 4 + (j / kChunk) * kPad;
-    float4 kk = make_float4(0.f, 0.f, 0.f, 0.f);
-    float4 vv = kk;
-    if (j < N) {
-      kk = __ldg(reinterpret_cast<const float4*>(kg) + e);
-      vv = __ldg(reinterpret_cast<const float4*>(vg) + e);
-    }
-    *reinterpret_cast<float4*>(ks + off) = kk;
-    *reinterpret_cast<float4*>(vs + off) = vv;
+  AFrag qf[kGroups][C::kSteps];
+  float acc[kGroups][C::kSteps][4] = {};
+  // rows g and g + 8 of each group: running max, this lane's share of sum
+  float mx[kGroups][2], sum[kGroups][2] = {};
+  // offsets of the rows g and g + 8 of each group in bias[h] and mask[w],
+  // and their values at the next chunk, loaded a chunk ahead of their use
+  int bo[kGroups][2];
+  float nb[kGroups][kChunkTiles][4], nm[kGroups][kChunkTiles][4] = {};
+#pragma unroll
+  for (int gi = 0; gi < kGroups; ++gi) {
+    const int r0 = i0 + 16 * gi;
+    load_a_global<D>(qf[gi], q + rows * D, r0, N, scale, gr, tc);
+    mx[gi][0] = mx[gi][1] = -CUDART_INF_F;
+    bo[gi][0] = bias_row_offset(r0 + gr, tc, N);
+    bo[gi][1] = bias_row_offset(r0 + gr + 8, tc, N);
+    load_bias_rows<kChunkTiles>(nb[gi], bh, bo[gi][0], bo[gi][1], 0, tc, N);
+    if (mw)
+      load_bias_rows<kChunkTiles>(nm[gi], mw, bo[gi][0], bo[gi][1], 0, tc, N);
   }
 
-  // 2. this lane's two query rows, pre-scaled, and its key split
-  const int split = threadIdx.x % kSplits;
-  const int pair = threadIdx.x / kSplits;
-  const int r0 = blockIdx.x * kRows + pair;
-  const int r1 = r0 + kPairs;
-  const int c0 = min(r0, N - 1);   // rows past N compute on row N - 1 and
-  const int c1 = min(r1, N - 1);   // are not stored
-  float q0[D], q1[D], acc0[D], acc1[D];
-#pragma unroll
-  for (int d = 0; d < D; d += 4) {
-    const float4 a = __ldg(reinterpret_cast<const float4*>(qg + c0 * D + d));
-    const float4 b = __ldg(reinterpret_cast<const float4*>(qg + c1 * D + d));
-    q0[d] = a.x * scale; q0[d + 1] = a.y * scale;
-    q0[d + 2] = a.z * scale; q0[d + 3] = a.w * scale;
-    q1[d] = b.x * scale; q1[d + 1] = b.y * scale;
-    q1[d + 2] = b.z * scale; q1[d + 3] = b.w * scale;
-  }
-#pragma unroll
-  for (int d = 0; d < D; ++d) acc0[d] = acc1[d] = 0.f;
-  const float* b0 = bias + ((long long)h * N + c0) * N;
-  const float* b1 = bias + ((long long)h * N + c1) * N;
-  const float* m0 = mask ? mask + ((long long)(w % nW) * N + c0) * N : nullptr;
-  const float* m1 = mask ? mask + ((long long)(w % nW) * N + c1) * N : nullptr;
-  float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
-  __syncthreads();
+  const int tiles = (N + kTile - 1) / kTile;
+  auto prefetch = [&](int jt) {
+    float* st = raw + (jt & 1) * kStage;
+    stage_raw<D, kThreads>(st, k + rows * D, jt * kTile, N);
+    stage_raw<D, kThreads>(st + C::kRaw, v + rows * D, jt * kTile, N);
+  };
+  prefetch(0);
+  cp_async_commit();
+  for (int jt = 0; jt < tiles; ++jt) {
+    __syncthreads();                 // every warp is done with tile jt - 1
+    if (jt + 1 < tiles) prefetch(jt + 1);
+    cp_async_commit();
+    cp_async_wait_one();             // tile jt has landed
+    __syncthreads();
+    const float* st = raw + (jt & 1) * kStage;
+    split_tile<D, kThreads>(kpl, st, 1.f);
+    split_tile<D, kThreads, kOnes>(vpl, st + C::kRaw, 1.f);
+    __syncthreads();
 
-  // 3. online softmax over this lane's chunks of keys
-  for (int base = split * kChunk; base < npad; base += kRound) {
-    const float* kc = ks + key_offset<D>(base);
-    const float* vc = vs + key_offset<D>(base);
-    // bias and mask first, so their loads are in flight during the scores
-    float bias0[kChunk], bias1[kChunk], mask0[kChunk], mask1[kChunk];
+    const int j0 = jt * kTile;
+#pragma unroll 1
+    for (int c = 0; live && c < kTile && j0 + c < N; c += kChunk) {
+      // s = (q * scale) k^T over the chunk's keys, each B for every group
+      float sc[kGroups][kChunkTiles][4] = {};
 #pragma unroll
-    for (int i = 0; i < kChunk; ++i) {
-      const int j = min(base + i, N - 1);
-      bias0[i] = __ldg(b0 + j);
-      bias1[i] = __ldg(b1 + j);
-      mask0[i] = mask ? __ldg(m0 + j) : 0.f;
-      mask1[i] = mask ? __ldg(m1 + j) : 0.f;
-    }
-    float s0[kChunk], s1[kChunk];
+      for (int ks = 0; ks < C::kSteps; ++ks)
 #pragma unroll
-    for (int i = 0; i < kChunk; ++i) {
-      float d0 = 0.f, d1 = 0.f;
+        for (int n = 0; n < kChunkTiles; ++n) {
+          const BFrag b = load_b_rows<D>(kpl, c + 8 * n, ks, gr, tc);
 #pragma unroll
-      for (int d = 0; d < D; d += 4) {
-        const float4 kk = ld4(kc + i * D + d);
-        d0 = fmaf(q0[d], kk.x, d0);
-        d0 = fmaf(q0[d + 1], kk.y, d0);
-        d0 = fmaf(q0[d + 2], kk.z, d0);
-        d0 = fmaf(q0[d + 3], kk.w, d0);
-        d1 = fmaf(q1[d], kk.x, d1);
-        d1 = fmaf(q1[d + 1], kk.y, d1);
-        d1 = fmaf(q1[d + 2], kk.z, d1);
-        d1 = fmaf(q1[d + 3], kk.w, d1);
+          for (int gi = 0; gi < kGroups; ++gi) mma3(sc[gi][n], qf[gi][ks], b);
+        }
+      const bool ragged = j0 + c + kChunk > N;
+#pragma unroll
+      for (int gi = 0; gi < kGroups; ++gi) {
+        online_softmax<C::kSteps, !kOnes>(sc[gi], nb[gi], nm[gi], mx[gi],
+                                          sum[gi], acc[gi], j0 + c + 2 * tc,
+                                          ragged, N);
+        // the next chunk's bias and mask, in flight during this one's p v
+        const int next = j0 + c + kChunk;
+        load_bias_rows<kChunkTiles>(nb[gi], bh, bo[gi][0], bo[gi][1], next,
+                                    tc, N);
+        if (mw)
+          load_bias_rows<kChunkTiles>(nm[gi], mw, bo[gi][0], bo[gi][1], next,
+                                      tc, N);
       }
-      s0[i] = d0;
-      s1[i] = d1;
-    }
-    float cm0 = -CUDART_INF_F, cm1 = -CUDART_INF_F;
+      // o += p v over the chunk's keys, each B for every group
 #pragma unroll
-    for (int i = 0; i < kChunk; ++i) {
-      const bool key = base + i < N;
-      s0[i] = key ? (s0[i] + bias0[i]) + mask0[i] : -CUDART_INF_F;
-      s1[i] = key ? (s1[i] + bias1[i]) + mask1[i] : -CUDART_INF_F;
-      cm0 = fmaxf(cm0, s0[i]);
-      cm1 = fmaxf(cm1, s1[i]);
-    }
-    // a row whose keys so far all lie past N keeps max -inf and adds nothing
-    const float n0 = fmaxf(mx0, cm0), n1 = fmaxf(mx1, cm1);
-    const bool live0 = n0 != -CUDART_INF_F, live1 = n1 != -CUDART_INF_F;
-    const float al0 = live0 ? expf(mx0 - n0) : 1.f;
-    const float al1 = live1 ? expf(mx1 - n1) : 1.f;
-    mx0 = n0;
-    mx1 = n1;
-    l0 *= al0;
-    l1 *= al1;
+      for (int kk = 0; kk < kChunkTiles; ++kk) {
+        AFrag pa[kGroups];
 #pragma unroll
-    for (int i = 0; i < kChunk; ++i) {
-      s0[i] = live0 ? expf(s0[i] - n0) : 0.f;
-      s1[i] = live1 ? expf(s1[i] - n1) : 0.f;
-      l0 += s0[i];
-      l1 += s1[i];
-    }
+        for (int gi = 0; gi < kGroups; ++gi)
+          pa[gi] = a_from_c<true>(sc[gi][kk]);
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
-      acc0[d] *= al0;
-      acc1[d] *= al1;
-    }
+        for (int nd = 0; nd < C::kSteps; ++nd) {
+          const BFrag b = load_b_perm<D>(vpl, c + 8 * kk, nd, gr, tc);
 #pragma unroll
-    for (int i = 0; i < kChunk; ++i) {
-#pragma unroll
-      for (int d = 0; d < D; d += 4) {
-        const float4 vv = ld4(vc + i * D + d);
-        acc0[d] = fmaf(s0[i], vv.x, acc0[d]);
-        acc0[d + 1] = fmaf(s0[i], vv.y, acc0[d + 1]);
-        acc0[d + 2] = fmaf(s0[i], vv.z, acc0[d + 2]);
-        acc0[d + 3] = fmaf(s0[i], vv.w, acc0[d + 3]);
-        acc1[d] = fmaf(s1[i], vv.x, acc1[d]);
-        acc1[d + 1] = fmaf(s1[i], vv.y, acc1[d + 1]);
-        acc1[d + 2] = fmaf(s1[i], vv.z, acc1[d + 2]);
-        acc1[d + 3] = fmaf(s1[i], vv.w, acc1[d + 3]);
+          for (int gi = 0; gi < kGroups; ++gi) mma3(acc[gi][nd], pa[gi], b);
+        }
       }
     }
   }
 
-  // 4. merge the four splits of each row (lanes 4p .. 4p+3 of one warp)
-  constexpr unsigned kFull = 0xffffffffu;
-  float top0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 1));
-  top0 = fmaxf(top0, __shfl_xor_sync(kFull, top0, 2));
-  const float f0 = mx0 == -CUDART_INF_F ? 0.f : expf(mx0 - top0);
-  float top1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, 1));
-  top1 = fmaxf(top1, __shfl_xor_sync(kFull, top1, 2));
-  const float f1 = mx1 == -CUDART_INF_F ? 0.f : expf(mx1 - top1);
-  l0 *= f0;
-  l1 *= f1;
-  l0 += __shfl_xor_sync(kFull, l0, 1);
-  l0 += __shfl_xor_sync(kFull, l0, 2);
-  l1 += __shfl_xor_sync(kFull, l1, 1);
-  l1 += __shfl_xor_sync(kFull, l1, 2);
+  // each row's sum (V's ones column, or the four lanes' shares); out =
+  // acc / sum, and the rows' log-sum-exp when the backward asked for it
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    acc0[d] *= f0;
-    acc1[d] *= f1;
-    acc0[d] += __shfl_xor_sync(kFull, acc0[d], 1);
-    acc0[d] += __shfl_xor_sync(kFull, acc0[d], 2);
-    acc1[d] += __shfl_xor_sync(kFull, acc1[d], 1);
-    acc1[d] += __shfl_xor_sync(kFull, acc1[d], 2);
-  }
-
-  // 5. each of the four lanes stores a quarter of the two rows; the first
-  // also stores the rows' log-sum-exp when the backward asked for it
-  float* og = out + wh * N * D;
-  constexpr int kPart = D / kSplits;
+  for (int gi = 0; gi < kGroups; ++gi)
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    if (d / kPart == split) {
-      if (r0 < N) og[r0 * D + d] = acc0[d] / l0;
-      if (r1 < N) og[r1 * D + d] = acc1[d] / l1;
+    for (int r = 0; r < 2; ++r) {
+      float t;
+      if (kOnes) {   // column D of the accumulator, on lane (g, (D % 8) / 2)
+        t = __shfl_sync(0xffffffffu, acc[gi][D / 8][2 * r],
+                        (lane & ~3) | (D % 8) / 2);
+      } else {
+        t = sum[gi][r];
+        t += __shfl_xor_sync(0xffffffffu, t, 1);
+        t += __shfl_xor_sync(0xffffffffu, t, 2);
+      }
+      const int i = i0 + 16 * gi + gr + 8 * r;
+      if (i >= N) continue;
+#pragma unroll
+      for (int nd = 0; nd < C::kSteps; ++nd) {
+        const int d = 8 * nd + 2 * tc;   // even, and D % 4 == 0: d + 1 < D
+        if (d < D)
+          *reinterpret_cast<float2*>(out + (rows + i) * D + d) =
+              make_float2(acc[gi][nd][2 * r] / t, acc[gi][nd][2 * r + 1] / t);
+      }
+      if (lse != nullptr && tc == 0) lse[rows + i] = mx[gi][r] + logf(t);
     }
-  }
-  if (lse != nullptr && split == 0) {
-    if (r0 < N) lse[wh * N + r0] = top0 + logf(l0);
-    if (r1 < N) lse[wh * N + r1] = top1 + logf(l1);
-  }
+}
+
+template <int D>
+cudaError_t set_smem() {
+  return cudaFuncSetAttribute(window_attn_fwd_kernel<D>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(fwd_smem<D>()));
 }
 
 template <int D>
 int launch(const float* q, const float* k, const float* v, const float* bias,
            const float* mask, float* out, float* lse, int W, int H, int N,
            int nW, float scale, cudaStream_t stream) {
-  const size_t smem = 2 * sizeof(float) * (size_t)staged_floats(N, D);
-  cudaError_t err = cudaFuncSetAttribute(
-      window_attn_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  const cudaError_t err = set_smem<D>();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + kRows - 1) / kRows, H, W);
-  window_attn_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+  window_attn_fwd_kernel<D><<<grid, kThreads, fwd_smem<D>(), stream>>>(
       q, k, v, bias, mask, out, lse, H, N, nW, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int blocks_per_sm() {
+  int n = 0;
+  if (set_smem<D>() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, window_attn_fwd_kernel<D>, kThreads, fwd_smem<D>()) !=
+          cudaSuccess)
+    return -1;
+  return n;
+}
+
+// f(std::integral_constant<int, D>()) for the head_dims the kernel is
+// built for (multiples of 4 up to 32); `otherwise` for any other
+template <typename F>
+long long with_head_dim(int D, F f, long long otherwise) {
+  switch (D) {
+#define WINDOW_ATTN_CASE(DIM) \
+    case DIM:                 \
+      return f(std::integral_constant<int, DIM>());
+    WINDOW_ATTN_CASE(4)
+    WINDOW_ATTN_CASE(8)
+    WINDOW_ATTN_CASE(12)
+    WINDOW_ATTN_CASE(16)
+    WINDOW_ATTN_CASE(20)
+    WINDOW_ATTN_CASE(24)
+    WINDOW_ATTN_CASE(28)
+    WINDOW_ATTN_CASE(32)
+#undef WINDOW_ATTN_CASE
+    default:
+      return otherwise;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of one block, in bytes: K and V of one (window,
-// head), zero-padded to a multiple of 32 keys, with the bank padding.
-long long window_attn_smem_bytes(int N, int D) {
-  return 2LL * static_cast<long long>(sizeof(float)) * staged_floats(N, D);
+// Blocks that fit one SM at head_dim D (registers, threads and shared
+// memory), or -1 on a CUDA error or a head_dim the kernel is not built for.
+int window_attn_blocks_per_sm(int D) {
+  return static_cast<int>(with_head_dim(
+      D, [](auto d) { return (long long)blocks_per_sm<decltype(d)::value>(); },
+      -1));
 }
 
 // Launches the kernel on `stream`; returns the CUDA error code (0 = ok).
@@ -310,22 +374,13 @@ int window_attn_launch(const void* q, const void* k, const void* v,
   auto* of = static_cast<float*>(out);
   auto* lf = static_cast<float*>(lse);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-#define WINDOW_ATTN_CASE(DIM) \
-    case DIM:                                                             \
-      return launch<DIM>(qf, kf, vf, bf, mf, of, lf, W, H, N, nW, scale, s);
-    WINDOW_ATTN_CASE(4)
-    WINDOW_ATTN_CASE(8)
-    WINDOW_ATTN_CASE(12)
-    WINDOW_ATTN_CASE(16)
-    WINDOW_ATTN_CASE(20)
-    WINDOW_ATTN_CASE(24)
-    WINDOW_ATTN_CASE(28)
-    WINDOW_ATTN_CASE(32)
-#undef WINDOW_ATTN_CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(with_head_dim(
+      D,
+      [&](auto d) {
+        return static_cast<long long>(launch<decltype(d)::value>(
+            qf, kf, vf, bf, mf, of, lf, W, H, N, nW, scale, s));
+      },
+      cudaErrorInvalidValue));
 }
 
 const char* window_attn_error_string(int code) {

@@ -74,12 +74,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_tf32.cuh"  // AFrag, BFrag, split, mma, mma3
+#include "attn_tiles.cuh"  // Dims, tiles and fragments, kTile
+#include "mma_tf32.cuh"    // AFrag, BFrag, split, mma, mma3
 
 namespace {
 
 constexpr int kThreads = 128;              // 4 warps, 16 rows of a tile each
-constexpr int kTile = 64;                  // query rows or keys per tile
 constexpr int kChunk = 16;                 // columns of s a warp holds at once
 constexpr int kChunkTiles = kChunk / 8;    // n-tiles of m16n8k8 per chunk
 constexpr int kReduceThreads = 256;        // the dbias sum
@@ -88,109 +88,6 @@ constexpr int kDsStride = kTile + 8;       // floats per staged row of ds
 // blocks per SM the registers must allow: 3 cap a thread at 168 registers,
 // which the kv pass's split fragments outgrow (spill) from head_dim 24 on
 constexpr int min_blocks(int D) { return D <= 20 ? 3 : 2; }
-
-template <int D>
-struct Dims {
-  static constexpr int kPad = (D + 7) / 8 * 8;    // head_dim padded to the mma's k
-  static constexpr int kSteps = kPad / 8;         // k-steps (or n-tiles) over it
-  static constexpr int kStride = kPad + 4;        // floats per staged row
-  static constexpr int kPlane = kTile * kStride;  // one hi (or lo) plane
-  static constexpr int kRaw = kTile * D;          // one raw float32 tile
-};
-
-// B operand of x y^T with y staged: n runs over the staged rows n0 .. n0+7,
-// k over head_dim step ks (b[0] = (k = t, n = g), b[1] = (k = t+4, n = g))
-template <int D>
-__device__ __forceinline__ BFrag load_b_rows(const uint32_t* plane, int n0,
-                                             int ks, int g, int t) {
-  using C = Dims<D>;
-  const int e = (n0 + g) * C::kStride + 8 * ks + t;
-  BFrag f;
-  f.hi[0] = plane[e];
-  f.hi[1] = plane[e + 4];
-  f.lo[0] = plane[C::kPlane + e];
-  f.lo[1] = plane[C::kPlane + e + 4];
-  return f;
-}
-
-// B operand of p y with p from a C fragment: k runs over the staged rows
-// k0 .. k0+7 in the fragment's order (k = t is row k0+2t, k = t+4 is row
-// k0+2t+1), n over head_dim columns 8 nd .. 8 nd + 7
-template <int D>
-__device__ __forceinline__ BFrag load_b_perm(const uint32_t* plane, int k0,
-                                             int nd, int g, int t) {
-  using C = Dims<D>;
-  const int e = (k0 + 2 * t) * C::kStride + 8 * nd + g;
-  BFrag f;
-  f.hi[0] = plane[e];
-  f.hi[1] = plane[e + C::kStride];
-  f.lo[0] = plane[C::kPlane + e];
-  f.lo[1] = plane[C::kPlane + e + C::kStride];
-  return f;
-}
-
-// a C fragment (rows g, g+8; columns 2t, 2t+1) as the A operand whose k = t
-// is column 2t and k = t+4 column 2t+1
-__device__ __forceinline__ AFrag a_from_c(const float c[4]) {
-  AFrag f;
-  split(c[0], f.hi[0], f.lo[0]);
-  split(c[2], f.hi[1], f.lo[1]);
-  split(c[1], f.hi[2], f.lo[2]);
-  split(c[3], f.hi[3], f.lo[3]);
-  return f;
-}
-
-// A operand straight from device memory: rows r0 .. r0+15 of x [N, D]
-// (times mult), zero past row N-1 and column D-1
-template <int D>
-__device__ __forceinline__ void load_a_global(AFrag f[Dims<D>::kSteps],
-                                              const float* x, int r0, int N,
-                                              float mult, int g, int t) {
-#pragma unroll
-  for (int ks = 0; ks < Dims<D>::kSteps; ++ks) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = r0 + g + 8 * (i & 1);
-      const int d = 8 * ks + t + 4 * (i >> 1);
-      const float v =
-          (r < N && d < D) ? __ldg(x + (long long)r * D + d) * mult : 0.f;
-      split(v, f[ks].hi[i], f[ks].lo[i]);
-    }
-  }
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
-               :: "r"(s), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
-               :: "r"(s), "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;");
-}
-
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;" ::: "memory");
-}
-
-// rows i0 .. i0+63 of x [N, D] into dst [64 * D], zero past row N-1
-template <int D>
-__device__ __forceinline__ void stage_raw(float* dst, const float* x, int i0,
-                                          int N) {
-  const float* src = x + (long long)i0 * D;
-  for (int e = threadIdx.x; e < kTile * D / 4; e += kThreads) {
-    const bool ok = i0 + 4 * e / D < N;
-    cp_async16(dst + 4 * e, ok ? src + 4 * e : x, ok);
-  }
-}
 
 // the [64, 64] tile at (i0, j0) of x [N, N] into dst [64][kDsStride], zero
 // outside x; 16-byte copies where N % 4 == 0 keeps them aligned
@@ -219,28 +116,6 @@ __device__ __forceinline__ void stage_row_values(float* dst, const float* x,
   for (int r = threadIdx.x; r < kTile; r += kThreads) {
     const bool ok = i0 + r < N;
     cp_async4(dst + r, ok ? x + i0 + r : x, ok);
-  }
-}
-
-// a raw tile (times mult) into its hi and lo planes, four columns at a
-// time, zero in the padding columns
-template <int D>
-__device__ __forceinline__ void split_tile(uint32_t* plane, const float* raw,
-                                           float mult) {
-  using C = Dims<D>;
-  constexpr int kQuads = C::kPad / 4;
-  for (int e = threadIdx.x; e < kTile * kQuads; e += kThreads) {
-    const int r = e / kQuads;
-    const int d = 4 * (e % kQuads);
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (d < D) x = *reinterpret_cast<const float4*>(raw + r * D + d);
-    uint4 hi, lo;
-    split(x.x * mult, hi.x, lo.x);
-    split(x.y * mult, hi.y, lo.y);
-    split(x.z * mult, hi.z, lo.z);
-    split(x.w * mult, hi.w, lo.w);
-    *reinterpret_cast<uint4*>(plane + r * C::kStride + d) = hi;
-    *reinterpret_cast<uint4*>(plane + C::kPlane + r * C::kStride + d) = lo;
   }
 }
 
@@ -313,9 +188,9 @@ attn_bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tiles = (N + kTile - 1) / kTile;
   auto prefetch = [&](int it) {
     float* st = raw + (it & 1) * kStage;
-    stage_raw<D>(st, q + rows * D, it * kTile, N);
-    stage_raw<D>(st + C::kRaw, g + rows * D, it * kTile, N);
-    stage_raw<D>(st + 2 * C::kRaw, out + rows * D, it * kTile, N);
+    stage_raw<D, kThreads>(st, q + rows * D, it * kTile, N);
+    stage_raw<D, kThreads>(st + C::kRaw, g + rows * D, it * kTile, N);
+    stage_raw<D, kThreads>(st + 2 * C::kRaw, out + rows * D, it * kTile, N);
     stage_row_values(st + 3 * C::kRaw, lse + rows, it * kTile, N);
   };
   prefetch(0);
@@ -328,8 +203,8 @@ attn_bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
     const float* st = raw + (it & 1) * kStage;
     const float* ls = st + 3 * C::kRaw;
-    split_tile<D>(qs, st, scale);
-    split_tile<D>(gs, st + C::kRaw, 1.f);
+    split_tile<D, kThreads>(qs, st, scale);
+    split_tile<D, kThreads>(gs, st + C::kRaw, 1.f);
     tile_delta<D>(delta, st + C::kRaw, st + 2 * C::kRaw);
     __syncthreads();
 
@@ -414,7 +289,7 @@ attn_bwd_dq_kernel(const float* __restrict__ ds, const float* __restrict__ k,
   const int tiles = (N + kTile - 1) / kTile;
   auto prefetch = [&](int jt) {
     float* st = raw + (jt & 1) * kStage;
-    stage_raw<D>(st, k + rows * D, jt * kTile, N);
+    stage_raw<D, kThreads>(st, k + rows * D, jt * kTile, N);
     stage_square(st + C::kRaw, dsw, i0, jt * kTile, N);
   };
   prefetch(0);
@@ -426,7 +301,7 @@ attn_bwd_dq_kernel(const float* __restrict__ ds, const float* __restrict__ k,
     cp_async_wait_one();
     __syncthreads();
     const float* st = raw + (jt & 1) * kStage;
-    split_tile<D>(kpl, st, 1.f);
+    split_tile<D, kThreads>(kpl, st, 1.f);
     __syncthreads();
 
     // A = ds with its 8 columns in the C fragment's order (k = t is column

@@ -3,17 +3,17 @@ backward, and their plain PyTorch versions.
 
 `window_attention(q, k, v, bias, mask)` launches `csrc/window_attn.cu` (the
 Hopper port of the Pallas TPU kernel `_pallas_attention` in the JAX
-package's `kernels/window_attn.py`) for tensors on a CUDA device, and runs
-`window_attention_plain` for tensors on the CPU. When q, k, v or the bias
-require grad, the call goes through a `torch.autograd.Function` whose
-backward is `window_attention_bwd`: `csrc/window_attn_bwd.cu` (the port of
-`_pallas_attention_bwd`: three launches on 3xTF32 tensor cores, no
-atomics) on the GPU,
+package's `kernels/window_attn.py`: both products on 3xTF32 tensor cores)
+for tensors on a CUDA device, and runs `window_attention_plain` for tensors
+on the CPU. When q, k, v or the bias require grad, the call goes through a
+`torch.autograd.Function` whose backward is `window_attention_bwd`:
+`csrc/window_attn_bwd.cu` (the port of `_pallas_attention_bwd`: three
+launches on 3xTF32 tensor cores, no atomics) on the GPU,
 `window_attention_bwd_plain` on the CPU. `window_attention_fwd` is the
 forward kernel with each row's log-sum-exp, which the backward kernel
-reads. There is no other route: a
-CUDA tensor the kernels cannot take raises. The source notes in the `.cu`
-files give each kernel's design and bound.
+reads. There is no other route: a CUDA tensor the kernels cannot take
+raises. The source notes in the `.cu` files give each kernel's design and
+bound.
 
     q, k, v  [W, H, N, D]   W = batch * windows, H heads, N tokens a window
     bias     [H, N, N]      relative-position bias
@@ -31,12 +31,10 @@ from typing import Optional
 
 import torch
 
-# the largest dynamic shared memory a Hopper block may opt into; the forward
-# keeps K and V of one (window, head) there (the backward streams tiles of
-# 64 rows, whatever N is)
-_SMEM_LIMIT = 232_448
 # gridDim.z holds the window index, gridDim.y the head
 _MAX_WINDOWS = 65_535
+# the forward kernel indexes a [N, N] bias or mask with int offsets
+_MAX_TOKENS = 46_340
 
 
 def window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -138,8 +136,6 @@ def _library():
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float,
                                                       ctypes.c_void_p])
     lib.window_attn_launch.restype = ctypes.c_int
-    lib.window_attn_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.window_attn_smem_bytes.restype = ctypes.c_longlong
     lib.window_attn_error_string.argtypes = [ctypes.c_int]
     lib.window_attn_error_string.restype = ctypes.c_char_p
     return lib
@@ -157,6 +153,17 @@ def _bwd_library():
     lib.window_attn_bwd_error_string.argtypes = [ctypes.c_int]
     lib.window_attn_bwd_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def blocks_per_sm(D: int) -> int:
+    """Forward-kernel blocks that fit one SM of the current card at head_dim
+    D (built on first use)."""
+    fn = _library().window_attn_blocks_per_sm
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    n = fn(D)
+    if n < 0:
+        raise RuntimeError(f"occupancy query failed at head_dim {D}")
+    return n
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -184,12 +191,10 @@ def window_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.numel() == 0:
         return out, lse
     _check_kernel_shape(q, "window_attention")
+    if N > _MAX_TOKENS:
+        raise ValueError(f"window_attention's kernel takes at most "
+                         f"{_MAX_TOKENS} tokens a window; got {N}")
     lib = _library()
-    smem = lib.window_attn_smem_bytes(N, D)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"a window of {N} tokens at head_dim {D} needs {smem} "
-                         f"bytes of shared memory; the kernel takes at most "
-                         f"{_SMEM_LIMIT}")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.window_attn_launch(

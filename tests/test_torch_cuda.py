@@ -182,9 +182,24 @@ def _attn_inputs(dev, W, H, N, D, nW=None, seed=0):
 @pytest.mark.parametrize("shape", [
     (12, 8, 448, 20, 12),       # the full-width Swin block, batch 1, shifted
     (48, 8, 448, 20, None),     # batch 4, unshifted
-    (6, 3, 100, 8, 3),          # ragged against the 64-row tile and 32 keys
-    (4, 2, 40, 32, None),       # the widest head_dim, fewer keys than lanes
+    (6, 3, 100, 8, 3),          # ragged against the query and key tiles
+    (4, 2, 40, 32, None),       # the widest head_dim, fewer keys than a tile
     (2, 1, 3, 4, 1),            # a tile with nearly every row past N
+    # every head_dim the wrapper takes: each pads differently against the
+    # mma's k = 8
+    *((4, 2, 100, d, 2) for d in (4, 8, 12, 16, 20, 24, 28, 32)),
+    # one short of, equal to and one past the 128-row query tile (4 warps of
+    # two 16-row groups; at 129 the second tile's block holds one live row
+    # and three warps with none) and the 64-key tile (odd N reads the bias
+    # and mask a float at a time)
+    (3, 2, 127, 20, 3), (3, 2, 128, 20, None), (3, 2, 129, 20, 1),
+    # N ending one row into a warp's group: 97 into warp 3's first, 113 into
+    # its second, 145 into the second tile's warp 0's second
+    (3, 2, 97, 20, 3), (3, 2, 113, 20, 1), (3, 2, 145, 20, None),
+    (3, 2, 111, 20, 3), (3, 2, 112, 20, None),   # one row short of a group
+    (3, 2, 63, 20, 3), (3, 2, 64, 20, None), (3, 2, 65, 20, 3),
+    (2, 2, 449, 20, 1),         # one past seven key tiles and four row tiles
+    (48, 8, 448, 20, 12),       # batch 4 with the full-width shift mask
 ])
 def test_window_attention_matches_plain(dev, shape):
     W, H, N, D, nW = shape
@@ -196,6 +211,26 @@ def test_window_attention_matches_plain(dev, shape):
     assert out.shape == q.shape and out.dtype == torch.float32
     assert torch.isfinite(out).all()
     assert _rel(out, WA.window_attention_plain(q, k, v, bias, mask)) <= REL_TOL
+
+
+@pytest.mark.parametrize("shape", [
+    (12, 8, 448, 20, 12),       # the full-width Swin block, batch 1, shifted
+    (3, 2, 113, 20, 3),         # ragged rows and keys, odd N
+    (3, 2, 129, 20, 1),         # one past the 128-row query tile
+    (4, 2, 40, 32, None),       # the widest head_dim
+    (2, 1, 3, 4, 1),            # nearly every row and key past N
+])
+def test_window_attention_lse_matches_plain(dev, shape):
+    """The row log-sum-exp the backward reads, against the plain scores'; a
+    call without it gives the same output bitwise."""
+    q, k, v, bias, mask = _attn_inputs(dev, *shape)
+    out, lse = WA.window_attention_fwd(q, k, v, bias, mask, with_lse=True)
+    torch.testing.assert_close(
+        lse, torch.logsumexp(_scores(q, k, bias, mask), -1), rtol=1e-5,
+        atol=1e-5)
+    again, none = WA.window_attention_fwd(q, k, v, bias, mask,
+                                          with_lse=False)
+    assert none is None and torch.equal(out, again)
 
 
 def test_window_attention_rejects_what_it_cannot_take(dev):

@@ -296,3 +296,77 @@ def test_bwd_kernel_arithmetic_against_plain(full_width_bwd, three):
         assert max(rels) <= BWD_TOL, rels
     else:
         assert min(rels) > BWD_TOL, rels
+
+
+# -------------------------------------------- the forward kernel's arithmetic
+#
+# csrc/window_attn.cu runs both products on the tensor cores in 3xTF32, as
+# the backward does, and the softmax online over chunks of 16 keys in
+# order. Below, that arithmetic in plain torch (with _mm as above): at the
+# full-width window it must hold the kernel's 1e-4 limit on the output and
+# on the row log-sum-exp the backward reads, and plain TF32 must not.
+
+FWD_CHUNK = 16   # keys per online-softmax step, the kernel's kChunk
+
+
+def _exp2_fma(s, m):
+    """2^(s log2(e) - m log2(e)) as the kernel takes it: m log2(e) rounded
+    to float32, then one rounding of the fused multiply-add."""
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+    ml = (m * log2e).double()
+    return torch.exp2((s.double() * log2e.double() - ml).float())
+
+
+def _fwd_as_the_kernel(q, k, v, bias, mask, three):
+    """(out, lse) in the kernel's order: for each chunk of keys in turn,
+    s = (q scale) k^T through _mm, + bias, then + mask; the running max m;
+    p = exp(s - m) as 2^(s log2(e) - m log2(e)); the accumulator rescaled by
+    exp(m_old - m), then acc += p [v, 1] through _mm: V's first padding
+    column (D = 20 pads to 24) holds ones, so acc's column D is the row sum.
+    out = acc / sum, lse = m + log(sum)."""
+    W, _, N, D = q.shape
+    n = 1 if mask is None else mask.shape[0]
+    qs = q * D ** -0.5
+    v = torch.cat([v, torch.ones_like(v[..., :1])], -1)
+    m = torch.full((*q.shape[:3], 1), -float("inf"))
+    acc = torch.zeros_like(v)
+    for j0 in range(0, N, FWD_CHUNK):
+        j = slice(j0, min(j0 + FWD_CHUNK, N))
+        s = _mm(qs, k[:, :, j].transpose(-1, -2), three) + bias[None, :, :, j]
+        if mask is not None:
+            s = (s.reshape(W // n, n, *s.shape[1:])
+                 + mask[None, :, None, :, j]).reshape(s.shape)
+        top = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2((m - top) * 1.4426950408889634)
+        p = _exp2_fma(s, top)
+        acc = acc * alpha + _mm(p, v[:, :, j], three)
+        m = top
+    total = acc[..., D:]
+    return acc[..., :D] / total, (m + torch.log(total))[..., 0]
+
+
+@pytest.fixture(scope="module")
+def full_width_fwd():
+    """The full-width shifted block's window (N 448, D 20; 12 windows of the
+    7x48x16 grid with its shift mask) at 2 heads, the plain forward and the
+    log-sum-exp of its scores."""
+    mask = jax_shift_mask(7, 48, 16, (7, 8, 8), (0, 4, 4))
+    q, k, v, bias, _ = _data(12, 2, 448, 20, seed=10)
+    q, k, v, bias, mask = tensors = _torch(q, k, v, bias, mask)
+    s = torch.matmul(q * 20 ** -0.5, k.transpose(-1, -2)) + bias
+    s = (s[:, None] + mask[:, None, None]).reshape(s.shape)   # W = nW here
+    return tensors, WA.window_attention_plain(*tensors), torch.logsumexp(s, -1)
+
+
+@pytest.mark.parametrize("three", [True, False], ids=["3xTF32", "TF32"])
+def test_fwd_kernel_arithmetic_against_plain(full_width_fwd, three):
+    """3xTF32 stays within the kernel's 1e-4 of the plain float32 forward on
+    the output and on lse; plain TF32, the control, misses it on both."""
+    tensors, plain, plain_lse = full_width_fwd
+    out, lse = _fwd_as_the_kernel(*tensors, three=three)
+    rels = [_rel(out.numpy(), plain.numpy()),
+            _rel(lse.numpy(), plain_lse.numpy())]
+    if three:
+        assert max(rels) <= BWD_TOL, rels
+    else:
+        assert min(rels) > BWD_TOL, rels
