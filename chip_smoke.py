@@ -14,7 +14,8 @@ then exits non-zero and prints no result:
               (none allowed in any of them: their tensor-core products
               hold split operands in registers)
   3. kernels  each kernel against its plain PyTorch version on the card, at
-              the main paths' shapes (batch 1 and 4; window attention, forward
+              the main paths' shapes (batch 1 and 4, and 16 for the SENSE
+              normal op: the headline train step's; window attention, forward
               and backward, with and without the shift mask; the block-LLR
               normal op, 'pre' and 'post', one and two systems), with its
               time, the plain version's, the PyTorch library call's, and its
@@ -55,13 +56,24 @@ then exits non-zero and prints no result:
               val_step at 2 unrolls held against the port's CPU path; one
               val_step of the dslr-cg-jacobi mode (6 CG steps): 35 launches
               of both factor systems (S=2)
-  8. result   one JSON line of kernels, then the last line
+  8. headline the RES main path closed: the port bench's train step
+              (dl_swin_gan_tpu_torch.bench, Trainer.train_step on a resident
+              batch) at batch 16 with remat in bfloat16 and float32 and at
+              batch 1 in bfloat16, 1 warm-up and 3 timed steps each, 9
+              SENSE-normal launches per step asserted, peak memory, one
+              step's device time by kernel group; one bfloat16 step at 1
+              unroll held against the port's CPU bfloat16 step; main's 4
+              slices served with the bfloat16 trunk and scored by the
+              port's evaluator (SSIM, PSNR) against their 1x adjoint; a CFL
+              round trip through reconstruct_cfl against Reconstructor
+  9. result   one JSON line of kernels, then the last line
               {"ok": true, "device": {...}}
 
 Needs one CUDA device, nvcc and this checkout; no network, no JAX.
 """
 
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -74,13 +86,19 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from dl_swin_gan_tpu_torch import bench
 from dl_swin_gan_tpu_torch.convert import init_params
-from dl_swin_gan_tpu_torch.data import DataLoader
+from dl_swin_gan_tpu_torch.data import DataLoader, cfl
+from dl_swin_gan_tpu_torch.data.host_ops import fftmod
 from dl_swin_gan_tpu_torch.data.synthetic import make_cine_example
+from dl_swin_gan_tpu_torch.infer.evaluate import evaluate_volumes
 from dl_swin_gan_tpu_torch.infer.reconstruct import (
-    Reconstructor, batched, load_checkpoint_params,
+    Reconstructor, accel_transform, batched, load_checkpoint_params,
+    reconstruct_cfl, reconstruct_examples,
 )
-from dl_swin_gan_tpu_torch.infer.transforms import PARITY_SEED, ResampleTransform
+from dl_swin_gan_tpu_torch.infer.transforms import (
+    PARITY_SEED, InferenceTransform, ResampleTransform,
+)
 from dl_swin_gan_tpu_torch.kernels import _build
 from dl_swin_gan_tpu_torch.kernels import llr_normal as LN
 from dl_swin_gan_tpu_torch.kernels import sense_normal as SN
@@ -125,6 +143,24 @@ RUNS = Path(__file__).resolve().parent / "runs" / "chip_smoke"
 # jacobi mode's CG steps (configs/quality/dslr_fast.yaml)
 DSLR_CUT_UNROLLS = 2
 JACOBI_CG_STEPS = 6
+# the headline phase: the bench's train step at (batch, remat, trunk dtype),
+# one warm-up and HEADLINE_STEPS timed steps each
+HEADLINE_POINTS = ((bench.HEADLINE_BATCH, True, "bfloat16"),
+                   (bench.HEADLINE_BATCH, True, "float32"),
+                   (1, False, "bfloat16"))
+HEADLINE_STEPS = 3
+# a bfloat16 step on the card vs the CPU's bfloat16 step at 1 unroll, and
+# bfloat16 serving vs the CPU: both round each conv's input, kernel and
+# output to bfloat16, but accumulate in other orders, so a few outputs round
+# the other way (2^-8 relative each). The H100 showed loss rel 2.8e-6,
+# gradient rel L2 8.4e-4 and serving rel L2 1.7e-3; the limits keep a
+# margin of 6x to 10x
+BF16_LOSS_REL_TOL = 3e-5
+BF16_GRAD_REL_L2_TOL = 5e-3
+BF16_REL_L2_TOL = 1e-2
+# reconstruct_cfl vs Reconstructor on the same scanner arrays: the same
+# inputs through the same solver
+CFL_REL_L2_TOL = 1e-6
 # published H100 SXM peaks (NVIDIA data sheet) for the bound
 FP32_FLOPS = 67e12        # float32 outside the tensor cores
 TF32_FLOPS = 495e12       # dense TF32 on the tensor cores; 3xTF32 runs at 1/3
@@ -211,27 +247,6 @@ def phase_build():
         check(not spills, f"{name} spills registers: {spills}")
 
 
-def _normal_work(E, C, w):
-    """(DFT FLOP, other FLOP, bytes) of one SENSE-normal call as the kernel
-    does it: DFTs as dense complex products (8 FLOP per complex
-    multiply-add) over the R k-space rows of each frame that hold a nonzero
-    weight: the y-DFT to those rows, both x-DFTs on them, the inverse y-DFT
-    from them; then the weight, the coil expansion and the coil sum. The
-    DFT tables count as the complex64 matrices the function needs, 8 bytes
-    per entry (the kernel's hi/lo split of them is its own choice)."""
-    B, T, Y, X = w.shape
-    rows = int((w != 0).any(dim=3).sum().item())   # R summed over (b, t)
-    yx = Y * X
-    dft = C * rows * 8 * X * (2 * Y + 2 * X)        # the four DFT passes
-    other = C * (rows * X * 2                       # k-space weight
-                 + B * T * 8 * E * yx * 2)          # coil expansion, combine
-    nbytes = (8 * B * E * T * yx * 2                # x in, out
-              + 8 * B * E * C * yx                  # maps
-              + 4 * B * T * yx                      # w
-              + 8 * (Y * Y + X * X))                # DFT tables
-    return dft, other, nbytes
-
-
 def _coil_bound(dft, other, nbytes):
     """The bound of a call whose coil-pass DFTs run 3xTF32 on the tensor
     cores (TF32_FLOPS / 3) and the rest as float32 FMA, against its bytes;
@@ -276,7 +291,8 @@ def coil_launches(fn):
 
 
 def kernels_sense_normal():
-    """sense_normal kernel vs plain vs the cuFFT chain at batch 1 and 4."""
+    """sense_normal kernel vs plain vs the cuFFT chain at batch 1 and 4, and
+    at the headline train step's batch 16."""
     T, Y, X, C, E = headline_shape()
     blocks = SN.blocks_per_sm(Y, X)
     print(f"kernel sense_normal: coil_normal_kernel blocks per SM at {Y}x{X}: "
@@ -284,7 +300,7 @@ def kernels_sense_normal():
     check(blocks >= 2, f"coil_normal_kernel fits {blocks} block(s) per SM")
     rng = np.random.RandomState(SEED)
     results = {}
-    for B in (1, 4):
+    for B in (1, 4, bench.HEADLINE_BATCH):
         x, maps, w, maps6, m5 = sense_inputs(rng, B)
         out = SN.sense_normal(x, maps, w)
         plain = SN.sense_normal_plain(x, maps, w)
@@ -306,7 +322,7 @@ def kernels_sense_normal():
         library_ms = cuda_ms(
             lambda: _adjoint_impl(_forward_impl(x, maps6, m5), maps6, m5))
         launches = coil_launches(lambda: SN.sense_normal(x, maps, w))
-        bound = _coil_bound(*_normal_work(E, C, w))
+        bound = _coil_bound(*SN.normal_work(E, C, w))
         results[B] = dict(
             max_abs_err=max_abs, rel_err=rel, ms=ms, plain_ms=plain_ms,
             library_ms=library_ms, device_ms_by_launch=launches,
@@ -742,10 +758,11 @@ def profile_device(label, fn):
               f"x{e.count:<4d} {e.key[:90]}")
 
 
-def run_path(tag, cfg, expected):
+def run_path(tag, cfg, expected, cpu_tol=CPU_REL_L2_TOL):
     """Drive one reconstruction path through Reconstructor on the card and
     check it. `expected` maps each counter of COUNTERS to its launches per
-    batch; returns {counter: {batch size: launches}}."""
+    batch; returns ({counter: {batch size: launches}}, the raw slices, their
+    examples, the batch-1 outputs, the weights)."""
     cfg.freeze()
     T, Y, X, C, E = headline_shape()
     nunroll = cfg.MODEL.PARAMETERS.NUM_UNROLLS
@@ -810,9 +827,8 @@ def run_path(tag, cfg, expected):
     rel_cpu = np.linalg.norm(outs[1][:1] - cpu) / np.linalg.norm(cpu)
     print(f"{tag}: slice 0 vs the port's CPU path ({nunroll} unrolls, "
           f"{cpu_s:.1f} s on the CPU): rel L2 {rel_cpu:.3e}")
-    check(rel_cpu <= CPU_REL_L2_TOL,
-          f"GPU vs CPU rel L2 {rel_cpu:.3e} > {CPU_REL_L2_TOL}")
-    return counts
+    check(rel_cpu <= cpu_tol, f"GPU vs CPU rel L2 {rel_cpu:.3e} > {cpu_tol}")
+    return counts, slices, examples, outs[1], params
 
 
 def phase_main():
@@ -821,7 +837,7 @@ def phase_main():
     nunroll = cfg.MODEL.PARAMETERS.NUM_UNROLLS
     return run_path("main", cfg, {"sense_normal": nunroll,
                                   "window_attention": 0,
-                                  "window_attention_bwd": 0})
+                                  "window_attention_bwd": 0})[0]
 
 
 def phase_swin():
@@ -832,7 +848,7 @@ def phase_swin():
     return run_path("swin", cfg, {
         "sense_normal": p.NUM_UNROLLS,
         "window_attention": blocks * p.NUM_UNROLLS,
-        "window_attention_bwd": 0})
+        "window_attention_bwd": 0})[0]
 
 
 class _InMemory:
@@ -1139,6 +1155,155 @@ def phase_dslr():
     return counts
 
 
+def headline_train(counts):
+    """The bench's train step at HEADLINE_POINTS: times, launches, memory,
+    and one step's device time by kernel group."""
+    for B, remat, dtype in HEADLINE_POINTS:
+        label = f"B={B} {dtype}" + (" remat" if remat else "")
+        step = bench.TrainStep(B, remat, dtype, "cuda")
+        check(step.trainer.device.type == "cuda",
+              f"headline Trainer on {step.trainer.device}")
+        step()                                  # warm-up (cuDNN, allocator)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        times, losses = [], []
+        for _ in range(HEADLINE_STEPS):
+            t0 = time.perf_counter()
+            metrics = step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(metrics["Train/complex_l1"]))
+        expected = step.sense_launches * HEADLINE_STEPS
+        for name, n in read_counts().items():
+            counts[name][f"train {label}"] = n
+            want = expected if name == "sense_normal" else 0
+            check(n == want, f"headline {label}: {n} {name} launches in "
+                  f"{HEADLINE_STEPS} steps, expected {want}")
+        check(np.isfinite(losses).all(), f"headline {label} losses {losses}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        ms = float(np.median(times)) * 1e3
+        print(f"headline: train step {label}: {ms:.2f} ms per step (median "
+              f"of {HEADLINE_STEPS}; {', '.join(f'{t * 1e3:.2f}' for t in times)}"
+              f"), {B / ms * 1e3:.3f} samples/s, peak device memory "
+              f"{peak_gb:.2f} GB; complex_l1 per step "
+              f"{', '.join(f'{x:.6f}' for x in losses)}; "
+              f"{step.sense_launches} sense_normal launches per step")
+        profile_device(f"headline: one train step {label}", step)
+        del step, metrics
+        torch.cuda.empty_cache()
+
+
+def headline_bf16_vs_cpu():
+    """One bfloat16 train step at 1 unroll, full width, on the card and on
+    the port's CPU path: the same weights and batch."""
+    cfg = bench.bench_cfg("bfloat16")
+    cfg.defrost()
+    cfg.MODEL.PARAMETERS.NUM_UNROLLS = 1
+    cfg.freeze()
+    batch = bench.device_batch(cfg, 1, torch.device("cpu"))
+    params = init_params(cfg, SEED)
+    gpu = _step_and_grads(cfg, params, batch, "cuda")
+    cpu = _step_and_grads(cfg, params, batch, "cpu")
+    rel_loss = abs(gpu[0] - cpu[0]) / abs(cpu[0])
+    rel_grad = ((gpu[1] - cpu[1]).norm() / cpu[1].norm()).item()
+    print(f"headline: one bfloat16 step at 1 unroll vs the port's CPU "
+          f"bfloat16 step ({cpu[2]:.1f} s on the CPU): loss {gpu[0]:.6f} vs "
+          f"{cpu[0]:.6f} (rel {rel_loss:.3e}), gradient rel L2 "
+          f"{rel_grad:.3e} over {cpu[1].numel()} values")
+    check(rel_loss <= BF16_LOSS_REL_TOL,
+          f"bf16 GPU vs CPU train loss rel {rel_loss:.3e} > {BF16_LOSS_REL_TOL}")
+    check(rel_grad <= BF16_GRAD_REL_L2_TOL,
+          f"bf16 GPU vs CPU gradient rel L2 {rel_grad:.3e} > "
+          f"{BF16_GRAD_REL_L2_TOL}")
+
+
+def _scanner_cfl(directory, slices, examples):
+    """Write the slices' 12x k-space and their maps as scanner CFLs (BART
+    dims: k-space [x, y, slice, coil, 1, echo, 1, phase], maps [x, y, slice,
+    coil, emap]; the scanner's data is not fftmod'ed), one echo; returns
+    their paths and the arrays as reconstruct_cfl reads them per slice."""
+    ks = np.stack([fftmod(k * ex["mask"]) for (k, _, _), ex in
+                   zip(slices, examples)]).astype(np.complex64)
+    maps = np.stack([fftmod(m[:, :, 0]) for _, m, _ in slices]
+                    ).astype(np.complex64)            # [S, E, C, Y, X]
+    file_ks, file_maps = str(directory / "ks"), str(directory / "maps")
+    cfl.write(file_ks, np.transpose(ks, (4, 3, 0, 1, 2))[
+        :, :, :, :, None, None, None, :], order="F")
+    cfl.write(file_maps, np.transpose(maps, (4, 3, 0, 2, 1)), order="F")
+    return file_ks, file_maps, ks, maps[:, :, :, None]
+
+
+def headline_serve(counts):
+    """main's slices served with the bfloat16 trunk, scored against their
+    1x adjoint, and the same weights through the CFL deployment path."""
+    cfg = headline_cfg()
+    cfg.MODEL.PARAMETERS.CONV_BLOCK.DTYPE = "bfloat16"
+    nunroll = cfg.MODEL.PARAMETERS.NUM_UNROLLS
+    serve_counts, slices, examples, out, params = run_path(
+        "headline bf16 serving", cfg, {"sense_normal": nunroll,
+                                       "window_attention": 0,
+                                       "window_attention_bwd": 0},
+        cpu_tol=BF16_REL_L2_TOL)
+    for name, by_bs in serve_counts.items():
+        for bs, n in by_bs.items():
+            counts[name][f"serve bf16 batch {bs}"] = n
+
+    # the evaluator: SSIM and PSNR against the fully-sampled adjoint
+    reference = accel_transform(cfg, 1)
+    ref = reconstruct_examples([reference(k, m) for k, m, _ in slices], None)
+    scores = {"bf16 trunk (seeded weights)": evaluate_volumes(ref, out),
+              "zero-filled": evaluate_volumes(
+                  ref, reconstruct_examples(examples, None))}
+    for label, per in scores.items():
+        ssim, psnr = float(per["ssim"].mean()), float(per["psnr"].mean())
+        check(np.isfinite(ssim) and np.isfinite(psnr) and -1 <= ssim <= 1,
+              f"evaluator on {label}: ssim {ssim}, psnr {psnr}")
+        print(f"headline: {SLICES} slices at {ACCEL}x, {label}, against the "
+              f"1x adjoint: SSIM {ssim:.6f} PSNR {psnr:.4f} dB (mean over "
+              f"{per['ssim'].size} frames)")
+
+    # the CFL deployment path vs Reconstructor on the same scanner arrays
+    directory = RUNS / "cfl"
+    shutil.rmtree(directory, ignore_errors=True)
+    os.makedirs(directory)
+    file_ks, file_maps, ks, maps = _scanner_cfl(directory, slices, examples)
+    zero_counts()
+    t0 = time.perf_counter()
+    reconstruct_cfl(file_ks, file_maps, str(directory / "im"), cfg, params)
+    cfl_s = time.perf_counter() - t0
+    got = read_counts()
+    check(got["sense_normal"] == nunroll * SLICES,
+          f"reconstruct_cfl: {got['sense_normal']} sense_normal launches")
+    counts["sense_normal"]["reconstruct_cfl"] = got["sense_normal"]
+    im = cfl.read(str(directory / "im"), order="F")
+    T, Y, X, C, E = headline_shape()
+    check(im.shape == (X, Y, SLICES, 1, E, 1, 1, T),
+          f"reconstruct_cfl output dims {im.shape}")
+    im = np.transpose(im[:, :, :, 0, :, 0, 0, :], (2, 3, 4, 1, 0))
+    transform = InferenceTransform(cfg, apply_fftmod=True)
+    want = reconstruct_examples([transform(k, m) for k, m in zip(ks, maps)],
+                                Reconstructor(cfg, params))   # batch 1
+    rel = np.linalg.norm(im - want) / np.linalg.norm(want)
+    print(f"headline: reconstruct_cfl of {SLICES} slices (CFL k-space "
+          f"{list(ks.shape)}, one echo) in {cfl_s:.2f} s, output dims "
+          f"[x, y, slice, 1, emap, echo, 1, phase]; vs Reconstructor on the "
+          f"same scanner arrays: rel L2 {rel:.3e}")
+    check(rel <= CFL_REL_L2_TOL, f"reconstruct_cfl vs Reconstructor rel L2 "
+          f"{rel:.3e} > {CFL_REL_L2_TOL}")
+    shutil.rmtree(directory, ignore_errors=True)
+
+
+def phase_headline():
+    """The RES main path on the card: the bench's train step, bfloat16
+    against the CPU, bfloat16 serving scored by the evaluator, CFL."""
+    counts = {name: {} for name in COUNTERS}
+    headline_train(counts)
+    headline_bf16_vs_cpu()
+    headline_serve(counts)
+    return counts
+
+
 def _entry(name, source, replaces, res, launches):
     """One kernel's item of the `kernels` line: the numbers of its headline
     variant, then every variant it was measured at."""
@@ -1169,7 +1334,8 @@ def main():
     phase_build()
     kres = phase_kernels()
     counts = {"main": phase_main(), "swin": phase_swin(),
-              "train": phase_train(), "dslr": phase_dslr()}
+              "train": phase_train(), "dslr": phase_dslr(),
+              "headline": phase_headline()}
 
     def by_path(name):
         return {path: c[name] for path, c in counts.items()}

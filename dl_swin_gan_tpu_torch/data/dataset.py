@@ -5,7 +5,9 @@ A copy of `data/dataset.py` in the JAX package (the reference's
 same shuffle (`random.Random(seed + epoch)`), `drop_last` and early-exit
 release, so both packages see the same batches in the same order. The
 loader yields stacked numpy dicts; the trainer moves them to the device.
-`h5py` is imported only where a file is read.
+`h5py` is imported only where a file is read. `InMemoryDataset` serves
+files held in memory in place of an `Hdf5Dataset` (the card's machine has
+no h5py).
 """
 
 import glob
@@ -47,6 +49,28 @@ class Hdf5Dataset:
             maps = data["maps"][sl]
             target = data["target"][sl]
         return self.transform(kspace, maps, target, filename)
+
+
+class InMemoryDataset:
+    """Files held in memory, flattened to (file, slice) examples as
+    `Hdf5Dataset` flattens its files: `files` holds one (name, kspace, maps,
+    target) per file, each array stacked over the file's slices (the records
+    of `data/synthetic.synthetic_files`). The transform gets the file's name
+    where `Hdf5Dataset` passes its path."""
+
+    def __init__(self, files, transform: Callable):
+        self.files = list(files)
+        self.transform = transform
+        self.examples = [(i, s) for i, f in enumerate(self.files)
+                         for s in range(len(f[1]))]
+
+    def __len__(self) -> int:
+        return len(self.examples)
+
+    def __getitem__(self, index: int) -> dict:
+        i, sl = self.examples[index]
+        name, kspace, maps, target = self.files[i]
+        return self.transform(kspace[sl], maps[sl], target[sl], name)
 
 
 class DataLoader:

@@ -4,11 +4,11 @@ A copy of `data/synthetic.py` in the JAX package, so both packages make the
 same slices from the same seed: fully-sampled k-space = F(images x maps) in
 the storage convention of the prepared datasets (fftmod'ed k-space, DC at
 N/2; centered images; ESPIRiT-normalized maps). `h5py` is imported only by
-the writer.
+the writer; `quality_split` makes the quality set's splits in memory.
 """
 
 import os
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -81,6 +81,21 @@ def make_cine_example(T: int = 16, Y: int = 96, X: int = 64, C: int = 8,
     return kspace, maps, target
 
 
+def synthetic_files(num_files: int = 2, slices: int = 2, T: int = 16,
+                    Y: int = 96, X: int = 64, C: int = 8, E: int = 2,
+                    seed: int = 0, noise: float = 0.0):
+    """Yield one (name, kspace [S,C,T,Y,X], maps [S,E,C,1,Y,X],
+    target [S,E,T,Y,X]) per file: what `write_synthetic_dataset` writes to
+    `<name>.h5`, slice s of file f seeded with seed + 97*f + s."""
+    for f in range(num_files):
+        ks, mp, tg = [], [], []
+        for s in range(slices):
+            k, m, t = make_cine_example(T, Y, X, C, E,
+                                        seed=seed + 97 * f + s, noise=noise)
+            ks.append(k); mp.append(m); tg.append(t)
+        yield f"synthetic_{f:03d}", np.stack(ks), np.stack(mp), np.stack(tg)
+
+
 def write_synthetic_dataset(root: str, num_files: int = 2, slices: int = 2,
                             T: int = 16, Y: int = 96, X: int = 64, C: int = 8,
                             E: int = 2, seed: int = 0, noise: float = 0.0) -> list:
@@ -88,16 +103,34 @@ def write_synthetic_dataset(root: str, num_files: int = 2, slices: int = 2,
     import h5py
     os.makedirs(root, exist_ok=True)
     paths = []
-    for f in range(num_files):
-        ks, mp, tg = [], [], []
-        for s in range(slices):
-            k, m, t = make_cine_example(T, Y, X, C, E,
-                                        seed=seed + 97 * f + s, noise=noise)
-            ks.append(k); mp.append(m); tg.append(t)
-        path = os.path.join(root, f"synthetic_{f:03d}.h5")
+    for name, ks, mp, tg in synthetic_files(num_files, slices, T, Y, X, C, E,
+                                            seed, noise):
+        path = os.path.join(root, f"{name}.h5")
         with h5py.File(path, "w") as h5:
-            h5.create_dataset("kspace", data=np.stack(ks))
-            h5.create_dataset("maps", data=np.stack(mp))
-            h5.create_dataset("target", data=np.stack(tg))
+            h5.create_dataset("kspace", data=ks)
+            h5.create_dataset("maps", data=mp)
+            h5.create_dataset("target", data=tg)
         paths.append(path)
     return paths
+
+
+# the synthetic quality set of `datasets/make_quality_set.sh`: seed 0; per
+# file 4 slices of 18 phases x 156 x 96, 8 coils, 2 maps, k-space noise
+# 0.002; per split its file count and seed offset
+QUALITY_SET = dict(slices=4, T=18, Y=156, X=96, C=8, E=2, noise=0.002)
+QUALITY_SEED = 0
+QUALITY_SPLITS = {"train": (8, 0), "validate": (2, 10_000),
+                  "test": (6, 20_000)}
+
+
+def quality_split(split: str, num_files: Optional[int] = None,
+                  **cut) -> list:
+    """The quality set's `split` ('train', 'validate' or 'test') in memory,
+    without h5py: the files `datasets/make_quality_set.sh` writes under
+    runs/quality/data/<split>/, as `synthetic_files` records. `num_files`
+    keeps the first files only; `cut` overrides the slice geometry
+    (slices, T, Y, X, C, E, noise), for tests at a reduced size."""
+    files, offset = QUALITY_SPLITS[split]
+    geometry = {**QUALITY_SET, **cut}
+    return list(synthetic_files(files if num_files is None else num_files,
+                                seed=QUALITY_SEED + offset, **geometry))

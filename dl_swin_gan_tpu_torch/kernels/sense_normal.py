@@ -91,6 +91,28 @@ def sense_normal_plain(x: torch.Tensor, maps: torch.Tensor,
     return (maps.conj().unsqueeze(3) * coils.unsqueeze(1)).sum(2)
 
 
+def normal_work(E: int, C: int, w: torch.Tensor):
+    """(DFT FLOP, other FLOP, bytes) of one call as the kernel does it: DFTs
+    as dense complex products (8 FLOP per complex multiply-add) over the R
+    k-space rows of each frame that hold a nonzero weight: the y-DFT to
+    those rows, both x-DFTs on them, the inverse y-DFT from them; then the
+    weight, the coil expansion and the coil sum. The DFT tables count as the
+    complex64 matrices the function needs, 8 bytes per entry (the kernel's
+    hi/lo split of them is its own choice). w is the call's [B, T, Y, X]
+    weight."""
+    B, T, Y, X = w.shape
+    rows = int((w != 0).any(dim=3).sum().item())   # R summed over (b, t)
+    yx = Y * X
+    dft = C * rows * 8 * X * (2 * Y + 2 * X)        # the four DFT passes
+    other = C * (rows * X * 2                       # k-space weight
+                 + B * T * 8 * E * yx * 2)          # coil expansion, combine
+    nbytes = (8 * B * E * T * yx * 2                # x in, out
+              + 8 * B * E * C * yx                  # maps
+              + 4 * B * T * yx                      # w
+              + 8 * (Y * Y + X * X))                # DFT tables
+    return dft, other, nbytes
+
+
 def _check(x, maps, w):
     if x.ndim != 5 or maps.ndim != 5 or w.ndim != 4:
         raise ValueError("sense_normal expects x [B,E,T,Y,X], maps [B,E,C,Y,X], "

@@ -1,5 +1,6 @@
-"""Denoiser backbones. Ported so far: the RES trunk (real or complex convs)
-and the Swin trunk (SwinNet3D); every other backbone raises
+"""Denoiser backbones. Ported so far: the RES trunk (real or complex convs,
+float32 or a bfloat16 conv trunk) and the Swin trunk (SwinNet3D, float32);
+every other backbone raises
 NotImplementedError naming its ROADMAP.md queue item. The DSLR solver builds
 its 2D and 1D ResNets itself (`solvers/dslr.py`)."""
 
@@ -7,6 +8,7 @@ from typing import Optional
 
 import torch
 
+from dl_swin_gan_tpu_torch.models.layers import DTYPES
 from dl_swin_gan_tpu_torch.models.resnet import ResNet3D
 
 # MODEL_TYPE -> the ROADMAP.md "Queue 1" item that ports it
@@ -37,10 +39,16 @@ def build_denoiser(cfg, generator: Optional[torch.Generator] = None):
             "MODEL_TYPE=SWIN with CONV_BLOCK.COMPLEX=True is not "
             "implemented (nor in the JAX package): the Swin trunk runs on "
             "real/imag channels")
-    if str(cb.DTYPE) != "float32":
+    if str(cb.DTYPE) not in DTYPES:
+        raise ValueError(f"Unknown CONV_BLOCK.DTYPE: {cb.DTYPE!r}")
+    dtype = DTYPES[str(cb.DTYPE)]
+    if dtype != torch.float32 and model_type == "SWIN":
+        # the JAX package's bf16 Swin hands bf16 q/k/v to both
+        # window-attention kernels, whose counterparts are float32 only
         raise NotImplementedError(
-            f"CONV_BLOCK.DTYPE={cb.DTYPE!r}: the bf16 trunk is not ported "
-            "yet: ROADMAP.md Queue 1 item 8")
+            f"CONV_BLOCK.DTYPE={cb.DTYPE!r} with MODEL_TYPE=SWIN is not "
+            "ported yet: ROADMAP.md Queue 1 item 13 (the bf16 Swin trunk, "
+            "with bf16-I/O window-attention kernels)")
     if model_type == "SWIN":
         from dl_swin_gan_tpu_torch.models.swin import SwinNet3D
 
@@ -64,4 +72,4 @@ def build_denoiser(cfg, generator: Optional[torch.Generator] = None):
                     num_features=p.NUM_FEATURES,
                     kernel_size=cb.KERNEL_SIZE[0], act_type=cb.ACTIVATION,
                     circular_pad=cb.CIRCULAR_PAD, generator=generator,
-                    use_complex_layers=cb.COMPLEX)
+                    use_complex_layers=cb.COMPLEX, dtype=dtype)

@@ -18,6 +18,14 @@ Weights are initialised as torch's own nn.Conv default, from an explicit
 generator: U(+-1/sqrt(fan_in)) for the kernel and the bias, with fan_in the
 (complex) input channels times the kernel volume. The JAX package's init
 draws from the same distribution.
+
+`dtype` (CONV_BLOCK.DTYPE) is the element type the convolution computes in,
+with the JAX package's `conv_nd` semantics: the input and the kernel are
+cast to it, the conv runs in it (cuDNN accumulates bfloat16 in float32), the
+output is cast back to float32 and then the float32 bias is added.
+Parameters, activations, padding and cropping stay float32. The cast is
+explicit per conv, not `torch.autocast`, which would keep the activations
+between the convs in bfloat16.
 """
 
 import math
@@ -28,6 +36,19 @@ import torch.nn.functional as F
 from torch import nn
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+# CONV_BLOCK.DTYPE -> the conv's compute type
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def conv_nd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+            padding: int, dtype: torch.dtype) -> torch.Tensor:
+    """SAME conv of `weight.ndim - 2` spatial axes computed in `dtype`, then
+    the bias added in float32 (one fused call when `dtype` is float32)."""
+    conv = _CONV[weight.ndim - 2]
+    if dtype == torch.float32:
+        return conv(x, weight, bias, padding=padding)
+    out = conv(x.to(dtype), weight.to(dtype), padding=padding)
+    return out.float() + bias.reshape((-1,) + (1,) * (out.ndim - 2))
 
 
 def activation(x: torch.Tensor, act_type: str = "relu") -> torch.Tensor:
@@ -62,32 +83,33 @@ class Conv(nn.Module):
     """Real conv with SAME padding (odd kernel sizes), `ndim` spatial axes."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 generator: Optional[torch.Generator] = None, ndim: int = 3):
+                 generator: Optional[torch.Generator] = None, ndim: int = 3,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         _check_kernel_size(kernel_size)
         k = (kernel_size,) * ndim
-        self.ndim = ndim
         self.padding = kernel_size // 2
+        self.dtype = dtype
         fan_in = in_channels * kernel_size ** ndim
         self.weight = _uniform((out_channels, in_channels, *k), fan_in,
                                generator)
         self.bias = _uniform((out_channels,), fan_in, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _CONV[self.ndim](x, self.weight, self.bias,
-                                padding=self.padding)
+        return conv_nd(x, self.weight, self.bias, self.padding, self.dtype)
 
 
 class ComplexConv(nn.Module):
     """Complex conv with SAME padding as one real conv on [re, im]."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 generator: Optional[torch.Generator] = None, ndim: int = 3):
+                 generator: Optional[torch.Generator] = None, ndim: int = 3,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         _check_kernel_size(kernel_size)
         k = (kernel_size,) * ndim
-        self.ndim = ndim
         self.padding = kernel_size // 2
+        self.dtype = dtype
         fan_in = in_channels * kernel_size ** ndim
         shape = (out_channels, in_channels, *k)
         self.kernel_re = _uniform(shape, fan_in, generator)
@@ -100,8 +122,8 @@ class ComplexConv(nn.Module):
         weight = torch.cat([torch.cat([kr, -ki], dim=1),
                             torch.cat([ki, kr], dim=1)], dim=0)
         bias = torch.cat([self.bias_re, self.bias_im])
-        out = _CONV[self.ndim](torch.cat([x.real, x.imag], dim=1), weight,
-                               bias, padding=self.padding)
+        out = conv_nd(torch.cat([x.real, x.imag], dim=1), weight, bias,
+                      self.padding, self.dtype)
         c = kr.shape[0]
         return torch.complex(out[:, :c].contiguous(), out[:, c:].contiguous())
 
@@ -112,12 +134,13 @@ class ConvBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  act_type: str = "relu",
                  generator: Optional[torch.Generator] = None,
-                 is_complex: bool = False, ndim: int = 3):
+                 is_complex: bool = False, ndim: int = 3,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.act_type = act_type
         conv = ComplexConv if is_complex else Conv
         self.conv = conv(in_channels, out_channels, kernel_size, generator,
-                         ndim)
+                         ndim, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(activation(x, self.act_type))

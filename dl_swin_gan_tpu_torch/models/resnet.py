@@ -15,6 +15,9 @@ kept on purpose:
   - the first ConvBlock has no activation; the last one has one, then the
     global residual (the padded input) is added.
 
+`dtype` is the convs' compute type (CONV_BLOCK.DTYPE; see models/layers.py):
+the residuals, the padding and the activations stay float32.
+
 The module maps complex [N, E, *spatial] to itself. The real path runs on
 channels [re_0..re_{E-1}, im_0..im_{E-1}]; the complex path on the complex
 channels themselves. The DSLR solver runs a 2D net on its spatial basis
@@ -36,14 +39,15 @@ class GatedResBlock(nn.Module):
 
     def __init__(self, features: int, kernel_size: int, act_type: str,
                  generator: Optional[torch.Generator] = None,
-                 is_complex: bool = False, ndim: int = 3):
+                 is_complex: bool = False, ndim: int = 3,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.act_type = act_type
         self.is_complex = is_complex
         self.conv0 = ConvBlock(features, features, kernel_size, act_type,
-                               generator, is_complex, ndim)
+                               generator, is_complex, ndim, dtype)
         self.conv1 = ConvBlock(features, features, kernel_size, act_type,
-                               generator, is_complex, ndim)
+                               generator, is_complex, ndim, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.conv1(self.conv0(x))
@@ -59,7 +63,8 @@ class GatedResNet3D(nn.Module):
                  num_features: int = 64, kernel_size: int = 3,
                  act_type: str = "relu", circular_pad: bool = True,
                  generator: Optional[torch.Generator] = None,
-                 use_complex_layers: bool = False, ndim: int = 3):
+                 use_complex_layers: bool = False, ndim: int = 3,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.use_complex_layers = use_complex_layers
         if use_complex_layers:
@@ -69,7 +74,7 @@ class GatedResNet3D(nn.Module):
         self.pad = ((2 * num_resblocks + 2) * (kernel_size - 1) // 2
                     if circular_pad else 0)
         common = dict(generator=generator, is_complex=use_complex_layers,
-                      ndim=ndim)
+                      ndim=ndim, dtype=dtype)
         self.head = ConvBlock(in_chans, chans, kernel_size, "none", **common)
         self.blocks = nn.ModuleList(
             GatedResBlock(chans, kernel_size, act_type, **common)

@@ -24,7 +24,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from dl_swin_gan_tpu_torch.data.dataset import DataLoader, Hdf5Dataset
+from dl_swin_gan_tpu_torch.data.dataset import (
+    DataLoader, Hdf5Dataset, InMemoryDataset,
+)
 from dl_swin_gan_tpu_torch.data.preprocess import CinePreprocess
 from dl_swin_gan_tpu_torch.models.swin import set_dropout_generator
 from dl_swin_gan_tpu_torch.solvers import build_solver
@@ -89,8 +91,8 @@ class Trainer:
         if cfg.DATALOADER.DEVICE_PIPELINE:
             raise NotImplementedError(
                 "DATALOADER.DEVICE_PIPELINE is not ported to the torch "
-                "package yet: ROADMAP.md Queue 1 item 7 (the CUDA-resident "
-                "pipeline, data/device_pipeline.py)")
+                "package yet: ROADMAP.md Queue 1 item 7, the rest (the "
+                "CUDA-resident pipeline, data/device_pipeline.py)")
         if cfg.MODEL.PARAMETERS.PRETRAINED:
             raise NotImplementedError(
                 "MODEL.PARAMETERS.PRETRAINED is not ported to the torch "
@@ -178,9 +180,13 @@ class Trainer:
 
     # -- steps ---------------------------------------------------------------
     def _to_device(self, batch: dict) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(
-            self.device, non_blocking=True) for k in self.batch_keys
-            if k in batch}
+        """The step's arrays on the device: numpy arrays are copied, tensors
+        already there (a batch kept resident, as the bench keeps it) are
+        used as they are."""
+        return {k: (batch[k] if isinstance(batch[k], torch.Tensor)
+                    else torch.from_numpy(np.ascontiguousarray(batch[k]))
+                    ).to(self.device, non_blocking=True)
+                for k in self.batch_keys if k in batch}
 
     def _apply(self, model, b: Dict[str, torch.Tensor]) -> torch.Tensor:
         return model(b["kspace"], b["maps"], b["mask"],
@@ -237,24 +243,38 @@ class Trainer:
         return self._metrics(pred, b, "Validate"), pred
 
     # -- the loop --------------------------------------------------------------
+    def _dataset(self, directory, files, transform, sample_rate=1.0):
+        """An InMemoryDataset of `files` when given, else an Hdf5Dataset of
+        `directory`."""
+        if files is not None:
+            return InMemoryDataset(files, transform)
+        return Hdf5Dataset(directory, transform, sample_rate=sample_rate)
+
     def fit(self, train_dir: Optional[str] = None,
             val_dir: Optional[str] = None, max_epochs: Optional[int] = None,
-            resume: bool = False) -> TrainState:
+            resume: bool = False, train_data=None,
+            val_data=None) -> TrainState:
+        """Train for max_epochs (OPTIMIZER.MAX_EPOCHS when None) on the H5
+        files of train_dir (DATASET.TRAIN), validating on val_dir
+        (DATASET.VAL). `train_data` and `val_data`, where given, take the
+        place of the directories: files held in memory, as
+        `data.synthetic.quality_split` makes them (see InMemoryDataset)."""
         cfg = self.cfg
         train_dir = train_dir or cfg.DATASET.TRAIN[0]
         val_dir = val_dir or (cfg.DATASET.VAL[0] if cfg.DATASET.VAL else None)
         max_epochs = max_epochs or cfg.OPTIMIZER.MAX_EPOCHS
 
-        train_data = Hdf5Dataset(train_dir, self.make_preprocess(use_seed=False),
-                                 sample_rate=cfg.DATALOADER.SUBSAMPLE)
+        train_data = self._dataset(
+            train_dir, train_data, self.make_preprocess(use_seed=False),
+            sample_rate=cfg.DATALOADER.SUBSAMPLE)
         train_loader = DataLoader(train_data,
                                   batch_size=cfg.DATALOADER.TRAIN_BATCH_SIZE,
                                   num_workers=cfg.DATALOADER.NUM_WORKERS,
                                   prefetch=cfg.DATALOADER.PREFETCH,
                                   shuffle=True, seed=cfg.SEED)
         val_loader = None
-        if val_dir:
-            val_data = Hdf5Dataset(val_dir, self.make_preprocess(
+        if val_dir or val_data is not None:
+            val_data = self._dataset(val_dir, val_data, self.make_preprocess(
                 aug_node=cfg.AUG_VAL, use_seed=True))
             val_loader = DataLoader(val_data,
                                     batch_size=cfg.DATALOADER.VAL_BATCH_SIZE,

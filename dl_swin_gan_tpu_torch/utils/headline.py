@@ -14,6 +14,11 @@ at 1e-4, per-epoch StepLR, batch 1); `chip_smoke.py` serves and trains it.
 (dslr-cg-v1, 5 unrolls, 10 CG steps per factor solve, 8 basis vectors per
 16x16 block, 2D and 1D complex ResNets of 2 resblocks x 64 features) on the
 same slice; `chip_smoke.py` trains and validates it.
+
+`configs/quality/resnet.yaml` and `resnet_bf16.yaml`: the example config's
+network (f32, or with a bfloat16 conv trunk) trained on the synthetic quality
+set (18x156x96 slices, `data/synthetic.quality_split`) for 40 epochs and
+scored at 12x; `scripts/quality_row.py` trains and scores them.
 """
 
 
@@ -125,4 +130,59 @@ def dslr_cfg(output_dir: str = "runs/dslr"):
     cfg.SEED = 1000
     cfg.VERSION = 1
     cfg.OUTPUT_DIR = output_dir
+    return cfg
+
+
+def quality_cfg(dtype: str = "float32"):
+    """`configs/quality/resnet.yaml` (float32) or `resnet_bf16.yaml`
+    (bfloat16) built in code (no YAML): every field they set, but one.
+    DATALOADER.DEVICE_PIPELINE is False: the CUDA-resident pipeline is not
+    ported yet (ROADMAP.md Queue 1 item 7, the rest), so the host loader
+    feeds the trainer."""
+    from dl_swin_gan_tpu_torch.config import get_cfg
+
+    if dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"quality_cfg: dtype {dtype!r}")
+    cfg = get_cfg()
+    cfg.MODEL.MODEL_TYPE = "RES"
+    cfg.MODEL.META_ARCHITECTURE = "dlespirit"
+    p = cfg.MODEL.PARAMETERS
+    p.NUM_UNROLLS = 5
+    p.NUM_RESBLOCKS = 2
+    p.NUM_FEATURES = 64
+    p.NUM_EMAPS = 2
+    p.SHARE_WEIGHTS = False
+    p.FIX_STEP_SIZE = True
+    p.SLWIN_INIT = True
+    p.GRAD_CHECKPOINT = False
+    p.CONV_BLOCK.DTYPE = dtype
+    p.CONV_BLOCK.ACTIVATION = "relu"
+    p.CONV_BLOCK.NORM = "none"
+    p.CONV_BLOCK.CIRCULAR_PAD = True
+    p.CONV_BLOCK.COMPLEX = False
+    cfg.MODEL.RECON_LOSS.NAME = "complex_l1"
+    cfg.MODEL.RECON_LOSS.RENORMALIZE_DATA = False
+    cfg.DATASET.TRAIN = ("runs/quality/data/train",)
+    cfg.DATASET.VAL = ("runs/quality/data/validate",)
+    cfg.DATALOADER.NUM_WORKERS = 8
+    cfg.DATALOADER.DEVICE_PIPELINE = False
+    cfg.DATALOADER.TRAIN_BATCH_SIZE = 1
+    cfg.DATALOADER.VAL_BATCH_SIZE = 1
+    for aug in (cfg.AUG_TRAIN, cfg.AUG_VAL):
+        aug.CROP_READOUT = 64
+        aug.UNDERSAMPLE.NAME = "VDktMaskFunc"
+        aug.UNDERSAMPLE.ACCELERATIONS = (10, 15)
+        aug.UNDERSAMPLE.PARTIAL_KX = 0.25
+        aug.UNDERSAMPLE.PARTIAL_KY = 0.25
+    cfg.OPTIMIZER.NAME = "Adam"
+    cfg.OPTIMIZER.MAX_EPOCHS = 40
+    cfg.OPTIMIZER.GRAD_ACCUM_ITERS = 1
+    cfg.OPTIMIZER.ADAM.LR = 0.0001
+    cfg.EVAL.RUN_EVERY_N_EPOCHS = 10
+    cfg.EVAL.CKPT_EVERY_N_STEPS = 96
+    cfg.LOGGER.LOG_METRICS_EVERY_N_STEPS = 32
+    cfg.LOGGER.LOG_IMAGES_EVERY_N_STEPS = 0
+    cfg.SEED = 1000
+    cfg.OUTPUT_DIR = "runs/resq2" if dtype == "float32" else "runs/resbf16"
+    cfg.VERSION = 1
     return cfg

@@ -263,7 +263,7 @@ def test_build_denoiser_builds_swinnet():
 
 @pytest.mark.parametrize("change,match", [
     (("MODEL.PARAMETERS.CONV_BLOCK.COMPLEX", True), "real/imag"),
-    (("MODEL.PARAMETERS.CONV_BLOCK.DTYPE", "bfloat16"), "Queue 1 item 8"),
+    (("MODEL.PARAMETERS.CONV_BLOCK.DTYPE", "bfloat16"), "Queue 1 item 13"),
 ])
 def test_swin_unsupported_options_raise(change, match):
     cfg = _toy(swin_cfg())

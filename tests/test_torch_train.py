@@ -349,7 +349,7 @@ def test_trainer_needs_cuda_or_explicit_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("change,match", [
-    (("DATALOADER.DEVICE_PIPELINE", True), "Queue 1 item 7"),
+    (("DATALOADER.DEVICE_PIPELINE", True), "Queue 1 item 7, the rest"),
     (("MODEL.PARAMETERS.PRETRAINED", "w.pth"), "swin_import"),
     (("MODEL.STRATEGY", "fsdp"), "Queue 1 item 12"),
     (("MODEL.RECON_LOSS.NAME", "complex_vggloss"), "perceptual"),
