@@ -66,7 +66,27 @@ then exits non-zero and prints no result:
               slices served with the bfloat16 trunk and scored by the
               port's evaluator (SSIM, PSNR) against their 1x adjoint; a CFL
               round trip through reconstruct_cfl against Reconstructor
-  9. result   one JSON line of kernels, then the last line
+  9. se       configs/config_se.yaml (5 unrolls x 1 resblock x 384
+              features, SE gate of hidden width 16) served like main (5
+              SENSE-normal launches per batch), the CPU comparison at 1
+              unroll; 1 warm-up and 3 timed Trainer steps at its readout
+              crop of 48 (9 SENSE-normal launches per step), one step at 1
+              unroll held against the port's CPU step; the CBAM trunk served
+              at configs/quality/cbam.yaml's widths (1 x 96 features)
+ 10. modl     the example config with META_ARCHITECTURE modl (the hqs rule,
+              10 CG steps per unroll) served like main: 5 x (1 + 10) = 55
+              SENSE-normal launches per batch, and the SENSE kernel's share
+              of a slice's device time (printed for every served path)
+ 11. gan      configs/config_swingan.yaml through GANTrainer: the Swin
+              generator (remat, stochastic depth) and the PatchGAN
+              discriminator, 1 warm-up and 3 timed steps at batch 1 (60
+              window-attention, 30 backward and 9 SENSE-normal launches per
+              step, one generator forward), the discriminator, adversarial
+              and reconstruction losses, one step's device time by group
+              with the discriminator as its own; val_step and the GAN
+              checkpoint served through Reconstructor; one step at 1 unroll,
+              stochastic depth off, held against the port's CPU step
+ 12. result   one JSON line of kernels, then the last line
               {"ok": true, "device": {...}}
 
 Needs one CUDA device, nvcc and this checkout; no network, no JAX.
@@ -107,10 +127,14 @@ from dl_swin_gan_tpu_torch.models.swin import compute_shift_mask
 from dl_swin_gan_tpu_torch.ops.llr import BlockOp
 from dl_swin_gan_tpu_torch.ops.masks import VDktMaskFunc
 from dl_swin_gan_tpu_torch.ops.sense import _adjoint_impl, _forward_impl
-from dl_swin_gan_tpu_torch.train import CheckpointManager, DSLRTrainer, Trainer
+from dl_swin_gan_tpu_torch.models.swin import DropPath
+from dl_swin_gan_tpu_torch.train import (
+    CheckpointManager, DSLRTrainer, GANTrainer, Trainer,
+)
 from dl_swin_gan_tpu_torch.utils.device import use_ieee_fp32
 from dl_swin_gan_tpu_torch.utils.headline import (
-    dslr_cfg, headline_cfg, headline_shape, swin_cfg,
+    dslr_cfg, headline_cfg, headline_shape, quality_cfg, se_cfg, swin_cfg,
+    swingan_cfg,
 )
 
 ACCEL = 12
@@ -158,6 +182,15 @@ HEADLINE_STEPS = 3
 BF16_LOSS_REL_TOL = 3e-5
 BF16_GRAD_REL_L2_TOL = 5e-3
 BF16_REL_L2_TOL = 1e-2
+# the se phase: config_se.yaml's 384 features cost about 5 TFLOP per unroll
+# on the CPU, so the CPU comparisons run 1 unroll at full width (the H100's
+# host took 8.1 s to serve and 18.5 s to train it); SE_TRAIN_STEPS timed
+# steps
+SE_CPU_UNROLLS = 1
+SE_TRAIN_STEPS = 3
+# the gan phase: timed steps, and the losses it reads
+GAN_STEPS = 3
+GAN_KEYS = ("Train/disc_loss", "Train/adv_loss", "Train/complex_l1")
 # reconstruct_cfl vs Reconstructor on the same scanner arrays: the same
 # inputs through the same solver
 CFL_REL_L2_TOL = 1e-6
@@ -707,6 +740,7 @@ def _time_recon(recon, examples, batch_size, repeats):
     return out, float(np.median(times))
 
 
+SENSE_GROUP = "SENSE coil passes (sense_normal; llr_normal's middle)"
 # kernel-name fragments -> the layer they belong to, first match wins (the
 # backward's kernels before the forward's); the conv group also takes the
 # Swin trunk's linear layers (cuBLAS GEMMs) and, in training, their weight
@@ -717,7 +751,7 @@ _GROUPS = (("window attention backward kernel", ("attn_bwd",)),
            ("Adam update", ("adam", "multi_tensor")),
            ("LLR combine/extract (llr_normal kernel)",
             ("llr_combine", "llr_extract")),
-           ("SENSE coil passes (sense_normal; llr_normal's middle)",
+           (SENSE_GROUP,
             ("coil_normal", "coil_combine")),
            ("FFTs (cuFFT's A^H y, cuDNN's FFT convs)", ("fft",)),
            ("copies host<->device", ("memcpy",)),
@@ -725,9 +759,43 @@ _GROUPS = (("window attention backward kernel", ("attn_bwd",)),
                                    "wgrad", "dgrad")))
 
 
-def profile_device(label, fn):
+def _range_kernels(prof, name):
+    """The device kernels launched by the ops inside the record_function
+    ranges called `name`, and by their autograd backward (linked by the
+    forward ops' sequence numbers): [(kernel name, device ms)]."""
+    events = prof.events()
+    seqs, picked = set(), []
+    for e in events:
+        if e.name == name:
+            stack = [e]
+            while stack:
+                c = stack.pop()
+                stack.extend(c.cpu_children)
+                picked.append(c)
+                if c.sequence_nr >= 0:
+                    seqs.add(c.sequence_nr)
+    for e in events:
+        if (e.name.startswith("autograd::engine::evaluate_function")
+                and e.sequence_nr in seqs):
+            stack = [e]
+            while stack:
+                c = stack.pop()
+                stack.extend(c.cpu_children)
+                picked.append(c)
+    return [(k.name, k.duration / 1e3) for e in picked for k in e.kernels]
+
+
+def _group(name):
+    name = name.lower()
+    return next((g for g, keys in _GROUPS if any(k in name for k in keys)),
+                "other (elementwise)")
+
+
+def profile_device(label, fn, split=None):
     """Device time of fn() by kernel group, from torch.profiler, against the
-    host-clock time of the profiled run."""
+    host-clock time of the profiled run; returns ({group: ms}, busy ms).
+    With `split`, the kernels of the record_function ranges of that name
+    (and of their backward) form a group of their own."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -739,14 +807,19 @@ def profile_device(label, fn):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     groups = defaultdict(float)
     for e in kernels:
-        name = e.key.lower()
-        group = next((g for g, keys in _GROUPS
-                      if any(k in name for k in keys)), "other (elementwise)")
-        groups[group] += e.self_device_time_total / 1e3
+        groups[_group(e.key)] += e.self_device_time_total / 1e3
     busy_ms = sum(groups.values())
     if busy_ms == 0.0:
         print("profile: the profiler saw no device time; breakdown not measured")
-        return
+        return {}, 0.0
+    if split is not None:
+        own = _range_kernels(prof, split)
+        for name, ms in own:
+            groups[_group(name)] -= ms
+        groups[split] = sum(ms for _, ms in own)
+        if not own:
+            print(f"profile: no kernel was attributed to {split}; its group "
+                  "not measured")
     parts = ", ".join(f"{g} {ms:.3f}" for g, ms in
                       sorted(groups.items(), key=lambda kv: -kv[1]))
     print(f"profile: {label}, profiled: host {wall_ms:.2f} ms, "
@@ -756,13 +829,21 @@ def profile_device(label, fn):
     for e in top:
         print(f"profile:   {e.self_device_time_total / 1e3:8.3f} ms "
               f"x{e.count:<4d} {e.key[:90]}")
+    return dict(groups), busy_ms
 
 
-def run_path(tag, cfg, expected, cpu_tol=CPU_REL_L2_TOL):
+def run_path(tag, cfg, expected, cpu_tol=CPU_REL_L2_TOL, cpu_unrolls=None,
+             batch_invariant=True):
     """Drive one reconstruction path through Reconstructor on the card and
     check it. `expected` maps each counter of COUNTERS to its launches per
     batch; returns ({counter: {batch size: launches}}, the raw slices, their
-    examples, the batch-1 outputs, the weights)."""
+    examples, the batch-1 outputs, the weights, one slice's device ms by
+    kernel group). The CPU comparison runs the config's unrolls, or
+    `cpu_unrolls` of them (the same config cut, on both devices). A path
+    whose output depends on the batch (`batch_invariant` False: the hqs
+    rule's CG takes its step sizes from inner products over the whole
+    batch, in the JAX package too) prints batch 1 against batch 4 instead
+    of holding them to 1e-4."""
     cfg.freeze()
     T, Y, X, C, E = headline_shape()
     nunroll = cfg.MODEL.PARAMETERS.NUM_UNROLLS
@@ -798,7 +879,8 @@ def run_path(tag, cfg, expected, cpu_tol=CPU_REL_L2_TOL):
         check(np.isfinite(out).all(), f"non-finite output at batch {bs}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     rel_b = np.linalg.norm(outs[1] - outs[4]) / np.linalg.norm(outs[1])
-    check(rel_b <= 1e-4, f"batch 1 vs batch 4 outputs differ: {rel_b:.3e}")
+    if batch_invariant:
+        check(rel_b <= 1e-4, f"batch 1 vs batch 4 outputs differ: {rel_b:.3e}")
 
     for bs in (1, 4):
         _, sec = _time_recon(recon, examples, bs, repeats=3)
@@ -819,16 +901,28 @@ def run_path(tag, cfg, expected, cpu_tol=CPU_REL_L2_TOL):
     print(f"{tag}: denoiser trunk {trunk_ms:.3f} ms per unroll per slice "
           f"(x{nunroll} unrolls)")
     batch = next(batched(examples[:1], 1))
-    profile_device(f"{tag}: one slice, batch 1", lambda: recon(batch))
+    groups = profile_device(f"{tag}: one slice, batch 1",
+                            lambda: recon(batch))
+    if groups[1] > 0:
+        sense_ms = groups[0].get(SENSE_GROUP, 0.0)
+        print(f"{tag}: SENSE normal kernel {sense_ms:.3f} ms of one slice's "
+              f"{groups[1]:.3f} ms device time ({sense_ms / groups[1]:.2%}), "
+              f"{expected.get('sense_normal', 0)} launches")
 
+    gpu_out, cut_cfg, cut_params = outs[1][:1], cfg, params
+    if cpu_unrolls is not None:
+        cut_cfg = _cut(cfg, cpu_unrolls)
+        cut_params = init_params(cut_cfg, SEED)
+        gpu_out = Reconstructor(cut_cfg, cut_params)(batch)
     t0 = time.perf_counter()
-    cpu = Reconstructor(cfg, params, device="cpu")(next(batched(examples[:1], 1)))
+    cpu = Reconstructor(cut_cfg, cut_params, device="cpu")(batch)
     cpu_s = time.perf_counter() - t0
-    rel_cpu = np.linalg.norm(outs[1][:1] - cpu) / np.linalg.norm(cpu)
-    print(f"{tag}: slice 0 vs the port's CPU path ({nunroll} unrolls, "
+    rel_cpu = np.linalg.norm(gpu_out - cpu) / np.linalg.norm(cpu)
+    print(f"{tag}: slice 0 vs the port's CPU path "
+          f"({cut_cfg.MODEL.PARAMETERS.NUM_UNROLLS} unrolls, "
           f"{cpu_s:.1f} s on the CPU): rel L2 {rel_cpu:.3e}")
     check(rel_cpu <= cpu_tol, f"GPU vs CPU rel L2 {rel_cpu:.3e} > {cpu_tol}")
-    return counts, slices, examples, outs[1], params
+    return counts, slices, examples, outs[1], params, groups
 
 
 def phase_main():
@@ -896,55 +990,12 @@ def phase_train():
     """config_swin.yaml's training path through Trainer on the card."""
     cfg = swin_cfg(output_dir=str(RUNS))
     T, Y, X, C, E = headline_shape()
-    t0 = time.perf_counter()
-    slices = [make_cine_example(T=T, Y=Y, X=RAW_X, C=C, E=E, seed=SEED + s)
-              for s in range(TRAIN_STEPS + 1)]
     trainer = Trainer(cfg)                      # the GPU: no device given
     check(trainer.device.type == "cuda", f"Trainer on {trainer.device}")
-    loader = DataLoader(_InMemory(slices, trainer.make_preprocess(
-        use_seed=True)), batch_size=cfg.DATALOADER.TRAIN_BATCH_SIZE,
-        num_workers=1, shuffle=True, seed=cfg.SEED)
-    trainer.set_steps_per_epoch(len(loader))
-    batches = list(loader)
-    host_s = time.perf_counter() - t0
-    check(batches[0]["kspace"].shape == (1, C, T, Y, X),
-          f"batch k-space {batches[0]['kspace'].shape}")
-    print(f"train: {len(batches)} slices [{C},{T},{Y},{RAW_X}] E={E} through "
-          f"CinePreprocess (readout cropped to {X}, VDkt "
-          f"{tuple(cfg.AUG_TRAIN.UNDERSAMPLE.ACCELERATIONS)}) and DataLoader; "
-          f"host data {host_s:.2f} s")
-
-    params = init_params(cfg, SEED)
-    state = trainer.init_state(state_dict=params)
-    trainer.train_step(state, batches[0])       # warm-up (cuDNN, allocator)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
-    expected = _train_launches(cfg)
-    zero_counts()
-    times, losses = [], []
-    for b in batches[1:]:
-        t0 = time.perf_counter()
-        metrics = trainer.train_step(state, b)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses.append(float(metrics["Train/complex_l1"]))
-    steps = len(times)
-    counts = {name: {"steps": n} for name, n in read_counts().items()}
-    for name, n in read_counts().items():
-        check(n == expected.get(name, 0) * steps,
-              f"train: {n} {name} launches in {steps} steps, expected "
-              f"{expected.get(name, 0)} per step")
-    check(np.isfinite(losses).all(), f"train losses {losses}")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"train: {np.median(times) * 1e3:.2f} ms per train step (median of "
-          f"{steps}; {', '.join(f'{t * 1e3:.2f}' for t in times)}), batch "
-          f"{cfg.DATALOADER.TRAIN_BATCH_SIZE}, peak device memory "
-          f"{peak_gb:.2f} GB; complex_l1 per step "
-          f"{', '.join(f'{x:.6f}' for x in losses)}; launches per step "
-          + ", ".join(f"{counts[n]['steps'] // steps} {n}" for n in expected))
-    profile_device("train: one train step",
-                   lambda: trainer.train_step(state, batches[1]))
+    batches = _train_batches("train", cfg, trainer, TRAIN_STEPS + 1)
+    state = trainer.init_state(state_dict=init_params(cfg, SEED))
+    counts = _timed_steps("train", trainer, state, batches,
+                          _train_launches(cfg), ("Train/complex_l1",))[0]
 
     metrics, pred = trainer.val_step(state, batches[0])
     check(pred.shape == (1, E, T, Y, X) and torch.isfinite(
@@ -967,22 +1018,8 @@ def phase_train():
 
     # one step against the port's CPU path, cut to 1 unroll at full width:
     # the same weights, batch and dropout seed (stochastic depth on)
-    cut = swin_cfg(output_dir=str(RUNS))
-    cut.MODEL.PARAMETERS.NUM_UNROLLS = 1
-    cut_params = init_params(cut, SEED)
-    gpu = _step_and_grads(cut, cut_params, batches[0], "cuda")
-    cpu = _step_and_grads(cut, cut_params, batches[0], "cpu")
-    rel_loss = abs(gpu[0] - cpu[0]) / abs(cpu[0])
-    rel_grad = ((gpu[1] - cpu[1]).norm() / cpu[1].norm()).item()
-    print(f"train: one step at 1 unroll vs the port's CPU path ({cpu[2]:.1f} "
-          f"s on the CPU): loss {gpu[0]:.6f} vs {cpu[0]:.6f} (rel "
-          f"{rel_loss:.3e}), gradient rel L2 {rel_grad:.3e} over "
-          f"{cpu[1].numel()} values")
-    check(rel_loss <= TRAIN_LOSS_REL_TOL,
-          f"GPU vs CPU train loss rel {rel_loss:.3e} > {TRAIN_LOSS_REL_TOL}")
-    check(rel_grad <= TRAIN_GRAD_REL_L2_TOL,
-          f"GPU vs CPU gradient rel L2 {rel_grad:.3e} > "
-          f"{TRAIN_GRAD_REL_L2_TOL}")
+    cut = _cut(cfg, 1)
+    _cpu_step_check("train", cut, init_params(cut, SEED), batches[0])
     shutil.rmtree(RUNS, ignore_errors=True)
     return counts
 
@@ -1007,18 +1044,7 @@ def _dslr_compare_cpu(batch):
     cut = dslr_cfg(output_dir=str(RUNS))
     cut.MODEL.PARAMETERS.NUM_UNROLLS = DSLR_CUT_UNROLLS
     params = init_params(cut, SEED)
-    gpu = _step_and_grads(cut, params, batch, "cuda", DSLRTrainer)
-    cpu = _step_and_grads(cut, params, batch, "cpu", DSLRTrainer)
-    rel_loss = abs(gpu[0] - cpu[0]) / abs(cpu[0])
-    rel_grad = ((gpu[1] - cpu[1]).norm() / cpu[1].norm()).item()
-    print(f"dslr: one step at {DSLR_CUT_UNROLLS} unrolls vs the port's CPU "
-          f"path ({cpu[2]:.1f} s on the CPU): loss {gpu[0]:.6f} vs "
-          f"{cpu[0]:.6f} (rel {rel_loss:.3e}), gradient rel L2 "
-          f"{rel_grad:.3e} over {cpu[1].numel()} values")
-    check(rel_loss <= TRAIN_LOSS_REL_TOL,
-          f"dslr GPU vs CPU train loss rel {rel_loss:.3e}")
-    check(rel_grad <= TRAIN_GRAD_REL_L2_TOL,
-          f"dslr GPU vs CPU gradient rel L2 {rel_grad:.3e}")
+    _cpu_step_check("dslr", cut, params, batch, DSLRTrainer)
 
     preds = {}
     for device in ("cuda", "cpu"):
@@ -1069,17 +1095,9 @@ def phase_dslr():
     cfg = dslr_cfg(output_dir=str(RUNS))
     p = cfg.MODEL.PARAMETERS
     T, Y, X, C, E = headline_shape()
-    t0 = time.perf_counter()
-    slices = [make_cine_example(T=T, Y=Y, X=RAW_X, C=C, E=E, seed=SEED + s)
-              for s in range(TRAIN_STEPS + 1)]
     trainer = DSLRTrainer(cfg)                  # the GPU: no device given
     check(trainer.device.type == "cuda", f"DSLRTrainer on {trainer.device}")
-    loader = DataLoader(_InMemory(slices, trainer.make_preprocess(
-        use_seed=True)), batch_size=cfg.DATALOADER.TRAIN_BATCH_SIZE,
-        num_workers=1, shuffle=True, seed=cfg.SEED)
-    trainer.set_steps_per_epoch(len(loader))
-    batches = list(loader)
-    host_s = time.perf_counter() - t0
+    batches = _train_batches("dslr", cfg, trainer, TRAIN_STEPS + 1)
     op = BlockOp(p.DSLR.BLOCK_SIZE, (1, E, T, Y, X), xp=np)
     r = p.DSLR.NUM_BASIS
     check(batches[0]["L_init"].shape == (1, op.num_blocks,
@@ -1087,45 +1105,15 @@ def phase_dslr():
           and batches[0]["R_init"].shape == (1, op.num_blocks, T, r),
           f"L_init {batches[0]['L_init'].shape}, R_init "
           f"{batches[0]['R_init'].shape}")
-    print(f"dslr: {len(batches)} slices [{C},{T},{Y},{RAW_X}] E={E} through "
-          f"CinePreprocess(lr_decom=True) (readout cropped to {X}, VDkt "
-          f"{tuple(cfg.AUG_TRAIN.UNDERSAMPLE.ACCELERATIONS)}) and DataLoader; "
-          f"{op.num_blocks} blocks of {p.DSLR.BLOCK_SIZE}x{p.DSLR.BLOCK_SIZE},"
-          f" L {list(batches[0]['L_init'].shape[1:])}, R "
-          f"{list(batches[0]['R_init'].shape[1:])}; host data {host_s:.2f} s")
+    print(f"dslr: {op.num_blocks} blocks of {p.DSLR.BLOCK_SIZE}x"
+          f"{p.DSLR.BLOCK_SIZE}, L {list(batches[0]['L_init'].shape[1:])}, "
+          f"R {list(batches[0]['R_init'].shape[1:])}")
 
-    params = init_params(cfg, SEED)
-    state = trainer.init_state(state_dict=params)
-    trainer.train_step(state, batches[0])       # warm-up (cuDNN, allocator)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
+    state = trainer.init_state(state_dict=init_params(cfg, SEED))
     expected = _dslr_launches(cfg)
-    zero_counts()
-    times, losses = [], []
-    for b in batches[1:]:
-        t0 = time.perf_counter()
-        metrics = trainer.train_step(state, b)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses.append(float(metrics["Train/complex_l1"]))
-    steps = len(times)
-    counts = {name: {"train steps": n} for name, n in read_counts().items()}
-    for name, n in read_counts().items():
-        check(n == expected.get(name, 0) * steps,
-              f"dslr: {n} {name} launches in {steps} steps, expected "
-              f"{expected.get(name, 0)} per step")
-    check(np.isfinite(losses).all(), f"dslr losses {losses}")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"dslr: {np.median(times) * 1e3:.2f} ms per train step (median of "
-          f"{steps}; {', '.join(f'{t * 1e3:.2f}' for t in times)}), batch "
-          f"{cfg.DATALOADER.TRAIN_BATCH_SIZE}, peak device memory "
-          f"{peak_gb:.2f} GB; complex_l1 per step "
-          f"{', '.join(f'{x:.6f}' for x in losses)}; launches per step "
-          + ", ".join(f"{counts[n]['train steps'] // steps} {n}"
-                      for n in expected))
-    profile_device("dslr: one train step",
-                   lambda: trainer.train_step(state, batches[1]))
+    counts = _timed_steps("dslr", trainer, state, batches, expected,
+                          ("Train/complex_l1",))[0]
+    counts = {name: {"train steps": c["steps"]} for name, c in counts.items()}
 
     val_times = []
     for _ in range(3):
@@ -1240,7 +1228,7 @@ def headline_serve(counts):
     cfg = headline_cfg()
     cfg.MODEL.PARAMETERS.CONV_BLOCK.DTYPE = "bfloat16"
     nunroll = cfg.MODEL.PARAMETERS.NUM_UNROLLS
-    serve_counts, slices, examples, out, params = run_path(
+    serve_counts, slices, examples, out, params, _ = run_path(
         "headline bf16 serving", cfg, {"sense_normal": nunroll,
                                        "window_attention": 0,
                                        "window_attention_bwd": 0},
@@ -1304,6 +1292,244 @@ def phase_headline():
     return counts
 
 
+def _train_batches(tag, cfg, trainer, n):
+    """n full-width slices (readout RAW_X, cropped by the config) through the
+    trainer's preprocess and DataLoader in memory, at batch 1."""
+    T, Y, X, C, E = headline_shape()
+    t0 = time.perf_counter()
+    slices = [make_cine_example(T=T, Y=Y, X=RAW_X, C=C, E=E, seed=SEED + s)
+              for s in range(n)]
+    loader = DataLoader(_InMemory(slices, trainer.make_preprocess(
+        use_seed=True)), batch_size=cfg.DATALOADER.TRAIN_BATCH_SIZE,
+        num_workers=1, shuffle=True, seed=cfg.SEED)
+    trainer.set_steps_per_epoch(len(loader))
+    batches = list(loader)
+    crop = cfg.AUG_TRAIN.CROP_READOUT
+    check(batches[0]["kspace"].shape == (1, C, T, Y, crop),
+          f"{tag}: batch k-space {batches[0]['kspace'].shape}")
+    print(f"{tag}: {n} slices [{C},{T},{Y},{RAW_X}] E={E} through "
+          f"CinePreprocess (readout cropped to {crop}) and DataLoader; host "
+          f"data {time.perf_counter() - t0:.2f} s")
+    return batches
+
+
+def _timed_steps(tag, trainer, state, batches, expected, keys,
+                 split=None):
+    """One warm-up step on batches[0], then one timed step on each later
+    batch: the launches per step checked against `expected`, the metrics
+    `keys` per step, ms per step, peak memory; then one profiled step.
+    Returns ({counter: {"steps": launches}}, median ms, {key: [values]},
+    the profile's (groups, busy ms))."""
+    trainer.train_step(state, batches[0])       # warm-up (cuDNN, allocator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    times, values = [], {k: [] for k in keys}
+    for b in batches[1:]:
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(state, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        for k in keys:
+            values[k].append(float(metrics[k]))
+    steps = len(times)
+    counts = {name: {"steps": n} for name, n in read_counts().items()}
+    for name, n in read_counts().items():
+        check(n == expected.get(name, 0) * steps,
+              f"{tag}: {n} {name} launches in {steps} steps, expected "
+              f"{expected.get(name, 0)} per step")
+    for k, v in values.items():
+        check(np.isfinite(v).all(), f"{tag}: {k} per step {v}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms = float(np.median(times)) * 1e3
+    print(f"{tag}: {ms:.2f} ms per train step (median of {steps}; "
+          f"{', '.join(f'{t * 1e3:.2f}' for t in times)}), batch 1, peak "
+          f"device memory {peak_gb:.2f} GB; "
+          + "; ".join(f"{k.split('/')[-1]} per step "
+                      + ", ".join(f"{x:.6f}" for x in v)
+                      for k, v in values.items())
+          + "; launches per step "
+          + ", ".join(f"{counts[n]['steps'] // steps} {n}" for n in expected))
+    groups = profile_device(f"{tag}: one train step",
+                            lambda: trainer.train_step(state, batches[1]),
+                            split=split)
+    return counts, ms, values, groups
+
+
+def _cpu_step_check(tag, cut, params, batch, trainer_cls=Trainer):
+    """One train step of the cut config on the card and on the port's CPU
+    path from the same weights and batch, held to the train limits."""
+    gpu = _step_and_grads(cut, params, batch, "cuda", trainer_cls)
+    cpu = _step_and_grads(cut, params, batch, "cpu", trainer_cls)
+    rel_loss = abs(gpu[0] - cpu[0]) / abs(cpu[0])
+    rel_grad = ((gpu[1] - cpu[1]).norm() / cpu[1].norm()).item()
+    T = batch["kspace"].shape[2]
+    print(f"{tag}: one step at {cut.MODEL.PARAMETERS.NUM_UNROLLS} unroll(s), "
+          f"{T} frames, vs the port's CPU path ({cpu[2]:.1f} s on the CPU): "
+          f"loss {gpu[0]:.6f} vs {cpu[0]:.6f} (rel {rel_loss:.3e}), gradient "
+          f"rel L2 {rel_grad:.3e} over {cpu[1].numel()} values")
+    check(rel_loss <= TRAIN_LOSS_REL_TOL,
+          f"{tag} GPU vs CPU train loss rel {rel_loss:.3e}")
+    check(rel_grad <= TRAIN_GRAD_REL_L2_TOL,
+          f"{tag} GPU vs CPU gradient rel L2 {rel_grad:.3e}")
+
+
+def _cut(cfg, unrolls):
+    """A frozen copy of cfg with `unrolls` unrolls."""
+    cut = cfg.clone()
+    cut.defrost()
+    cut.MODEL.PARAMETERS.NUM_UNROLLS = unrolls
+    cut.freeze()
+    return cut
+
+
+def _serving(nunroll, sense_per_unroll=1):
+    return {"sense_normal": nunroll * sense_per_unroll,
+            "window_attention": 0, "window_attention_bwd": 0}
+
+
+def phase_se():
+    """config_se.yaml (the SE trunk, 384 features, RR 16) served and trained
+    through Reconstructor and Trainer; the CBAM trunk served at
+    configs/quality/cbam.yaml's widths."""
+    cfg = se_cfg(output_dir=str(RUNS))
+    nunroll = cfg.MODEL.PARAMETERS.NUM_UNROLLS
+    counts = {name: {} for name in COUNTERS}
+    served = run_path("se", cfg, _serving(nunroll),
+                      cpu_unrolls=SE_CPU_UNROLLS)[0]
+    for name, by_bs in served.items():
+        for bs, n in by_bs.items():
+            counts[name][f"serve batch {bs}"] = n
+
+    train_cfg = se_cfg(output_dir=str(RUNS))
+    train_cfg.freeze()
+    trainer = Trainer(train_cfg)                # the GPU: no device given
+    check(trainer.device.type == "cuda", f"Trainer on {trainer.device}")
+    batches = _train_batches("se train", train_cfg, trainer,
+                             SE_TRAIN_STEPS + 1)
+    state = trainer.init_state(state_dict=init_params(train_cfg, SEED))
+    trained, _, _, _ = _timed_steps(
+        "se train", trainer, state, batches,
+        {"sense_normal": 2 * nunroll - 1}, ("Train/complex_l1",))
+    for name, c in trained.items():
+        counts[name]["train steps"] = c["steps"]
+    del trainer, state
+    torch.cuda.empty_cache()
+    cut = _cut(train_cfg, SE_CPU_UNROLLS)
+    _cpu_step_check("se train", cut, init_params(cut, SEED), batches[0])
+
+    cbam = quality_cfg(model="cbam")
+    cbam.OUTPUT_DIR = str(RUNS)
+    served = run_path("cbam", cbam,
+                      _serving(cbam.MODEL.PARAMETERS.NUM_UNROLLS))[0]
+    for name, by_bs in served.items():
+        for bs, n in by_bs.items():
+            counts[name][f"cbam serve batch {bs}"] = n
+    shutil.rmtree(RUNS, ignore_errors=True)
+    return counts
+
+
+def phase_modl():
+    """The example config with the hqs (MoDL) rule: each unroll's CG solve
+    applies the SENSE normal op once for its residual and once per CG
+    step; the SENSE kernel's share of a slice's device time is printed."""
+    cfg = headline_cfg()
+    cfg.MODEL.META_ARCHITECTURE = "modl"
+    p = cfg.MODEL.PARAMETERS
+    per_unroll = 1 + p.MODL.NUM_CG_STEPS
+    served = run_path("modl", cfg, _serving(p.NUM_UNROLLS, per_unroll),
+                      batch_invariant=False)[0]
+    return {name: {f"serve batch {bs}": n for bs, n in by_bs.items()}
+            for name, by_bs in served.items()}
+
+
+def _gan_step(cfg, g_params, batch, device):
+    """(losses, generator gradient, discriminator gradient, seconds) of one
+    GANTrainer step from the seeded weights, stochastic depth off."""
+    trainer = GANTrainer(cfg, device=device)
+    state = trainer.init_state(state_dict=g_params)
+    for m in state.model.modules():
+        if isinstance(m, DropPath):
+            m.rate = 0.0
+    t0 = time.perf_counter()
+    metrics = trainer.train_step(state, batch)
+    seconds = time.perf_counter() - t0
+    losses = {k: float(metrics[k]) for k in GAN_KEYS}
+
+    def flat(module):
+        return torch.cat([p.grad.flatten().cpu() for p in module.parameters()
+                          if p.grad is not None])
+
+    return losses, flat(state.model), flat(state.disc), seconds
+
+
+def phase_gan():
+    """config_swingan.yaml through GANTrainer on the card: the Swin
+    generator (config_swin's, remat and stochastic depth on) and the
+    PatchGAN discriminator, one warm-up and GAN_STEPS timed steps at batch 1,
+    the discriminator's device time as its own group; val_step and a GAN
+    checkpoint served through Reconstructor; one step at 1 unroll held
+    against the port's CPU path."""
+    cfg = swingan_cfg(output_dir=str(RUNS))
+    cfg.freeze()
+    trainer = GANTrainer(cfg)                   # the GPU: no device given
+    check(trainer.device.type == "cuda", f"GANTrainer on {trainer.device}")
+    batches = _train_batches("gan", cfg, trainer, GAN_STEPS + 1)
+    state = trainer.init_state(state_dict=init_params(cfg, SEED))
+    forward = state.disc.forward
+
+    def annotated(x):
+        with torch.profiler.record_function("discriminator"):
+            return forward(x)
+
+    state.disc.forward = annotated
+    counts, _, _, _ = _timed_steps("gan", trainer, state, batches,
+                                   _train_launches(cfg), GAN_KEYS,
+                                   split="discriminator")
+    counts = {name: {"train steps": c["steps"]} for name, c in counts.items()}
+
+    metrics, pred = trainer.val_step(state, batches[0])
+    check(torch.isfinite(torch.view_as_real(pred)).all().item(),
+          "gan val_step output not finite")
+    shutil.rmtree(RUNS, ignore_errors=True)
+    CheckpointManager(str(RUNS / "checkpoints")).save(state.step, state)
+    recon = Reconstructor(cfg, load_checkpoint_params(str(RUNS / "checkpoints")))
+    out = recon(batches[0])
+    ref = (pred * torch.from_numpy(batches[0]["scale"]).cuda().reshape(
+        -1, 1, 1, 1, 1)).cpu().numpy()
+    rel_ck = np.linalg.norm(out - ref) / np.linalg.norm(ref)
+    val_l1 = float(metrics["Validate/complex_l1"])
+    print(f"gan: val_step complex_l1 {val_l1:.6f}; the GAN checkpoint at "
+          f"step {state.step} (generator, discriminator, both optimizers) "
+          f"through load_checkpoint_params and Reconstructor vs val_step: "
+          f"rel L2 {rel_ck:.3e}")
+    check(rel_ck <= 1e-6, f"GAN checkpoint reconstruction rel L2 {rel_ck:.3e}")
+    del trainer, state, recon
+    torch.cuda.empty_cache()
+
+    cut = _cut(cfg, 1)
+    params = init_params(cut, SEED)
+    gpu = _gan_step(cut, params, batches[0], "cuda")
+    cpu = _gan_step(cut, params, batches[0], "cpu")
+    rels = {k: abs(gpu[0][k] - cpu[0][k]) / abs(cpu[0][k]) for k in GAN_KEYS}
+    grads = {name: ((g - c).norm() / c.norm()).item()
+             for name, g, c in (("generator", gpu[1], cpu[1]),
+                                ("discriminator", gpu[2], cpu[2]))}
+    print("gan: one step at 1 unroll, stochastic depth off, vs the port's "
+          f"CPU path ({cpu[3]:.1f} s on the CPU): "
+          + ", ".join(f"{k.split('/')[-1]} {gpu[0][k]:.6f} vs {cpu[0][k]:.6f}"
+                      f" (rel {rels[k]:.3e})" for k in GAN_KEYS)
+          + "; gradient rel L2 "
+          + ", ".join(f"{n} {r:.3e}" for n, r in grads.items()))
+    for k, r in rels.items():
+        check(r <= TRAIN_LOSS_REL_TOL, f"gan GPU vs CPU {k} rel {r:.3e}")
+    for n, r in grads.items():
+        check(r <= TRAIN_GRAD_REL_L2_TOL,
+              f"gan GPU vs CPU {n} gradient rel L2 {r:.3e}")
+    shutil.rmtree(RUNS, ignore_errors=True)
+    return counts
+
+
 def _entry(name, source, replaces, res, launches):
     """One kernel's item of the `kernels` line: the numbers of its headline
     variant, then every variant it was measured at."""
@@ -1335,7 +1561,8 @@ def main():
     kres = phase_kernels()
     counts = {"main": phase_main(), "swin": phase_swin(),
               "train": phase_train(), "dslr": phase_dslr(),
-              "headline": phase_headline()}
+              "headline": phase_headline(), "se": phase_se(),
+              "modl": phase_modl(), "gan": phase_gan()}
 
     def by_path(name):
         return {path: c[name] for path, c in counts.items()}

@@ -14,6 +14,19 @@ and `step_size`. Kernels go from flax's [*k, Cin, Cout] to torch's
 the same on both sides. With complex convs (CONV_BLOCK.COMPLEX) a ConvBlock
 holds `ComplexConv_0/{kernel_re, kernel_im, bias_re, bias_im}` instead,
 which map to `.conv.kernel_re` etc., the kernels transposed the same way.
+A separable ConvBlock (CONV_BLOCK.SEPARABLE) holds `SeparableConv_0` with
+its spatial conv `{Conv,ComplexConv}_0` and temporal conv `_1`, which map to
+`.conv.spatial` and `.conv.temporal`.
+
+SE and CBAM trunks (`SEResNet3D_{i}`, `CBAMResNet3D_{i}`) are the RES tree
+plus, in each res block,
+
+    ChannelGate_0/Dense_{0,1}/{kernel, bias}   -> .channel_gate.fc{1,2}
+    SpatialGate_0/Conv_0/Conv_0 (or ComplexConv_0) -> .spatial_gate.conv
+
+and the hqs (MoDL) solver carries the scalar `lamda` [1] in place of
+`step_size`. `disc_flax_to_torch` converts a PatchGAN discriminator's tree
+(`Conv_{k}` -> `convs.{k}`).
 
 The tree of a DSLR `UnrolledLR`:
 
@@ -60,17 +73,60 @@ def _kernel(kernel) -> torch.Tensor:
     return _array(kernel.transpose(nd + 1, nd, *range(nd)))
 
 
-def _conv(block: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
-    """A ConvBlock's conv: real (Conv_0/Conv_0) or complex (ComplexConv_0)."""
-    if set(block) == {"ComplexConv_0"}:
-        leaf = _leaf(block["ComplexConv_0"], prefix,
+def _conv_module(name: str, node: Mapping, prefix: str):
+    """One flax conv module -> the torch conv at `prefix`: `Conv_k` (real,
+    its leaves under a nested `Conv_0`) or `ComplexConv_k`."""
+    if name.startswith("ComplexConv_"):
+        leaf = _leaf(node, prefix,
                      ("kernel_re", "kernel_im", "bias_re", "bias_im"))
-        return {f"{prefix}.conv.{k}": (_kernel(v) if k.startswith("kernel")
-                                       else _array(v))
+        return {f"{prefix}.{k}": (_kernel(v) if k.startswith("kernel")
+                                  else _array(v))
                 for k, v in leaf.items()}
-    leaf = _leaf(block["Conv_0"]["Conv_0"], prefix, ("kernel", "bias"))
-    return {f"{prefix}.conv.weight": _kernel(leaf["kernel"]),
-            f"{prefix}.conv.bias": _array(leaf["bias"])}
+    if not name.startswith("Conv_"):
+        _unknown(prefix, name)
+    leaf = _leaf(_leaf(node, prefix, ("Conv_0",))["Conv_0"], prefix,
+                 ("kernel", "bias"))
+    return {f"{prefix}.weight": _kernel(leaf["kernel"]),
+            f"{prefix}.bias": _array(leaf["bias"])}
+
+
+def _conv(block: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    """A ConvBlock's conv: real (Conv_0/Conv_0), complex (ComplexConv_0), or
+    separable (SeparableConv_0 holding the spatial conv _0 and the temporal
+    conv _1 of either kind)."""
+    if len(block) != 1:
+        raise KeyError(f"{prefix}: expected one conv, got {sorted(block)}")
+    (name, node), = block.items()
+    if name != "SeparableConv_0":
+        return _conv_module(name, node, f"{prefix}.conv")
+    out = {}
+    for child, sub in node.items():
+        part = {0: "spatial", 1: "temporal"}.get(_index(child))
+        if part is None:
+            _unknown(prefix, child)
+        out.update(_conv_module(child, sub, f"{prefix}.conv.{part}"))
+    return out
+
+
+def _res_block(tree: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    """A GatedResBlock: its two ConvBlocks and the SE/CBAM gates."""
+    out = {}
+    for name, node in tree.items():
+        if name in ("ConvBlock_0", "ConvBlock_1"):
+            out.update(_conv(node, f"{prefix}.conv{_index(name)}"))
+        elif name == "ChannelGate_0":
+            gate = _leaf(node, prefix, ("Dense_0", "Dense_1"))
+            out.update(_dense(gate["Dense_0"], f"{prefix}.channel_gate.fc1"))
+            out.update(_dense(gate["Dense_1"], f"{prefix}.channel_gate.fc2"))
+        elif name == "SpatialGate_0":
+            if len(node) != 1:
+                raise KeyError(f"{prefix}: spatial gate {sorted(node)}")
+            (child, sub), = node.items()
+            out.update(_conv_module(child, sub,
+                                    f"{prefix}.spatial_gate.conv"))
+        else:
+            _unknown(prefix, name)
+    return out
 
 
 def _resnet(tree: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
@@ -81,10 +137,7 @@ def _resnet(tree: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
         elif name == "ConvBlock_1":
             out.update(_conv(node, f"{prefix}.tail"))
         elif name.startswith("GatedResBlock_"):
-            j = int(name.rsplit("_", 1)[1])
-            for k in (0, 1):
-                out.update(_conv(node[f"ConvBlock_{k}"],
-                                 f"{prefix}.blocks.{j}.conv{k}"))
+            out.update(_res_block(node, f"{prefix}.blocks.{_index(name)}"))
         else:
             raise KeyError(f"{prefix}: no torch counterpart for {name}")
     return out
@@ -201,15 +254,17 @@ def _swinnet(tree: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
 
 
 # flax submodule name prefix -> (converter, torch module list)
-_DENOISERS = {"ResNet3D_": (_resnet, "nets"), "SwinNet3D_": (_swinnet, "nets"),
+_DENOISERS = {"ResNet3D_": (_resnet, "nets"), "SEResNet3D_": (_resnet, "nets"),
+              "CBAMResNet3D_": (_resnet, "nets"),
+              "SwinNet3D_": (_swinnet, "nets"),
               "ResNet2D_": (_resnet, "spatial"),
               "ResNet1D_": (_resnet, "temporal")}
-_SCALARS = ("step_size", "lambda_l", "lambda_r")
+_SCALARS = ("step_size", "lamda", "lambda_l", "lambda_r")
 
 
 def flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX solver params (an `UnrolledSolver` with a RES or SWIN denoiser,
-    or a DSLR `UnrolledLR`) -> torch state_dict."""
+    """JAX solver params (an `UnrolledSolver` with a RES, SE, CBAM or SWIN
+    denoiser, or a DSLR `UnrolledLR`) -> torch state_dict."""
     state = {}
     for name, node in params.items():
         if name in _SCALARS:
@@ -222,6 +277,19 @@ def flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
         convert, modules = match
         state.update(convert(node, f"{modules}.{_index(name)}"))
     return state
+
+
+def disc_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX `PatchDiscriminator3D` params (Conv_0 .. Conv_{L+1}, flax
+    nn.Conv leaves) -> the torch discriminator's state_dict."""
+    out = {}
+    for name, node in params.items():
+        if not name.startswith("Conv_"):
+            _unknown("discriminator", name)
+        leaf = _leaf(node, name, ("kernel", "bias"))
+        out[f"convs.{_index(name)}.weight"] = _kernel(leaf["kernel"])
+        out[f"convs.{_index(name)}.bias"] = _array(leaf["bias"])
+    return out
 
 
 def init_params(cfg, seed: int) -> Dict[str, torch.Tensor]:

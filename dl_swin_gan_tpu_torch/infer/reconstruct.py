@@ -30,7 +30,8 @@ def load_checkpoint_params(ckpt_dir: str, step: Optional[int] = None,
                            use_ema: bool = False) -> dict:
     """The solver's state_dict (or its EMA weights) from a checkpoint
     directory of the port's `train.CheckpointManager`, on the CPU; the
-    latest step when `step` is None."""
+    latest step when `step` is None. A GANTrainer's checkpoint gives its
+    generator (the state's `model`)."""
     from dl_swin_gan_tpu_torch.train.checkpoint import CheckpointManager
 
     mgr = CheckpointManager(ckpt_dir)

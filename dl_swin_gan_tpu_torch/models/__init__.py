@@ -1,20 +1,27 @@
-"""Denoiser backbones. Ported so far: the RES trunk (real or complex convs,
-float32 or a bfloat16 conv trunk) and the Swin trunk (SwinNet3D, float32);
-every other backbone raises
+"""Denoiser backbones. Ported so far: the RES, SE and CBAM trunks (real or
+complex convs, full or separable, float32 or a bfloat16 conv trunk) and the
+Swin trunk (SwinNet3D, float32); every other backbone raises
 NotImplementedError naming its ROADMAP.md queue item. The DSLR solver builds
-its 2D and 1D ResNets itself (`solvers/dslr.py`)."""
+its 2D and 1D ResNets itself (`solvers/dslr.py`).
+
+CONV_BLOCK.NORM is read and, as in the JAX package's `build_denoiser`,
+not passed on: a config with NORM 'instance' builds the same trunk as one
+with 'none' (ROADMAP.md Queue 3, divergences by design). `layers.normalize`
+is reachable by building a ConvBlock directly."""
 
 from typing import Optional
 
 import torch
 
+from dl_swin_gan_tpu_torch.models.cbam import CBAMResNet3D
 from dl_swin_gan_tpu_torch.models.layers import DTYPES
 from dl_swin_gan_tpu_torch.models.resnet import ResNet3D
+from dl_swin_gan_tpu_torch.models.se import SEResNet3D
 
+# MODEL_TYPE -> its ResNet trunk (gate none, se or cbam)
+_RESNETS = {"RES": ResNet3D, "SE": SEResNet3D, "CBAM": CBAMResNet3D}
 # MODEL_TYPE -> the ROADMAP.md "Queue 1" item that ports it
 _NOT_PORTED = {
-    "SE": "Queue 1 item 4 (SE/CBAM gates)",
-    "CBAM": "Queue 1 item 4 (SE/CBAM gates)",
     "DIT": "Queue 1 item 10 (diffusion)",
     "SWIN_DIFF": "Queue 1 item 10 (diffusion)",
     "LATTE": "Queue 1 item 10 (diffusion)",
@@ -22,8 +29,8 @@ _NOT_PORTED = {
 
 
 def build_denoiser(cfg, generator: Optional[torch.Generator] = None):
-    """Build the denoiser that MODEL.MODEL_TYPE names (RES or SWIN so far);
-    `generator` seeds its weights (torch-default init)."""
+    """Build the denoiser that MODEL.MODEL_TYPE names (RES, SE, CBAM or SWIN
+    so far); `generator` seeds its weights (torch-default init)."""
     p = cfg.MODEL.PARAMETERS
     cb = p.CONV_BLOCK
     model_type = cfg.MODEL.MODEL_TYPE.upper()
@@ -31,7 +38,7 @@ def build_denoiser(cfg, generator: Optional[torch.Generator] = None):
         raise NotImplementedError(
             f"MODEL_TYPE={model_type} is not ported to the torch package yet: "
             f"ROADMAP.md {_NOT_PORTED[model_type]}")
-    if model_type not in ("RES", "SWIN"):
+    if model_type not in (*_RESNETS, "SWIN"):
         raise ValueError(f"Unknown MODEL_TYPE: {model_type}")
     if cb.COMPLEX and model_type == "SWIN":
         # as in the JAX package: the Swin trunk runs on real/imag channels
@@ -60,16 +67,9 @@ def build_denoiser(cfg, generator: Optional[torch.Generator] = None):
             num_features=p.NUM_FEATURES, kernel_size=cb.KERNEL_SIZE[0],
             circular_pad=cb.CIRCULAR_PAD, act_type=cb.ACTIVATION,
             generator=generator)
-    if cb.SEPARABLE:
-        raise NotImplementedError(
-            "CONV_BLOCK.SEPARABLE=True is not ported yet: ROADMAP.md Queue 1 "
-            "item 4")
-    if cb.NORM != "none":
-        raise NotImplementedError(
-            f"CONV_BLOCK.NORM={cb.NORM!r} is not ported yet: ROADMAP.md "
-            "Queue 1 item 4")
-    return ResNet3D(num_resblocks=p.NUM_RESBLOCKS, num_emaps=p.NUM_EMAPS,
-                    num_features=p.NUM_FEATURES,
-                    kernel_size=cb.KERNEL_SIZE[0], act_type=cb.ACTIVATION,
-                    circular_pad=cb.CIRCULAR_PAD, generator=generator,
-                    use_complex_layers=cb.COMPLEX, dtype=dtype)
+    return _RESNETS[model_type](
+        num_resblocks=p.NUM_RESBLOCKS, num_emaps=p.NUM_EMAPS,
+        num_features=p.NUM_FEATURES, kernel_size=cb.KERNEL_SIZE[0],
+        act_type=cb.ACTIVATION, circular_pad=cb.CIRCULAR_PAD,
+        generator=generator, use_complex_layers=cb.COMPLEX, dtype=dtype,
+        reduction=p.RR, separable=cb.SEPARABLE)

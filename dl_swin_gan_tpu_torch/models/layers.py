@@ -2,8 +2,9 @@
 spatial axes.
 
 Counterpart of `models/layers.py` in the JAX package: `Conv` (SAME
-padding), `ComplexConv`, `ConvBlock` with no normalization, `activation`,
-`circular_pad_time` and `crop_time`. The JAX package runs channels-last
+padding, a cubic or per-axis kernel), `ComplexConv`, `SeparableConv`,
+`ConvBlock`, `normalize`, `activation`, `circular_pad_time` and
+`crop_time`. The JAX package runs channels-last
 [N, *spatial, C]; here the trunk runs torch's [N, C, *spatial], so the first
 spatial axis (time for 3D and 1D, rows for 2D) is dim 2. Convolutions go to
 cuDNN (the JAX package left them to XLA).
@@ -13,6 +14,10 @@ with the block kernel [[Kr, -Ki], [Ki, Kr]] (rows: output re, im; columns:
 input re, im) and the bias [br, bi], as in the JAX package. Its parameters
 stay `kernel_re`, `kernel_im`, `bias_re`, `bias_im`, so flax weights convert
 one to one.
+
+`SeparableConv` is the (2+1)D conv: a (1, k, k) conv, the activation, then
+a (k, 1, 1) conv, with a middle width that keeps the parameter count of a
+full k^3 conv, truncated as the JAX code truncates it.
 
 Weights are initialised as torch's own nn.Conv default, from an explicit
 generator: U(+-1/sqrt(fan_in)) for the kernel and the bias, with fan_in the
@@ -29,7 +34,7 @@ between the convs in bfloat16.
 """
 
 import math
-from typing import Optional
+from typing import Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -41,7 +46,7 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def conv_nd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-            padding: int, dtype: torch.dtype) -> torch.Tensor:
+            padding: Sequence[int], dtype: torch.dtype) -> torch.Tensor:
     """SAME conv of `weight.ndim - 2` spatial axes computed in `dtype`, then
     the bias added in float32 (one fused call when `dtype` is float32)."""
     conv = _CONV[weight.ndim - 2]
@@ -65,6 +70,23 @@ def activation(x: torch.Tensor, act_type: str = "relu") -> torch.Tensor:
     raise ValueError(f"Invalid activation type: {act_type}")
 
 
+def normalize(x: torch.Tensor, norm_type: str = "none") -> torch.Tensor:
+    """Instance norm without parameters over the spatial axes, per example
+    and channel, on re and im apart when x is complex. 'batch' takes the
+    same per-example statistics, as the JAX package does."""
+    if norm_type == "none":
+        return x
+    if norm_type not in ("instance", "batch"):
+        raise ValueError(f"Invalid normalization type: {norm_type}")
+    if x.is_complex():
+        return torch.complex(normalize(x.real, norm_type),
+                             normalize(x.imag, norm_type))
+    axes = tuple(range(2, x.ndim))
+    mean = x.mean(axes, keepdim=True)
+    var = x.var(axes, unbiased=False, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + 1e-5)
+
+
 def _uniform(shape, fan_in: int, generator) -> nn.Parameter:
     bound = 1.0 / math.sqrt(fan_in)
     p = nn.Parameter(torch.empty(shape))
@@ -73,24 +95,32 @@ def _uniform(shape, fan_in: int, generator) -> nn.Parameter:
     return p
 
 
-def _check_kernel_size(kernel_size: int) -> None:
-    if kernel_size % 2 != 1:
+KernelSize = Union[int, Sequence[int]]
+
+
+def _kernel_shape(kernel_size: KernelSize, ndim: int):
+    """(kernel, SAME padding) per axis; only odd sizes are ported."""
+    k = ((kernel_size,) * ndim if isinstance(kernel_size, int)
+         else tuple(kernel_size))
+    if len(k) != ndim or any(n % 2 != 1 for n in k):
         raise NotImplementedError(
-            "only odd conv kernel sizes are ported (SAME padding)")
+            f"kernel {k}: only odd conv kernel sizes are ported (SAME "
+            "padding)")
+    return k, tuple(n // 2 for n in k)
 
 
 class Conv(nn.Module):
-    """Real conv with SAME padding (odd kernel sizes), `ndim` spatial axes."""
+    """Real conv with SAME padding (odd kernel sizes, cubic or one per
+    axis), `ndim` spatial axes."""
 
-    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: KernelSize,
                  generator: Optional[torch.Generator] = None, ndim: int = 3,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        _check_kernel_size(kernel_size)
-        k = (kernel_size,) * ndim
-        self.padding = kernel_size // 2
+        k, self.padding = _kernel_shape(kernel_size, ndim)
         self.dtype = dtype
-        fan_in = in_channels * kernel_size ** ndim
+        fan_in = in_channels * math.prod(k)
         self.weight = _uniform((out_channels, in_channels, *k), fan_in,
                                generator)
         self.bias = _uniform((out_channels,), fan_in, generator)
@@ -102,15 +132,14 @@ class Conv(nn.Module):
 class ComplexConv(nn.Module):
     """Complex conv with SAME padding as one real conv on [re, im]."""
 
-    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: KernelSize,
                  generator: Optional[torch.Generator] = None, ndim: int = 3,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        _check_kernel_size(kernel_size)
-        k = (kernel_size,) * ndim
-        self.padding = kernel_size // 2
+        k, self.padding = _kernel_shape(kernel_size, ndim)
         self.dtype = dtype
-        fan_in = in_channels * kernel_size ** ndim
+        fan_in = in_channels * math.prod(k)
         shape = (out_channels, in_channels, *k)
         self.kernel_re = _uniform(shape, fan_in, generator)
         self.kernel_im = _uniform(shape, fan_in, generator)
@@ -128,22 +157,55 @@ class ComplexConv(nn.Module):
         return torch.complex(out[:, :c].contiguous(), out[:, c:].contiguous())
 
 
+class SeparableConv(nn.Module):
+    """(2+1)D conv: spatial (1, k, k) -> activation -> temporal (k, 1, 1).
+    The middle width keeps the parameters of a full k^3 conv; `int`
+    truncates it, as in the JAX package."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 act_type: str = "relu",
+                 generator: Optional[torch.Generator] = None,
+                 is_complex: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        k = kernel_size
+        sp = int((k ** 3) * in_channels * out_channels
+                 / ((k ** 2) * in_channels + k * out_channels))
+        conv = ComplexConv if is_complex else Conv
+        self.act_type = act_type
+        self.spatial = conv(in_channels, sp, (1, k, k), generator, 3, dtype)
+        self.temporal = conv(sp, out_channels, (k, 1, 1), generator, 3, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.temporal(activation(self.spatial(x), self.act_type))
+
+
 class ConvBlock(nn.Module):
-    """Pre-activation block: Act -> Conv (normalization 'none')."""
+    """Pre-activation block: Norm -> Act -> Conv. `separable` takes effect
+    with 3 spatial axes only; `norm_type` is reachable only by building a
+    ConvBlock directly, as in the JAX package, whose `build_denoiser` never
+    passes CONV_BLOCK.NORM on."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  act_type: str = "relu",
                  generator: Optional[torch.Generator] = None,
                  is_complex: bool = False, ndim: int = 3,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 norm_type: str = "none", separable: bool = False):
         super().__init__()
         self.act_type = act_type
-        conv = ComplexConv if is_complex else Conv
-        self.conv = conv(in_channels, out_channels, kernel_size, generator,
-                         ndim, dtype)
+        self.norm_type = norm_type
+        if separable and ndim == 3:
+            self.conv = SeparableConv(in_channels, out_channels, kernel_size,
+                                      act_type, generator, is_complex, dtype)
+        else:
+            conv = ComplexConv if is_complex else Conv
+            self.conv = conv(in_channels, out_channels, kernel_size,
+                             generator, ndim, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(activation(x, self.act_type))
+        return self.conv(activation(normalize(x, self.norm_type),
+                                    self.act_type))
 
 
 def circular_pad_time(x: torch.Tensor, pad: int) -> torch.Tensor:

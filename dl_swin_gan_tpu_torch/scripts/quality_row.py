@@ -6,15 +6,19 @@ Counterpart of `scripts/quality_row.py` beside the JAX package (kinds
 `unrolled` and `zerofilled`). It takes the quality set's test split in
 memory (`data.synthetic.quality_split`, the files
 `datasets/make_quality_set.sh` writes), so it needs neither h5py nor
-pyyaml: the config is `utils.headline.quality_cfg(--dtype)`
-(`configs/quality/resnet.yaml` or `resnet_bf16.yaml`) with KEY VALUE
-overrides. Under --out it writes `<exam>_1accel.im` and `<exam>_<R>accel.im`
+pyyaml: the config is `utils.headline.quality_cfg(--dtype, --model)`
+(`configs/quality/resnet.yaml` or `resnet_bf16.yaml`; `se.yaml` or
+`cbam.yaml` with --model se or cbam) with KEY VALUE overrides. Under --out
+it writes `<exam>_1accel.im` and `<exam>_<R>accel.im`
 CFLs and `eval_<R>accel.csv` (scripts/evaluate.py).
 
     # train the row's network first (the config's 40 epochs on the train
     # and validate splits, checkpoints under <out>/train), then score it
     python -m dl_swin_gan_tpu_torch.scripts.quality_row --kind unrolled \\
         --dtype bfloat16 --train --out runs/torch_quality/resbf16
+    # the SE row at the JAX row's 40 epochs (se.yaml says 24)
+    python -m dl_swin_gan_tpu_torch.scripts.quality_row --kind unrolled \\
+        --model se --train --max-epochs 40 --out runs/torch_quality/se
     # score a checkpoint of the port's trainer
     python -m dl_swin_gan_tpu_torch.scripts.quality_row --kind unrolled \\
         --ckpt runs/x/checkpoints --out runs/x/recon
@@ -76,6 +80,8 @@ def main(argv=None):
     parser.add_argument("--dtype", default="float32",
                         choices=["float32", "bfloat16"],
                         help="CONV_BLOCK.DTYPE: resnet.yaml or resnet_bf16.yaml")
+    parser.add_argument("--model", default="res", choices=["res", "se", "cbam"],
+                        help="the denoiser: resnet.yaml, se.yaml or cbam.yaml")
     parser.add_argument("--train", action="store_true",
                         help="train the network first (kind unrolled)")
     parser.add_argument("--ckpt", default=None,
@@ -105,8 +111,10 @@ def main(argv=None):
     device = resolve_device(args.device)
     out = args.out or os.path.join(
         "runs", "torch_quality",
-        args.kind + ("_" + args.dtype if args.kind == "unrolled" else ""))
-    cfg = quality_cfg(args.dtype)
+        args.kind + ("" if args.kind != "unrolled" else
+                     "_" + args.dtype if args.model == "res" else
+                     f"_{args.model}_{args.dtype}"))
+    cfg = quality_cfg(args.dtype, args.model)
     cfg.OUTPUT_DIR = os.path.join(out, "train")
     if args.opts:
         cfg.merge_from_list(args.opts)

@@ -1,13 +1,20 @@
 """Unrolled solver: (data-consistency rule x denoiser x num_unrolls).
 
-Counterpart of `solvers/unrolled.py` in the JAX package. This slice ports the
-PGD rule (META_ARCHITECTURE dlespirit / pgd):
+Counterpart of `solvers/unrolled.py` in the JAX package, with its four
+rules, x0 the given init (the sliding-window image) or A^H y:
 
-    x <- x + eta * (A^H A x - A^H y);  x <- denoiser_i(x)
+  dlespirit / pgd  x <- x + eta * (A^H A x - A^H y); x <- denoiser_i(x),
+                   a learnable step eta (`step_size`) initialised to -2.0
+  modl / hqs       z = denoiser_i(x); x <- CG on (A^H A + mu) x = A^H y + mu z
+                   from the previous x, MODL.NUM_CG_STEPS steps, each one
+                   SENSE-normal launch (one more for the initial residual);
+                   a learnable mu (`lamda`) initialised to 0.1
+  ddpm_x / dc      x <- denoiser_i(x); x <- A_F^H (A_{1-mask} x + y): the
+                   acquired samples from y, the rest from the estimate
+  ddpm_e / ddpm /  the denoisers alone
+  none
 
-with a learnable step eta initialised to -2.0, x0 the given init (the
-sliding-window image) or A^H y. The hqs (MoDL), dc and none rules raise
-NotImplementedError.
+Under FIX_STEP_SIZE the scalar (eta or mu) takes no gradient.
 """
 
 import contextlib
@@ -18,7 +25,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from dl_swin_gan_tpu_torch.models.swin import DropPath
+from dl_swin_gan_tpu_torch.ops.cg import conjugate_gradient
 from dl_swin_gan_tpu_torch.ops.sense import SenseOp
+
+DC_MODES = ("pgd", "hqs", "dc", "none")
 
 
 @contextlib.contextmanager
@@ -61,19 +71,27 @@ class UnrolledSolver(nn.Module):
     def __init__(self, make_denoiser: Callable[[], nn.Module],
                  num_unrolls: int = 5, dc_mode: str = "pgd",
                  share_weights: bool = False, fix_step_size: bool = False,
-                 remat: bool = False):
+                 num_cg_steps: int = 10, remat: bool = False):
         super().__init__()
-        if dc_mode != "pgd":
-            raise NotImplementedError(
-                f"dc_mode={dc_mode!r} is not ported to the torch package yet "
-                "(ROADMAP.md Queue 1 item 5); only pgd is")
+        if dc_mode not in DC_MODES:
+            raise ValueError(f"Unknown dc_mode: {dc_mode}")
         self.num_unrolls = num_unrolls
+        self.dc_mode = dc_mode
         self.share_weights = share_weights
         self.fix_step_size = fix_step_size
+        self.num_cg_steps = num_cg_steps
         self.remat = remat
         n_nets = 1 if share_weights else num_unrolls
         self.nets = nn.ModuleList(make_denoiser() for _ in range(n_nets))
-        self.step_size = nn.Parameter(torch.full((1,), -2.0))
+        # the rule's scalar, as the JAX solver creates it: only pgd and hqs
+        # have one
+        if dc_mode == "pgd":
+            self.step_size = nn.Parameter(torch.full((1,), -2.0))
+        elif dc_mode == "hqs":
+            self.lamda = nn.Parameter(torch.full((1,), 0.1))
+
+    def _scalar(self, p: torch.Tensor) -> torch.Tensor:
+        return (p.detach() if self.fix_step_size else p)[0]
 
     def _denoise(self, i: int, x: torch.Tensor) -> torch.Tensor:
         net = self.nets[0 if self.share_weights else i]
@@ -85,10 +103,30 @@ class UnrolledSolver(nn.Module):
         A = SenseOp(maps, mask)
         ATy = A(y, adjoint=True)
         x = ATy if x0 is None else x0
-        eta = self.step_size.detach() if self.fix_step_size else self.step_size
-        for i in range(self.num_unrolls):
-            x = x + eta[0] * (A.normal(x) - ATy)
-            x = self._denoise(i, x)
+        if self.dc_mode == "pgd":
+            eta = self._scalar(self.step_size)
+            for i in range(self.num_unrolls):
+                x = x + eta * (A.normal(x) - ATy)
+                x = self._denoise(i, x)
+        elif self.dc_mode == "hqs":
+            mu = self._scalar(self.lamda)
+
+            def normal(m):
+                return A.normal(m) + mu * m
+
+            for i in range(self.num_unrolls):
+                z = self._denoise(i, x)
+                x = conjugate_gradient(normal, x, ATy + mu * z,
+                                       self.num_cg_steps)
+        elif self.dc_mode == "dc":
+            unacquired = SenseOp(maps, 1.0 - mask)
+            full = SenseOp(maps, None)
+            for i in range(self.num_unrolls):
+                x = self._denoise(i, x)
+                x = full(unacquired(x) + y, adjoint=True)
+        else:
+            for i in range(self.num_unrolls):
+                x = self._denoise(i, x)
         return x
 
 
@@ -122,5 +160,6 @@ def build_solver(cfg, generator: Optional[torch.Generator] = None,
         dc_mode=_DC_MODE_FROM_META[meta],
         share_weights=p.SHARE_WEIGHTS,
         fix_step_size=p.FIX_STEP_SIZE,
+        num_cg_steps=p.MODL.NUM_CG_STEPS,
         remat=p.GRAD_CHECKPOINT,
     )

@@ -3,7 +3,9 @@
 Counterpart of `train/losses.py` in the JAX package (the reference's
 `scripts/train.py:46-71`): complex and magnitude L1/L2/PSNR with optional
 temporal-std weighting; the training loss is picked from the dict by
-MODEL.RECON_LOSS.NAME.
+MODEL.RECON_LOSS.NAME. With a `perceptual` loss (train/perceptual.py) the
+dict also holds complex_vggloss and mag_vggloss, as the reference adds them
+only when one is the training loss.
 """
 
 from typing import Dict
@@ -14,8 +16,8 @@ from dl_swin_gan_tpu_torch.ops import metrics as M
 
 
 def compute_metrics(prediction: torch.Tensor, target: torch.Tensor,
-                    weight: bool = False,
-                    tag: str = "Train") -> Dict[str, torch.Tensor]:
+                    weight: bool = False, tag: str = "Train",
+                    perceptual=None) -> Dict[str, torch.Tensor]:
     out = {
         f"{tag}/complex_l1": M.l1(target, prediction, weight),
         f"{tag}/complex_l2": M.l2(target, prediction, weight),
@@ -25,16 +27,10 @@ def compute_metrics(prediction: torch.Tensor, target: torch.Tensor,
     out[f"{tag}/mag_l1"] = M.l1(mt, mp, weight)
     out[f"{tag}/mag_l2"] = M.l2(mt, mp, weight)
     out[f"{tag}/mag_psnr"] = M.psnr(mt, mp, weight)
+    if perceptual is not None:
+        out[f"{tag}/complex_vggloss"] = perceptual(target, prediction)
+        out[f"{tag}/mag_vggloss"] = perceptual(mt, mp)
     return out
-
-
-def check_loss_name(loss_name: str) -> None:
-    """The perceptual (VGG) losses come with the SwinGAN slice."""
-    if "vggloss" in loss_name:
-        raise NotImplementedError(
-            f"RECON_LOSS.NAME={loss_name!r}: the VGG perceptual loss is not "
-            "ported to the torch package yet (ROADMAP.md Queue 1 item 9, "
-            "the SwinGAN slice: train/perceptual.py)")
 
 
 def select_loss(metrics: Dict[str, torch.Tensor], loss_name: str,

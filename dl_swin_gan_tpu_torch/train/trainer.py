@@ -31,9 +31,7 @@ from dl_swin_gan_tpu_torch.data.preprocess import CinePreprocess
 from dl_swin_gan_tpu_torch.models.swin import set_dropout_generator
 from dl_swin_gan_tpu_torch.solvers import build_solver
 from dl_swin_gan_tpu_torch.train.checkpoint import CheckpointManager
-from dl_swin_gan_tpu_torch.train.losses import (
-    check_loss_name, compute_metrics, select_loss,
-)
+from dl_swin_gan_tpu_torch.train.losses import compute_metrics, select_loss
 from dl_swin_gan_tpu_torch.train.train_state import (
     TrainState, clip_by_global_norm_, ema_update, make_lr_schedule,
     make_optimizer,
@@ -109,7 +107,10 @@ class Trainer:
         self.use_ema = use_ema
         self.ema_decay = ema_decay
         self.loss_name = cfg.MODEL.RECON_LOSS.NAME
-        check_loss_name(self.loss_name)
+        self.perceptual = None
+        if "vggloss" in self.loss_name:
+            from dl_swin_gan_tpu_torch.train.perceptual import PerceptualLoss
+            self.perceptual = PerceptualLoss(device=self.device)
         self.loss_weight = cfg.MODEL.RECON_LOSS.LOSS_WEIGHT
         self.renormalize = cfg.MODEL.RECON_LOSS.RENORMALIZE_DATA
         self.accum = max(1, cfg.OPTIMIZER.GRAD_ACCUM_ITERS)
@@ -144,8 +145,8 @@ class Trainer:
         return out
 
     def _val_params(self, state: TrainState):
-        """The module validation runs (GANTrainer will give the
-        generator)."""
+        """The module validation runs: the solver (GANTrainer's state keeps
+        its generator there too)."""
         return state.model
 
     def _device_pipeline_kwargs(self) -> dict:
@@ -198,7 +199,8 @@ class Trainer:
             scale = b["scale"].reshape((-1,) + (1,) * (pred.ndim - 1))
             pred = pred * scale
             target = target * scale
-        return compute_metrics(pred, target, weight=self.loss_weight, tag=tag)
+        return compute_metrics(pred, target, weight=self.loss_weight, tag=tag,
+                               perceptual=self.perceptual)
 
     def train_step(self, state: TrainState, batch: dict
                    ) -> Dict[str, torch.Tensor]:
@@ -218,20 +220,28 @@ class Trainer:
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics.update(self._extra_metrics(model))
 
-        if (state.step + 1) % self.accum == 0:
-            grads = [p.grad for p in model.parameters() if p.grad is not None]
-            if self.accum > 1:
-                torch._foreach_div_(grads, float(self.accum))
-            if self.clip > 0:
-                clip_by_global_norm_(grads, self.clip)
-            lr = self.lr_schedule(state.step // self.accum)
-            for group in state.optimizer.param_groups:
-                group["lr"] = lr
-            state.optimizer.step()
+        self._update(model.parameters(), state.optimizer, self.lr_schedule,
+                     state.step)
         if self.use_ema:
             ema_update(state.ema, model, self.ema_decay)
         state.step += 1
         return metrics
+
+    def _update(self, params, optimizer, lr_schedule, step: int) -> None:
+        """At the last batch of every GRAD_ACCUM_ITERS: the gradients of
+        `params` averaged over them, clipped, and one step of `optimizer` at
+        `lr_schedule`'s rate for this update."""
+        if (step + 1) % self.accum != 0:
+            return
+        grads = [p.grad for p in params if p.grad is not None]
+        if self.accum > 1:
+            torch._foreach_div_(grads, float(self.accum))
+        if self.clip > 0:
+            clip_by_global_norm_(grads, self.clip)
+        lr = lr_schedule(step // self.accum)
+        for group in optimizer.param_groups:
+            group["lr"] = lr
+        optimizer.step()
 
     @torch.no_grad()
     def val_step(self, state: TrainState, batch: dict):

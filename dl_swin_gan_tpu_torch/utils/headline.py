@@ -15,10 +15,21 @@ at 1e-4, per-epoch StepLR, batch 1); `chip_smoke.py` serves and trains it.
 16x16 block, 2D and 1D complex ResNets of 2 resblocks x 64 features) on the
 same slice; `chip_smoke.py` trains and validates it.
 
+`configs/config_se.yaml`: the squeeze-excitation trunk (5 unrolls x 1
+resblock x 384 features, SE hidden width RR 16) on the same slice, readout
+cropped to 48 for training; `chip_smoke.py` serves and trains it.
+
+`configs/config_swingan.yaml`: config_swin.yaml's generator with a 3D
+PatchGAN discriminator (64 features, 3 strided layers, its own Adam at 2e-4)
+and an adversarial weight of 0.01; `chip_smoke.py` trains it through
+GANTrainer.
+
 `configs/quality/resnet.yaml` and `resnet_bf16.yaml`: the example config's
 network (f32, or with a bfloat16 conv trunk) trained on the synthetic quality
 set (18x156x96 slices, `data/synthetic.quality_split`) for 40 epochs and
-scored at 12x; `scripts/quality_row.py` trains and scores them.
+scored at 12x; `configs/quality/se.yaml` and `cbam.yaml` the gated trunks
+(1 resblock x 96 features) on the same set; `scripts/quality_row.py` trains
+and scores them.
 """
 
 
@@ -88,6 +99,65 @@ def swin_cfg(output_dir: str = "runs/swin"):
     return cfg
 
 
+def se_cfg(output_dir: str = "runs/se"):
+    """`configs/config_se.yaml` built in code (no YAML): every field it
+    sets."""
+    from dl_swin_gan_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.MODEL.MODEL_TYPE = "SE"
+    cfg.MODEL.META_ARCHITECTURE = "dlespirit"
+    p = cfg.MODEL.PARAMETERS
+    p.NUM_UNROLLS = 5
+    p.NUM_RESBLOCKS = 1
+    p.NUM_FEATURES = 384
+    p.NUM_EMAPS = 2
+    p.RR = 16
+    p.SHARE_WEIGHTS = False
+    p.FIX_STEP_SIZE = True
+    p.SLWIN_INIT = True
+    p.GRAD_CHECKPOINT = False
+    p.CONV_BLOCK.ACTIVATION = "relu"
+    p.CONV_BLOCK.NORM = "none"
+    p.CONV_BLOCK.CIRCULAR_PAD = True
+    p.CONV_BLOCK.COMPLEX = False
+    cfg.MODEL.RECON_LOSS.NAME = "complex_l1"
+    cfg.MODEL.RECON_LOSS.RENORMALIZE_DATA = False
+    cfg.MODEL.RECON_LOSS.LOSS_WEIGHT = False
+    cfg.DATALOADER.TRAIN_BATCH_SIZE = 1
+    cfg.DATALOADER.VAL_BATCH_SIZE = 1
+    cfg.AUG_TRAIN.CROP_READOUT = 48
+    cfg.AUG_TRAIN.UNDERSAMPLE.NAME = "VDktMaskFunc"
+    cfg.AUG_TRAIN.UNDERSAMPLE.ACCELERATIONS = (10, 15)
+    cfg.AUG_TRAIN.UNDERSAMPLE.PARTIAL_KX = 0.25
+    cfg.AUG_TRAIN.UNDERSAMPLE.PARTIAL_KY = 0.25
+    cfg.OPTIMIZER.NAME = "Adam"
+    cfg.OPTIMIZER.MAX_EPOCHS = 1000
+    cfg.OPTIMIZER.GRAD_ACCUM_ITERS = 1
+    cfg.OPTIMIZER.ADAM.LR = 0.0001
+    cfg.EVAL.RUN_EVERY_N_EPOCHS = 1
+    cfg.LOGGER.LOG_METRICS_EVERY_N_STEPS = 50
+    cfg.LOGGER.LOG_IMAGES_EVERY_N_STEPS = 50
+    cfg.SEED = 1000
+    cfg.OUTPUT_DIR = output_dir
+    cfg.VERSION = 1
+    return cfg
+
+
+def swingan_cfg(output_dir: str = "runs/swingan"):
+    """`configs/config_swingan.yaml` built in code (no YAML): config_swin's
+    fields with the GAN's, and every other field it sets."""
+    cfg = swin_cfg(output_dir)
+    g = cfg.MODEL.GAN
+    g.ADV_WEIGHT = 0.01
+    g.DISC_FEATURES = 64
+    g.DISC_LAYERS = 3
+    g.DISC_LR = 0.0002
+    cfg.LOGGER.LOG_IMAGES_EVERY_N_STEPS = 100
+    cfg.VERSION = 1
+    return cfg
+
+
 def dslr_cfg(output_dir: str = "runs/dslr"):
     """`configs/config_dslr.yaml` built in code (no YAML): every field it
     sets."""
@@ -133,9 +203,18 @@ def dslr_cfg(output_dir: str = "runs/dslr"):
     return cfg
 
 
-def quality_cfg(dtype: str = "float32"):
-    """`configs/quality/resnet.yaml` (float32) or `resnet_bf16.yaml`
-    (bfloat16) built in code (no YAML): every field they set, but one.
+# quality_cfg's model -> (MODEL_TYPE, NUM_RESBLOCKS, NUM_FEATURES,
+# MAX_EPOCHS, EVAL.RUN_EVERY_N_EPOCHS) of its YAML
+_QUALITY_MODELS = {"res": ("RES", 2, 64, 40, 10),
+                   "se": ("SE", 1, 96, 24, 8),
+                   "cbam": ("CBAM", 1, 96, 24, 8)}
+
+
+def quality_cfg(dtype: str = "float32", model: str = "res"):
+    """A quality row's config built in code (no YAML): every field its YAML
+    sets, but one. `model` "res" is `configs/quality/resnet.yaml` (float32)
+    or `resnet_bf16.yaml` (bfloat16); "se" and "cbam" are
+    `configs/quality/se.yaml` and `cbam.yaml` (float32 in their YAMLs).
     DATALOADER.DEVICE_PIPELINE is False: the CUDA-resident pipeline is not
     ported yet (ROADMAP.md Queue 1 item 7, the rest), so the host loader
     feeds the trainer."""
@@ -143,13 +222,18 @@ def quality_cfg(dtype: str = "float32"):
 
     if dtype not in ("float32", "bfloat16"):
         raise ValueError(f"quality_cfg: dtype {dtype!r}")
+    if model not in _QUALITY_MODELS:
+        raise ValueError(f"quality_cfg: model {model!r}")
+    model_type, nres, features, epochs, every = _QUALITY_MODELS[model]
     cfg = get_cfg()
-    cfg.MODEL.MODEL_TYPE = "RES"
+    cfg.MODEL.MODEL_TYPE = model_type
     cfg.MODEL.META_ARCHITECTURE = "dlespirit"
     p = cfg.MODEL.PARAMETERS
     p.NUM_UNROLLS = 5
-    p.NUM_RESBLOCKS = 2
-    p.NUM_FEATURES = 64
+    p.NUM_RESBLOCKS = nres
+    p.NUM_FEATURES = features
+    if model != "res":
+        p.RR = 16
     p.NUM_EMAPS = 2
     p.SHARE_WEIGHTS = False
     p.FIX_STEP_SIZE = True
@@ -175,14 +259,16 @@ def quality_cfg(dtype: str = "float32"):
         aug.UNDERSAMPLE.PARTIAL_KX = 0.25
         aug.UNDERSAMPLE.PARTIAL_KY = 0.25
     cfg.OPTIMIZER.NAME = "Adam"
-    cfg.OPTIMIZER.MAX_EPOCHS = 40
+    cfg.OPTIMIZER.MAX_EPOCHS = epochs
     cfg.OPTIMIZER.GRAD_ACCUM_ITERS = 1
     cfg.OPTIMIZER.ADAM.LR = 0.0001
-    cfg.EVAL.RUN_EVERY_N_EPOCHS = 10
+    cfg.EVAL.RUN_EVERY_N_EPOCHS = every
     cfg.EVAL.CKPT_EVERY_N_STEPS = 96
     cfg.LOGGER.LOG_METRICS_EVERY_N_STEPS = 32
     cfg.LOGGER.LOG_IMAGES_EVERY_N_STEPS = 0
     cfg.SEED = 1000
-    cfg.OUTPUT_DIR = "runs/resq2" if dtype == "float32" else "runs/resbf16"
+    cfg.OUTPUT_DIR = {"res": "runs/resq2" if dtype == "float32"
+                      else "runs/resbf16",
+                      "se": "runs/seq2", "cbam": "runs/cbamq2"}[model]
     cfg.VERSION = 1
     return cfg

@@ -153,19 +153,22 @@ def test_init_params_seeded_torch_default():
 
 @pytest.mark.parametrize("change", [
     ("MODEL.META_ARCHITECTURE", "dslr-pgd"),   # the other DSLR modes build
-    ("MODEL.PARAMETERS.CONV_BLOCK.SEPARABLE", True),
-    ("MODEL.PARAMETERS.CONV_BLOCK.NORM", "instance"),
-    # bf16 builds for RES; the bf16 Swin trunk is not ported
+    # the diffusion trunks with the DC rules of their configs (the rules
+    # themselves are ported: tests/test_torch_solver_modes.py)
+    ("MODEL.MODEL_TYPE", "DIT", "MODEL.META_ARCHITECTURE", "ddpm_x"),
+    ("MODEL.MODEL_TYPE", "LATTE", "MODEL.META_ARCHITECTURE", "ddpm_e"),
+    # bf16 builds for RES, SE and CBAM; the bf16 Swin trunk is not ported
     ("MODEL.MODEL_TYPE", "SWIN", "MODEL.PARAMETERS.CONV_BLOCK.DTYPE",
      "bfloat16"),
-    ("MODEL.MODEL_TYPE", "SE"),
-    ("MODEL.MODEL_TYPE", "CBAM"),
+    ("MODEL.MODEL_TYPE", "SWIN_DIFF", "MODEL.META_ARCHITECTURE", "ddpm_x"),
+    ("MODEL.MODEL_TYPE", "SWIN", "MODEL.PARAMETERS.CONV_BLOCK.DTYPE",
+     "bfloat16", "MODEL.META_ARCHITECTURE", "modl"),
     ("MODEL.MODEL_TYPE", "SWIN_DIFF"),   # SWIN itself is ported
     ("MODEL.MODEL_TYPE", "DIT"),
     ("MODEL.MODEL_TYPE", "LATTE"),
-    ("MODEL.META_ARCHITECTURE", "modl"),
-    ("MODEL.META_ARCHITECTURE", "ddpm_x"),
-    ("MODEL.META_ARCHITECTURE", "ddpm_e"),
+    ("MODEL.MODEL_TYPE", "DIT", "MODEL.META_ARCHITECTURE", "ddpm"),
+    ("MODEL.MODEL_TYPE", "LATTE", "MODEL.META_ARCHITECTURE", "ddpm_x"),
+    ("MODEL.MODEL_TYPE", "DIT", "MODEL.META_ARCHITECTURE", "ddpm_e"),
 ])
 def test_unported_options_raise(change):
     cfg = _tiny(get_cfg())

@@ -352,7 +352,6 @@ def test_trainer_needs_cuda_or_explicit_cpu(monkeypatch):
     (("DATALOADER.DEVICE_PIPELINE", True), "Queue 1 item 7, the rest"),
     (("MODEL.PARAMETERS.PRETRAINED", "w.pth"), "swin_import"),
     (("MODEL.STRATEGY", "fsdp"), "Queue 1 item 12"),
-    (("MODEL.RECON_LOSS.NAME", "complex_vggloss"), "perceptual"),
 ])
 def test_unported_training_options_raise(change, match):
     cfg = swin_cfg()
@@ -484,6 +483,11 @@ TRAJECTORY_CASES = {
     "RES-accum-clip": ("configs/basic/example.yaml", _res_overrides() + [
         "OPTIMIZER.GRAD_ACCUM_ITERS", 2, "OPTIMIZER.GRAD_CLIP_VAL", 0.05],
         (8, 24, 24)),
+    # config_se.yaml at toy widths (RR 3), and its CBAM twin
+    "SE": ("configs/config_se.yaml", _res_overrides() + [
+        "MODEL.PARAMETERS.RR", 3], (8, 24, 24)),
+    "CBAM": ("configs/config_se.yaml", _res_overrides() + [
+        "MODEL.MODEL_TYPE", "CBAM", "MODEL.PARAMETERS.RR", 3], (8, 24, 24)),
     # config_swin.yaml narrowed as tests/test_torch_swin.py does
     "SWIN": ("configs/config_swin.yaml", [
         "MODEL.PARAMETERS.NUM_FEATURES", 16, "MODEL.PARAMETERS.NUM_UNROLLS", 2,
@@ -543,6 +547,8 @@ def test_train_package_imports_no_jax_subprocess():
         "import dl_swin_gan_tpu_torch.train\n"
         "import dl_swin_gan_tpu_torch.train.__main__\n"
         "import dl_swin_gan_tpu_torch.train.train_lr\n"
+        "import dl_swin_gan_tpu_torch.train.perceptual\n"
+        "import dl_swin_gan_tpu_torch.scripts.train_swin_gan\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'dl_swin_gan_tpu')]\n"
         "print(bad)\n"
