@@ -86,7 +86,19 @@ then exits non-zero and prints no result:
               with the discriminator as its own; val_step and the GAN
               checkpoint served through Reconstructor; one step at 1 unroll,
               stochastic depth off, held against the port's CPU step
- 12. result   one JSON line of kernels, then the last line
+ 12. pipeline the device-resident input pipeline (data/device_pipeline.py)
+              at the quality set's geometry (18x156x96 slices, 8 coils, 2
+              maps, readout cropped to 64) and configs/quality/se.yaml's
+              widths: (a) one seeded build on the card against the host
+              CinePreprocess of the same slice (masks bit for bit, the
+              rest within the JAX package's pipeline-test tolerances); (b)
+              the same with lr_decom at config_dslr.yaml's 16x16 blocks and
+              8 basis vectors, L R^H compared, the batched SVD timed; (c)
+              PIPE_STEPS timed Trainer steps fed by each loader, the host
+              DataLoader and the pipeline, with the float32 trunk and a
+              bfloat16 one: steps/s, the device's busy share, 9
+              SENSE-normal launches per step asserted
+ 13. result   one JSON line of kernels, then the last line
               {"ok": true, "device": {...}}
 
 Needs one CUDA device, nvcc and this checkout; no network, no JAX.
@@ -108,9 +120,16 @@ import torch
 
 from dl_swin_gan_tpu_torch import bench
 from dl_swin_gan_tpu_torch.convert import init_params
-from dl_swin_gan_tpu_torch.data import DataLoader, cfl
+from dl_swin_gan_tpu_torch.data import (
+    CinePreprocess, DataLoader, cfl,
+)
+from dl_swin_gan_tpu_torch.data.device_pipeline import (
+    DevicePipeline, DevicePipelineLoader,
+)
 from dl_swin_gan_tpu_torch.data.host_ops import fftmod
-from dl_swin_gan_tpu_torch.data.synthetic import make_cine_example
+from dl_swin_gan_tpu_torch.data.synthetic import (
+    make_cine_example, quality_split,
+)
 from dl_swin_gan_tpu_torch.infer.evaluate import evaluate_volumes
 from dl_swin_gan_tpu_torch.infer.reconstruct import (
     Reconstructor, accel_transform, batched, load_checkpoint_params,
@@ -124,7 +143,7 @@ from dl_swin_gan_tpu_torch.kernels import llr_normal as LN
 from dl_swin_gan_tpu_torch.kernels import sense_normal as SN
 from dl_swin_gan_tpu_torch.kernels import window_attn as WA
 from dl_swin_gan_tpu_torch.models.swin import compute_shift_mask
-from dl_swin_gan_tpu_torch.ops.llr import BlockOp
+from dl_swin_gan_tpu_torch.ops.llr import BlockOp, compose, decompose
 from dl_swin_gan_tpu_torch.ops.masks import VDktMaskFunc
 from dl_swin_gan_tpu_torch.ops.sense import _adjoint_impl, _forward_impl
 from dl_swin_gan_tpu_torch.models.swin import DropPath
@@ -191,6 +210,19 @@ SE_TRAIN_STEPS = 3
 # the gan phase: timed steps, and the losses it reads
 GAN_STEPS = 3
 GAN_KEYS = ("Train/disc_loss", "Train/adv_loss", "Train/complex_l1")
+# the pipeline phase: the quality set's first PIPE_FILES train files (4
+# slices each), PIPE_WARMUP untimed and PIPE_STEPS timed Trainer steps per
+# loader, then PIPE_PROFILE_STEPS profiled ones; the device build in
+# complex64 against the host's complex128 CinePreprocess to the JAX package's
+# tests/test_device_pipeline.py tolerances (its L R^H: the SVD's sums in
+# other orders)
+PIPE_FILES = 3
+PIPE_WARMUP = 2
+PIPE_STEPS = 20
+PIPE_PROFILE_STEPS = 5
+PIPE_RTOL = 2e-4
+PIPE_SCALE_RTOL = 1e-4
+PIPE_LR_RTOL = 2e-3
 # reconstruct_cfl vs Reconstructor on the same scanner arrays: the same
 # inputs through the same solver
 CFL_REL_L2_TOL = 1e-6
@@ -1530,6 +1562,192 @@ def phase_gan():
     return counts
 
 
+def _close(tag, key, got, ref, rtol, atol_rel):
+    """A device tensor within rtol of a numpy array elementwise, with an
+    absolute floor of atol_rel x max(max |ref|, 1) (the rule of
+    np.testing.assert_allclose); returns (max abs error, max |ref|)."""
+    diff = np.abs(got.cpu().numpy() - ref)
+    mag = float(np.abs(ref).max())
+    atol = atol_rel * max(mag, 1.0)
+    excess = float((diff - (atol + rtol * np.abs(ref))).max())
+    err = float(diff.max())
+    check(excess <= 0, f"{tag}: {key} max abs err {err:.3e} (max |ref| "
+          f"{mag:.3e}) outside rtol {rtol}, atol {atol:.3e}")
+    return err, mag
+
+
+def _pipe_build(tag, cfg, record, lr_decom=False):
+    """One seeded device build of a record's first slice on the card, and
+    the host CinePreprocess of it: the masks bit for bit. Returns (device
+    batch, host example, device ms, host ms)."""
+    name, k, m, t = record[0], record[1][0], record[2][0], record[3][0]
+    t0 = time.perf_counter()
+    host = CinePreprocess(cfg, use_seed=True, lr_decom=lr_decom)(k, m, t, name)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    pipe = DevicePipeline(cfg, use_seed=True, lr_decom=lr_decom)  # the GPU
+    check(pipe.device.type == "cuda", f"{tag}: pipeline on {pipe.device}")
+    raw = pipe.upload_raw(k, m)
+    params = pipe.draw_params(name, k.shape)
+    got = pipe.build(raw, params)
+    check(all(v.device.type == "cuda" for v in got.values()),
+          f"{tag}: a batch tensor off the card")
+    mask_equal = np.array_equal(got["mask"][0].cpu().numpy(), host["mask"])
+    print(f"{tag}: slice [{','.join(map(str, k.shape))}] of {name}, crop "
+          f"start {int(params['xs'])}, flips "
+          f"{params['flips'].astype(int).tolist()}; mask bit-equal to the "
+          f"host's: {mask_equal} ({int(host['mask'].sum())} samples)")
+    check(mask_equal, f"{tag}: device mask differs from the host's")
+    build_ms = cuda_ms(lambda: pipe.build(raw, params), runs=10)
+    return got, host, build_ms, host_ms
+
+
+def pipeline_parity(cfg, record):
+    """(a): one seeded build against the host CinePreprocess."""
+    got, host, build_ms, host_ms = _pipe_build("pipeline (a)", cfg, record)
+    scale_rel = abs(float(got["scale"][0]) - float(host["scale"])) / abs(
+        float(host["scale"]))
+    check(got["scale"].shape == (1,) and scale_rel <= PIPE_SCALE_RTOL,
+          f"pipeline (a): scale rel {scale_rel:.3e}")
+    parts = [f"scale rel {scale_rel:.3e}"]
+    for key in ("kspace", "maps", "target", "init_image"):
+        check(tuple(got[key].shape) == (1,) + host[key].shape,
+              f"pipeline (a): {key} {tuple(got[key].shape)}")
+        err, mag = _close("pipeline (a)", key, got[key][0], host[key],
+                          PIPE_RTOL, 2e-5)
+        parts.append(f"{key} max abs err {err:.3e} of {mag:.3e}")
+    print(f"pipeline (a): vs the host CinePreprocess (rtol {PIPE_RTOL}): "
+          + "; ".join(parts) + f"; device build {build_ms:.3f} ms (CUDA "
+          f"events), host preprocess {host_ms:.1f} ms (host clock)")
+
+
+def pipeline_lr_decom(cfg, record):
+    """(b): the build with lr_decom; L R^H against the host's, and the
+    batched SVD timed on the card."""
+    got, host, build_ms, host_ms = _pipe_build("pipeline (b)", cfg, record,
+                                               lr_decom=True)
+    p = cfg.MODEL.PARAMETERS
+    image_shape = (1,) + host["target"].shape
+    device = got["init_image"].device
+    ours = compose(got["L_init"][0], got["R_init"][0],
+                   BlockOp(p.DSLR.BLOCK_SIZE, image_shape, device=device))
+    ref = compose(host["L_init"], host["R_init"],
+                  BlockOp(p.DSLR.BLOCK_SIZE, image_shape, xp=np))
+    err, mag = _close("pipeline (b)", "L R^H", ours, ref, PIPE_LR_RTOL, 2e-4)
+    blocks = BlockOp(p.DSLR.BLOCK_SIZE, got["init_image"].shape,
+                     device=device).extract(got["init_image"])
+    svd_ms = cuda_ms(lambda: decompose(blocks, p.DSLR.NUM_BASIS), runs=10)
+    print(f"pipeline (b): lr_decom, {p.DSLR.BLOCK_SIZE}x{p.DSLR.BLOCK_SIZE} "
+          f"blocks, {p.DSLR.NUM_BASIS} basis vectors: L R^H vs the host's "
+          f"max abs err {err:.3e} of {mag:.3e} (rtol {PIPE_LR_RTOL}); "
+          f"torch.linalg.svd of {tuple(blocks.shape)} complex64 blocks "
+          f"{svd_ms:.3f} ms (CUDA events); device build {build_ms:.3f} ms, "
+          f"host preprocess with its numpy SVD {host_ms:.1f} ms")
+
+
+def _loader_steps(tag, trainer, state, loader, nsense):
+    """PIPE_WARMUP, then PIPE_STEPS timed Trainer steps fed by `loader`
+    (epochs repeated), with the SENSE-normal launches checked; then
+    PIPE_PROFILE_STEPS profiled steps (their device busy share printed).
+    Returns (launches in the timed steps, steps/s, seconds)."""
+    def batches():
+        while True:
+            yield from loader
+
+    it = batches()
+    try:
+        for _ in range(PIPE_WARMUP):
+            trainer.train_step(state, next(it))
+        torch.cuda.synchronize()
+        zero_counts()
+        losses = []
+        t0 = time.perf_counter()
+        for _ in range(PIPE_STEPS):
+            losses.append(trainer.train_step(state, next(it))[
+                "Train/complex_l1"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        losses = [float(x) for x in losses]
+        check(np.isfinite(losses).all(), f"{tag}: losses {losses}")
+        for name, n in counts.items():
+            want = nsense * PIPE_STEPS if name == "sense_normal" else 0
+            check(n == want, f"{tag}: {n} {name} launches in {PIPE_STEPS} "
+                  f"steps, expected {want}")
+        profile_device(
+            f"{tag}: {PIPE_PROFILE_STEPS} steps",
+            lambda: [trainer.train_step(state, next(it))
+                     for _ in range(PIPE_PROFILE_STEPS)])
+    finally:
+        it.close()
+    return counts, PIPE_STEPS / seconds, seconds
+
+
+def pipeline_loaders(cfg, files, counts):
+    """(c): Trainer steps fed by the host DataLoader and by the device
+    pipeline, each built by `Trainer._train_loader` as fit builds it (the
+    host one with DEVICE_PIPELINE off); the launches into `counts`."""
+    dtype = cfg.MODEL.PARAMETERS.CONV_BLOCK.DTYPE
+    trainer = Trainer(cfg)                      # the GPU: no device given
+    check(trainer.device.type == "cuda", f"Trainer on {trainer.device}")
+    check(trainer._use_device_pipeline(), "DEVICE_PIPELINE not selected")
+    state = trainer.init_state(state_dict=init_params(cfg, SEED))
+    nsense = 2 * cfg.MODEL.PARAMETERS.NUM_UNROLLS - 1
+    host_cfg = cfg.clone()
+    host_cfg.defrost()
+    host_cfg.DATALOADER.DEVICE_PIPELINE = False
+    host_cfg.freeze()
+    host = Trainer(host_cfg)._train_loader(None, files)
+    check(isinstance(host, DataLoader), f"host leg got {type(host)}")
+    t0 = time.perf_counter()
+    pipe = trainer._train_loader(None, files)
+    check(isinstance(pipe, DevicePipelineLoader), f"pipeline got {type(pipe)}")
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    rates = {}
+    for label, loader in (("host loader", host), ("pipeline", pipe)):
+        tag = f"pipeline (c) {dtype} {label}"
+        launched, rates[label], seconds = _loader_steps(
+            tag, trainer, state, loader, nsense)
+        for name, n in launched.items():
+            counts[name][f"{label} steps {dtype}"] = n
+        print(f"{tag}: {rates[label]:.3f} steps/s ({PIPE_STEPS} steps in "
+              f"{seconds:.3f} s), {launched['sense_normal'] // PIPE_STEPS} "
+              "sense_normal launches per step")
+    print(f"pipeline (c) {dtype}: {len(pipe)} slices uploaded in "
+          f"{upload_s:.2f} s; the pipeline "
+          f"{rates['pipeline'] / rates['host loader']:.2f}x the host "
+          "loader's steps/s")
+    del trainer, state, pipe
+    torch.cuda.empty_cache()
+
+
+def phase_pipeline():
+    """The device-resident input pipeline on the card: (a) and (b) against
+    the host CinePreprocess, (c) both loaders feeding Trainer, with the SE
+    row's float32 trunk and with a bfloat16 one (a step short enough that
+    the host loader bounds it)."""
+    dslr = dslr_cfg().MODEL.PARAMETERS.DSLR
+    cfgs = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = quality_cfg(dtype, model="se")
+        cfg.OUTPUT_DIR = str(RUNS)
+        cfg.MODEL.PARAMETERS.DSLR.BLOCK_SIZE = dslr.BLOCK_SIZE
+        cfg.MODEL.PARAMETERS.DSLR.NUM_BASIS = dslr.NUM_BASIS
+        cfg.freeze()
+        cfgs[dtype] = cfg
+    t0 = time.perf_counter()
+    files = quality_split("train", PIPE_FILES)
+    print(f"pipeline: {PIPE_FILES} quality-set train files "
+          f"({sum(len(f[1]) for f in files)} slices) made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    pipeline_parity(cfgs["float32"], files[0])
+    pipeline_lr_decom(cfgs["float32"], files[0])
+    counts = {name: {} for name in COUNTERS}
+    for cfg in cfgs.values():
+        pipeline_loaders(cfg, files, counts)
+    return counts
+
+
 def _entry(name, source, replaces, res, launches):
     """One kernel's item of the `kernels` line: the numbers of its headline
     variant, then every variant it was measured at."""
@@ -1562,7 +1780,8 @@ def main():
     counts = {"main": phase_main(), "swin": phase_swin(),
               "train": phase_train(), "dslr": phase_dslr(),
               "headline": phase_headline(), "se": phase_se(),
-              "modl": phase_modl(), "gan": phase_gan()}
+              "modl": phase_modl(), "gan": phase_gan(),
+              "pipeline": phase_pipeline()}
 
     def by_path(name):
         return {path: c[name] for path, c in counts.items()}

@@ -1,8 +1,9 @@
 """Default config tree, key-compatible with `config/defaults.py` in the JAX
 package so the same YAML files load in both. Only `MODEL.DEVICE` differs in
-value ("cuda"). The PARALLEL node and DATALOADER.PREFETCH /
-DEVICE_PIPELINE are kept for key compatibility; this package's
-reconstruction path does not read them.
+value ("cuda"). The PARALLEL node is kept for key compatibility; this
+package does not read it. DATALOADER.DEVICE_PIPELINE feeds training at
+TRAIN_BATCH_SIZE 1 from `data/device_pipeline.py`, and DATALOADER.PREFETCH
+is the host loader's prefetch depth.
 """
 
 from dl_swin_gan_tpu_torch.config.config import CfgNode as CN

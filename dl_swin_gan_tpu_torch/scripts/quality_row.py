@@ -7,10 +7,12 @@ Counterpart of `scripts/quality_row.py` beside the JAX package (kinds
 memory (`data.synthetic.quality_split`, the files
 `datasets/make_quality_set.sh` writes), so it needs neither h5py nor
 pyyaml: the config is `utils.headline.quality_cfg(--dtype, --model)`
-(`configs/quality/resnet.yaml` or `resnet_bf16.yaml`; `se.yaml` or
-`cbam.yaml` with --model se or cbam) with KEY VALUE overrides. Under --out
-it writes `<exam>_1accel.im` and `<exam>_<R>accel.im`
-CFLs and `eval_<R>accel.csv` (scripts/evaluate.py).
+(`configs/quality/resnet.yaml` or `resnet_bf16.yaml`; `se.yaml`,
+`cbam.yaml`, `swin.yaml` or `swingan.yaml` with --model se, cbam, swin or
+swingan) with KEY VALUE overrides. Training batches are built on the device
+(DATALOADER.DEVICE_PIPELINE, as the YAMLs set it); swingan trains through
+GANTrainer. Under --out it writes `<exam>_1accel.im` and
+`<exam>_<R>accel.im` CFLs and `eval_<R>accel.csv` (scripts/evaluate.py).
 
     # train the row's network first (the config's 40 epochs on the train
     # and validate splits, checkpoints under <out>/train), then score it
@@ -19,6 +21,10 @@ CFLs and `eval_<R>accel.csv` (scripts/evaluate.py).
     # the SE row at the JAX row's 40 epochs (se.yaml says 24)
     python -m dl_swin_gan_tpu_torch.scripts.quality_row --kind unrolled \\
         --model se --train --max-epochs 40 --out runs/torch_quality/se
+    # the SwinGAN row at the adversarial weight of the JAX row's retrain
+    python -m dl_swin_gan_tpu_torch.scripts.quality_row --kind unrolled \\
+        --model swingan --train --max-epochs 40 \\
+        --out runs/torch_quality/swingan MODEL.GAN.ADV_WEIGHT 0.003
     # score a checkpoint of the port's trainer
     python -m dl_swin_gan_tpu_torch.scripts.quality_row --kind unrolled \\
         --ckpt runs/x/checkpoints --out runs/x/recon
@@ -59,7 +65,7 @@ def _cut(args) -> dict:
 def train(cfg, args, device):
     """Fit cfg on the in-memory train and validate splits; returns the
     checkpoint directory and the final step."""
-    from dl_swin_gan_tpu_torch.train import Trainer
+    from dl_swin_gan_tpu_torch.train import GANTrainer, Trainer
 
     cut = _cut(args)
     t0 = time.perf_counter()
@@ -67,7 +73,8 @@ def train(cfg, args, device):
     val_files = quality_split("validate", args.files, **cut)
     logger.info("quality set: %d train and %d validate files in %.1f s",
                 len(train_files), len(val_files), time.perf_counter() - t0)
-    trainer = Trainer(cfg, device=device)
+    trainer_cls = GANTrainer if args.model == "swingan" else Trainer
+    trainer = trainer_cls(cfg, device=device)
     state = trainer.fit(max_epochs=args.max_epochs, train_data=train_files,
                         val_data=val_files)
     return os.path.join(cfg.OUTPUT_DIR, "checkpoints"), state.step
@@ -80,8 +87,10 @@ def main(argv=None):
     parser.add_argument("--dtype", default="float32",
                         choices=["float32", "bfloat16"],
                         help="CONV_BLOCK.DTYPE: resnet.yaml or resnet_bf16.yaml")
-    parser.add_argument("--model", default="res", choices=["res", "se", "cbam"],
-                        help="the denoiser: resnet.yaml, se.yaml or cbam.yaml")
+    parser.add_argument("--model", default="res",
+                        choices=["res", "se", "cbam", "swin", "swingan"],
+                        help="the network: resnet.yaml, se.yaml, cbam.yaml, "
+                             "swin.yaml or swingan.yaml")
     parser.add_argument("--train", action="store_true",
                         help="train the network first (kind unrolled)")
     parser.add_argument("--ckpt", default=None,

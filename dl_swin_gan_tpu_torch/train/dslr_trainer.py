@@ -1,10 +1,11 @@
 """DSLR trainer: unrolled low-rank alternating minimisation over (L, R).
 
 Counterpart of `train/dslr_trainer.py` in the JAX package (the reference's
-`scripts/train_lr.py`). The preprocess runs with lr_decom=True (L_init and
-R_init from a truncated SVD of the sliding-window init), the BlockOp is
-built per step from the target's shape, and the modslr lambdas are logged
-by the base trainer's `_extra_metrics`.
+`scripts/train_lr.py`). The preprocess, on the host or on the device, runs
+with lr_decom=True (L_init and R_init from a truncated SVD of the
+sliding-window init), the BlockOp is built per step from the target's
+shape, and the modslr lambdas are logged by the base trainer's
+`_extra_metrics`.
 
 The solver runs one example at a time, as the reference does (batch 1);
 for B > 1 the trainer loops over the examples and stacks the results, where
@@ -29,6 +30,10 @@ class DSLRTrainer(Trainer):
 
     def build_model(self, generator: torch.Generator) -> torch.nn.Module:
         return build_dslr_solver(self.cfg, generator=generator)
+
+    def _device_pipeline_kwargs(self) -> dict:
+        # L_init/R_init from the truncated block SVD on the device
+        return {"lr_decom": True}
 
     def make_preprocess(self, aug_node=None, use_seed=False):
         return CinePreprocess(self.cfg, aug_node=aug_node, use_seed=use_seed,

@@ -28,8 +28,10 @@ GANTrainer.
 network (f32, or with a bfloat16 conv trunk) trained on the synthetic quality
 set (18x156x96 slices, `data/synthetic.quality_split`) for 40 epochs and
 scored at 12x; `configs/quality/se.yaml` and `cbam.yaml` the gated trunks
-(1 resblock x 96 features) on the same set; `scripts/quality_row.py` trains
-and scores them.
+(1 resblock x 96 features), `swin.yaml` the unrolled Swin (3 unrolls x 1
+swinblock x 96 features) and `swingan.yaml` the same generator with a
+32-feature PatchGAN discriminator, on the same set; `scripts/quality_row.py`
+trains and scores them.
 """
 
 
@@ -203,36 +205,46 @@ def dslr_cfg(output_dir: str = "runs/dslr"):
     return cfg
 
 
-# quality_cfg's model -> (MODEL_TYPE, NUM_RESBLOCKS, NUM_FEATURES,
-# MAX_EPOCHS, EVAL.RUN_EVERY_N_EPOCHS) of its YAML
-_QUALITY_MODELS = {"res": ("RES", 2, 64, 40, 10),
-                   "se": ("SE", 1, 96, 24, 8),
-                   "cbam": ("CBAM", 1, 96, 24, 8)}
+# quality_cfg's model -> (MODEL_TYPE, NUM_UNROLLS, NUM_RESBLOCKS,
+# NUM_FEATURES, MAX_EPOCHS, EVAL.RUN_EVERY_N_EPOCHS, OUTPUT_DIR) of its YAML
+_QUALITY_MODELS = {"res": ("RES", 5, 2, 64, 40, 10, "runs/resq2"),
+                   "se": ("SE", 5, 1, 96, 24, 8, "runs/seq2"),
+                   "cbam": ("CBAM", 5, 1, 96, 24, 8, "runs/cbamq2"),
+                   "swin": ("SWIN", 3, 2, 96, 20, 10, "runs/swinq2"),
+                   "swingan": ("SWIN", 3, 2, 96, 40, 10, "runs/sganq3")}
 
 
 def quality_cfg(dtype: str = "float32", model: str = "res"):
     """A quality row's config built in code (no YAML): every field its YAML
-    sets, but one. `model` "res" is `configs/quality/resnet.yaml` (float32)
-    or `resnet_bf16.yaml` (bfloat16); "se" and "cbam" are
-    `configs/quality/se.yaml` and `cbam.yaml` (float32 in their YAMLs).
-    DATALOADER.DEVICE_PIPELINE is False: the CUDA-resident pipeline is not
-    ported yet (ROADMAP.md Queue 1 item 7, the rest), so the host loader
-    feeds the trainer."""
+    sets. `model` "res" is `configs/quality/resnet.yaml` (float32) or
+    `resnet_bf16.yaml` (bfloat16); "se", "cbam", "swin" and "swingan" are
+    `configs/quality/se.yaml`, `cbam.yaml`, `swin.yaml` and `swingan.yaml`
+    (float32 in their YAMLs). Like every quality YAML it sets
+    DATALOADER.DEVICE_PIPELINE: training batches are built on the device."""
     from dl_swin_gan_tpu_torch.config import get_cfg
 
     if dtype not in ("float32", "bfloat16"):
         raise ValueError(f"quality_cfg: dtype {dtype!r}")
     if model not in _QUALITY_MODELS:
         raise ValueError(f"quality_cfg: model {model!r}")
-    model_type, nres, features, epochs, every = _QUALITY_MODELS[model]
+    (model_type, unrolls, nres, features, epochs, every,
+     output_dir) = _QUALITY_MODELS[model]
     cfg = get_cfg()
     cfg.MODEL.MODEL_TYPE = model_type
     cfg.MODEL.META_ARCHITECTURE = "dlespirit"
+    if model == "swingan":
+        g = cfg.MODEL.GAN
+        g.ADV_WEIGHT = 0.01
+        g.DISC_FEATURES = 32
+        g.DISC_LAYERS = 3
+        g.DISC_LR = 0.0002
     p = cfg.MODEL.PARAMETERS
-    p.NUM_UNROLLS = 5
+    p.NUM_UNROLLS = unrolls
     p.NUM_RESBLOCKS = nres
+    if model_type == "SWIN":
+        p.NUM_SWINBLOCKS = 1
     p.NUM_FEATURES = features
-    if model != "res":
+    if model_type in ("SE", "CBAM"):
         p.RR = 16
     p.NUM_EMAPS = 2
     p.SHARE_WEIGHTS = False
@@ -249,7 +261,7 @@ def quality_cfg(dtype: str = "float32", model: str = "res"):
     cfg.DATASET.TRAIN = ("runs/quality/data/train",)
     cfg.DATASET.VAL = ("runs/quality/data/validate",)
     cfg.DATALOADER.NUM_WORKERS = 8
-    cfg.DATALOADER.DEVICE_PIPELINE = False
+    cfg.DATALOADER.DEVICE_PIPELINE = True
     cfg.DATALOADER.TRAIN_BATCH_SIZE = 1
     cfg.DATALOADER.VAL_BATCH_SIZE = 1
     for aug in (cfg.AUG_TRAIN, cfg.AUG_VAL):
@@ -267,8 +279,7 @@ def quality_cfg(dtype: str = "float32", model: str = "res"):
     cfg.LOGGER.LOG_METRICS_EVERY_N_STEPS = 32
     cfg.LOGGER.LOG_IMAGES_EVERY_N_STEPS = 0
     cfg.SEED = 1000
-    cfg.OUTPUT_DIR = {"res": "runs/resq2" if dtype == "float32"
-                      else "runs/resbf16",
-                      "se": "runs/seq2", "cbam": "runs/cbamq2"}[model]
+    cfg.OUTPUT_DIR = ("runs/resbf16" if model == "res" and dtype == "bfloat16"
+                      else output_dir)
     cfg.VERSION = 1
     return cfg

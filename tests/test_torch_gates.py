@@ -288,22 +288,19 @@ def test_se_cfg_matches_config_se_yaml():
 
 
 @pytest.mark.parametrize("model,yaml", [("se", "se.yaml"),
-                                        ("cbam", "cbam.yaml")])
+                                        ("cbam", "cbam.yaml"),
+                                        ("swin", "swin.yaml"),
+                                        ("swingan", "swingan.yaml")])
 def test_gated_quality_cfg_matches_yaml(model, yaml):
-    """Field for field, but DATALOADER.DEVICE_PIPELINE (not ported)."""
+    """Field for field, DATALOADER.DEVICE_PIPELINE included."""
     ours = quality_cfg("float32", model=model)
     ref = load_cfg(str(REPO / "configs/quality" / yaml))
-    assert ref.DATALOADER.DEVICE_PIPELINE and not ours.DATALOADER.DEVICE_PIPELINE
+    assert ref.DATALOADER.DEVICE_PIPELINE and ours.DATALOADER.DEVICE_PIPELINE
     assert set(ours) == set(ref)
     for node in ref:
-        if node == "DATALOADER":
-            for key in ref.DATALOADER:
-                if key != "DEVICE_PIPELINE":
-                    assert ours.DATALOADER[key] == ref.DATALOADER[key], key
-        else:
-            assert ours[node] == ref[node], node
+        assert ours[node] == ref[node], node
 
 
 def test_quality_cfg_rejects_unknown_model():
     with pytest.raises(ValueError, match="model"):
-        quality_cfg(model="swin")
+        quality_cfg(model="latte")

@@ -30,17 +30,12 @@ CUT = dict(slices=2, T=6, Y=48, X=24, C=2)
 @pytest.mark.parametrize("dtype,yaml", [("float32", "resnet.yaml"),
                                         ("bfloat16", "resnet_bf16.yaml")])
 def test_quality_cfg_matches_yaml(dtype, yaml):
-    """Field for field, but DATALOADER.DEVICE_PIPELINE (not ported)."""
+    """Field for field, DATALOADER.DEVICE_PIPELINE included."""
     ours = quality_cfg(dtype)
     ref = load_cfg(str(REPO / "configs/quality" / yaml))
-    assert ref.DATALOADER.DEVICE_PIPELINE and not ours.DATALOADER.DEVICE_PIPELINE
+    assert ref.DATALOADER.DEVICE_PIPELINE and ours.DATALOADER.DEVICE_PIPELINE
     for node in ref:
-        if node == "DATALOADER":
-            for key in ref.DATALOADER:
-                if key != "DEVICE_PIPELINE":
-                    assert ours.DATALOADER[key] == ref.DATALOADER[key], key
-        else:
-            assert ours[node] == ref[node], node
+        assert ours[node] == ref[node], node
     assert set(ours) == set(ref)
 
 

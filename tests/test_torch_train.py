@@ -349,8 +349,6 @@ def test_trainer_needs_cuda_or_explicit_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("change,match", [
-    (("DATALOADER.DEVICE_PIPELINE", True), "Queue 1 item 7, the rest"),
-    (("MODEL.PARAMETERS.PRETRAINED", "w.pth"), "swin_import"),
     (("MODEL.STRATEGY", "fsdp"), "Queue 1 item 12"),
 ])
 def test_unported_training_options_raise(change, match):
@@ -358,6 +356,34 @@ def test_unported_training_options_raise(change, match):
     cfg.merge_from_list(list(change))
     with pytest.raises(NotImplementedError, match=match):
         Trainer(cfg, device="cpu")
+
+
+def test_device_pipeline_option_feeds_training():
+    """DATALOADER.DEVICE_PIPELINE, once refused, now selects the device
+    pipeline at batch 1 (tests/test_torch_device_pipeline.py fits through
+    it)."""
+    cfg = swin_cfg()
+    cfg.DATALOADER.DEVICE_PIPELINE = True
+    assert Trainer(cfg, device="cpu")._use_device_pipeline()
+    cfg.DATALOADER.DEVICE_PIPELINE = False
+    assert not Trainer(cfg, device="cpu")._use_device_pipeline()
+
+
+def test_pretrained_option_imports_swin_weights(tmp_path):
+    """MODEL.PARAMETERS.PRETRAINED, once refused, now seeds config_swin's
+    trunks from a 2D Swin checkpoint at init_state
+    (tests/test_torch_swin_import.py holds the import against JAX)."""
+    cfg = swin_cfg()
+    qkv = np.random.default_rng(0).standard_normal((480, 160)).astype("f")
+    path = str(tmp_path / "swin2d.pth")
+    torch.save({"model": {"layers.0.blocks.5.attn.qkv.weight":
+                          torch.from_numpy(qkv)}}, path)
+    cfg.MODEL.PARAMETERS.PRETRAINED = path
+    cfg.MODEL.PARAMETERS.NUM_UNROLLS = 2
+    model = Trainer(cfg, device="cpu").init_state().model
+    for net in model.nets:
+        np.testing.assert_array_equal(
+            net.trunks[0].layers[0].blocks[5].attn.qkv.weight.detach(), qkv)
 
 
 def test_swin_cfg_training_fields_match_yaml():
