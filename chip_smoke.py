@@ -98,7 +98,39 @@ then exits non-zero and prints no result:
               DataLoader and the pipeline, with the float32 trunk and a
               bfloat16 one: steps/s, the device's busy share, 9
               SENSE-normal launches per step asserted
- 13. result   one JSON line of kernels, then the last line
+ 13. diffusion the DDPM_X diffusion paths (no SENSE-normal or LLR launch:
+              their DC step calls the SENSE forward and adjoint): (a) Latte
+              at configs/quality/latte2.yaml's full widths (2 shared
+              unrolls, 12 layers, 192 hidden, 6 heads, patch 4; seeded
+              random weights, the zero-init layers included) served by
+              DiffusionReconstructor on main's 4 slices at DIFF_SAMPLE_STEPS
+              sampling steps, batch 1 and 4, ms per slice and peak memory,
+              one 2-step sampling run's device time by group; one slice at
+              2 steps held against the port's CPU path with the same noise;
+              (b) DiffusionTrainer at the quality geometry through the
+              device pipeline (its diffusion batches): 1 warm-up and
+              DIFF_TRAIN_STEPS timed steps at batch 1, one profiled step
+              (busy share), DIFF_DRAW_ROUNDS alternating rounds of steps
+              with t and noise drawn on the card and drawn on the host
+              and copied in, one step held against the CPU path on the
+              same t and noise (loss 1e-4; gradients, and the change of an
+              EMA of decay DIFF_CHECK_EMA_DECAY against its rule on each
+              device and against the CPU's, 1e-3); (c)
+              configs/quality/dit.yaml: 1 warm-up and 1 timed train step
+              and a DIFF_SHORT_STEPS sampling run; (d) SwinDiff (1
+              swinblock of SWINDIFF_LAYERS layers, 96 features, 4 heads, 2
+              shared unrolls): a served batch of 4 (window-attention
+              launches: sampling steps x unrolls x layers, asserted), its
+              slice 0 against the CPU path, and one train step (forward
+              and backward launches per unroll and layer, asserted) held
+              against the CPU path as in (b) but for the EMA's change
+              against the CPU's (its cuDNN gradient agrees to 5e-5 to
+              2e-4, which Adam's first step makes 5e-3 to 1e-2); the
+              window-attention inputs of that step (head_dim 24, unshifted
+              and shifted) through the forward and backward kernels
+              against their plain versions, added to the kernels line as
+              the "swindiff train" variants
+ 14. result   one JSON line of kernels, then the last line
               {"ok": true, "device": {...}}
 
 Needs one CUDA device, nvcc and this checkout; no network, no JAX.
@@ -132,8 +164,8 @@ from dl_swin_gan_tpu_torch.data.synthetic import (
 )
 from dl_swin_gan_tpu_torch.infer.evaluate import evaluate_volumes
 from dl_swin_gan_tpu_torch.infer.reconstruct import (
-    Reconstructor, accel_transform, batched, load_checkpoint_params,
-    reconstruct_cfl, reconstruct_examples,
+    DiffusionReconstructor, Reconstructor, accel_transform, batched,
+    load_checkpoint_params, reconstruct_cfl, reconstruct_examples,
 )
 from dl_swin_gan_tpu_torch.infer.transforms import (
     PARITY_SEED, InferenceTransform, ResampleTransform,
@@ -142,13 +174,14 @@ from dl_swin_gan_tpu_torch.kernels import _build
 from dl_swin_gan_tpu_torch.kernels import llr_normal as LN
 from dl_swin_gan_tpu_torch.kernels import sense_normal as SN
 from dl_swin_gan_tpu_torch.kernels import window_attn as WA
+from dl_swin_gan_tpu_torch.models import swin as swin_module
 from dl_swin_gan_tpu_torch.models.swin import compute_shift_mask
 from dl_swin_gan_tpu_torch.ops.llr import BlockOp, compose, decompose
 from dl_swin_gan_tpu_torch.ops.masks import VDktMaskFunc
 from dl_swin_gan_tpu_torch.ops.sense import _adjoint_impl, _forward_impl
 from dl_swin_gan_tpu_torch.models.swin import DropPath
 from dl_swin_gan_tpu_torch.train import (
-    CheckpointManager, DSLRTrainer, GANTrainer, Trainer,
+    CheckpointManager, DiffusionTrainer, DSLRTrainer, GANTrainer, Trainer,
 )
 from dl_swin_gan_tpu_torch.utils.device import use_ieee_fp32
 from dl_swin_gan_tpu_torch.utils.headline import (
@@ -223,6 +256,23 @@ PIPE_PROFILE_STEPS = 5
 PIPE_RTOL = 2e-4
 PIPE_SCALE_RTOL = 1e-4
 PIPE_LR_RTOL = 2e-3
+# the diffusion phase: sampling steps of the served Latte (the
+# DiffusionReconstructor's default), timed train steps, the short DiT and
+# SwinDiff sampling runs, the SwinDiff trunk's depth, and the scale of the
+# seeded random weights (the adaLN and final layers are zero at init)
+DIFF_SAMPLE_STEPS = 100
+DIFF_TRAIN_STEPS = 4
+DIFF_SHORT_STEPS = 3
+SWINDIFF_LAYERS = 2
+DIFF_WEIGHT_NOISE = 0.02
+# the EMA decay of the GPU-vs-CPU train step: at the trainer's 0.9999 one
+# step moves the EMA by 1e-4 of the update, below float32's resolution of
+# the weights, so the check compares the EMA's change at a decay that moves
+# it visibly
+DIFF_CHECK_EMA_DECAY = 0.5
+# rounds of the Latte steps with t and noise drawn on the card against
+# drawn on the host and copied in (alternating, over the timed batches)
+DIFF_DRAW_ROUNDS = 4
 # reconstruct_cfl vs Reconstructor on the same scanner arrays: the same
 # inputs through the same solver
 CFL_REL_L2_TOL = 1e-6
@@ -637,6 +687,78 @@ def kernels_window_attention_bwd():
                   f"{flops / ms / 1e9:.2f} TFLOP/s, {bound / ms:.1%} of the "
                   "3xTF32 bound")
     return results
+
+
+def kernels_attention_at(tag, masked, q, k, v, bias, mask):
+    """The forward and backward window-attention kernels against their plain
+    versions on the inputs a path gave them (a seeded cotangent for the
+    backward): ({forward numbers}, {backward numbers}) as the kernels line's
+    variants, with SDPA's forward and backward as the library call."""
+    W, H, N, D = q.shape
+    nW = mask.shape[0] if masked else 0
+    g = torch.from_numpy(np.random.RandomState(SEED + 3).standard_normal(
+        tuple(q.shape)).astype(np.float32)).cuda()
+    out, lse = WA.window_attention_fwd(q, k, v, bias, mask)
+
+    def backward():
+        return WA.window_attention_bwd(q, k, v, bias, mask, g, out, lse)
+
+    grads, again = backward(), backward()
+    plain_out = WA.window_attention_plain(q, k, v, bias, mask)
+    plain = WA.window_attention_bwd_plain(q, k, v, bias, mask, g)
+    torch.cuda.synchronize()
+    at = f"{tag} [{W},{H},{N},{D}] mask={'shift' if masked else 'none'}"
+    fwd_abs = (out - plain_out).abs().max().item()
+    fwd_rel = fwd_abs / plain_out.abs().max().item()
+    check(torch.isfinite(out).all().item() and fwd_rel <= KERNEL_REL_TOL,
+          f"window_attention vs plain rel err {fwd_rel:.3e} at {at}")
+    rels, bwd_abs = {}, 0.0
+    for name, a, b, c in zip(("dq", "dk", "dv", "dbias"), grads, plain,
+                             again):
+        check(torch.isfinite(a).all().item() and torch.equal(a, c),
+              f"backward {name} not finite or not repeatable at {at}")
+        err = (a - b).abs().max().item()
+        rels[name] = err / b.abs().max().item()
+        bwd_abs = max(bwd_abs, err)
+        check(rels[name] <= KERNEL_REL_TOL, f"backward {name} vs plain rel "
+              f"err {rels[name]:.3e} > {KERNEL_REL_TOL} at {at}")
+
+    full = bias[None] + (mask.repeat(W // nW, 1, 1)[:, None] if masked
+                         else 0)
+    full = full.expand(W, H, N, N).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library = sdpa_backward(q, k, v, bias, mask, g)
+    results = []
+    for work, kernel, plain_fn, library_fn, max_abs, rel in (
+            (_attention_work,
+             lambda: WA.window_attention_fwd(q, k, v, bias, mask,
+                                             with_lse=False),
+             lambda: WA.window_attention_plain(q, k, v, bias, mask),
+             lambda: sdpa(q, k, v, attn_mask=full), fwd_abs, fwd_rel),
+            (_attention_bwd_work, backward,
+             lambda: WA.window_attention_bwd_plain(q, k, v, bias, mask, g),
+             library, bwd_abs, max(rels.values()))):
+        flops, nbytes = work(W, H, N, D, nW)
+        t_ops = flops / (TF32_FLOPS / 3) * 1e3     # 3xTF32
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound = max(t_ops, t_bytes)
+        ms = cuda_ms(kernel)
+        results.append(dict(
+            max_abs_err=max_abs, rel_err=rel, ms=ms,
+            plain_ms=cuda_ms(plain_fn), library_ms=cuda_ms(library_fn),
+            bound_ms=bound,
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            bound_share=bound / ms, gflop=flops / 1e9, mbytes=nbytes / 1e6))
+    fwd, bwd = results
+    bwd["rel_err_by_grad"] = rels
+    for what, r in (("window_attention", fwd),
+                    ("window_attention_bwd", bwd)):
+        print(f"kernel {what} at {at}: max|k-p|/max|p| {r['rel_err']:.3e} "
+              f"(max abs {r['max_abs_err']:.3e}) kernel_ms {r['ms']:.4f} "
+              f"plain_ms {r['plain_ms']:.4f} library_ms "
+              f"{r['library_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
+              f"({r['bound_by']}; {r['bound_share']:.1%} of the bound)")
+    return fwd, bwd
 
 
 def _llr_work(S, op, C, w2):
@@ -1748,6 +1870,301 @@ def phase_pipeline():
     return counts
 
 
+def _diffusion_params(cfg):
+    """The solver's seeded torch-default init plus seeded noise of scale
+    DIFF_WEIGHT_NOISE on every tensor: the adaLN, FiLM and final layers are
+    zero at init, and a zero-output network would check nothing."""
+    g = torch.Generator().manual_seed(SEED + 1)
+    return {k: v + DIFF_WEIGHT_NOISE * torch.randn(v.shape, generator=g)
+            for k, v in init_params(cfg, SEED).items()}
+
+
+def _cpu_randn(seed, device):
+    """A randn(shape, dtype) drawing from a CPU generator, moved to
+    `device`: the same noise on the card and on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+    return lambda shape, dtype: torch.randn(shape, dtype=dtype,
+                                            generator=g).to(device)
+
+
+def _diffusion_cfg(model):
+    cfg = quality_cfg(model=model)
+    cfg.OUTPUT_DIR = str(RUNS)
+    cfg.freeze()
+    return cfg
+
+
+def _swindiff_cfg():
+    """A SwinDiff solver at latte2.yaml's geometry and rule, its trunk cut
+    to SWINDIFF_LAYERS layers: 96 features (SwinDiffNet's own width), 4
+    heads of 24."""
+    cfg = quality_cfg(model="latte2")
+    cfg.MODEL.MODEL_TYPE = "SWIN_DIFF"
+    cfg.OUTPUT_DIR = str(RUNS)
+    p = cfg.MODEL.PARAMETERS
+    p.NUM_SWINBLOCKS, p.NUM_LAYERS = 1, SWINDIFF_LAYERS
+    p.NUM_FEATURES, p.NUM_HEADS = 96, 4
+    cfg.freeze()
+    return cfg
+
+
+def _serve_diffusion(tag, cfg, params, examples, steps, expected, counts,
+                     batch_sizes=(1, 4)):
+    """DiffusionReconstructor on the card over `examples` at `steps`
+    sampling steps and each batch size: launches per batch checked against
+    `expected` (per sampling step), ms per slice, peak memory; slice 0 at 2
+    steps held against the CPU path with the same noise."""
+    E, T, Y, X = examples[0]["init_image"].shape
+    recon = DiffusionReconstructor(cfg, params, sample_steps=steps)
+    check(recon.device.type == "cuda", f"{tag} on {recon.device}")
+    torch.cuda.reset_peak_memory_stats()
+    out = None
+    for bs in batch_sizes:
+        zero_counts()
+        got, sec = _time_recon(recon, examples, bs, repeats=1)
+        nbatch = -(-len(examples) // bs)
+        for name, n in read_counts().items():
+            counts[name][f"{tag} serve batch {bs}"] = n
+            want = expected.get(name, 0) * steps * nbatch
+            check(n == want, f"{tag} batch {bs}: {n} {name} launches, "
+                  f"expected {want}")
+        check(got.shape == (len(examples), E, T, Y, X)
+              and np.isfinite(got).all(), f"{tag} output {got.shape}")
+        out = got if out is None else out
+        print(f"{tag} serve batch {bs}: {sec / len(examples) * 1e3:.2f} ms "
+              f"per slice at {steps} sampling steps "
+              f"({sec / len(examples) / steps * 1e3:.3f} ms per step)")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{tag}: peak device memory {peak_gb:.2f} GB")
+
+    batch = next(batched(examples[:1], 1))
+    short = DiffusionReconstructor(cfg, params, sample_steps=2)
+    profile_device(f"{tag}: one slice, 2 sampling steps", lambda: short(batch))
+    short.randn = _cpu_randn(SEED, recon.device)
+    gpu = short(batch)
+    cpu_recon = DiffusionReconstructor(cfg, params, sample_steps=2,
+                                       device="cpu",
+                                       randn=_cpu_randn(SEED, "cpu"))
+    t0 = time.perf_counter()
+    cpu = cpu_recon(batch)
+    rel = np.linalg.norm(gpu - cpu) / np.linalg.norm(cpu)
+    print(f"{tag}: slice 0 at 2 sampling steps vs the port's CPU path "
+          f"({time.perf_counter() - t0:.1f} s on the CPU), the same noise: "
+          f"rel L2 {rel:.3e}")
+    check(rel <= CPU_REL_L2_TOL, f"{tag} GPU vs CPU rel L2 {rel:.3e}")
+    return out
+
+
+def _with_gradient(name, p):
+    """The elements of a parameter that take a gradient: the key third of an
+    attention's qkv bias takes none in exact arithmetic (a constant added to
+    a query's logits leaves its softmax as it is), so its gradient is
+    roundoff, which Adam scales up."""
+    keep = torch.ones(p.shape, dtype=torch.bool)
+    if name.endswith("attn.qkv.bias"):
+        n = p.shape[0] // 3
+        keep[n:2 * n] = False
+    return keep
+
+
+def _diffusion_step(cfg, params, batch, device, t, noise):
+    """(loss, flat gradient, flat change of the EMA, how far that change is
+    from (1 - decay) times the parameters' change (rel L2), seconds) of one
+    DiffusionTrainer step from `params` at the given t and noise, with an
+    EMA of decay DIFF_CHECK_EMA_DECAY; the changes over the elements that
+    take a gradient."""
+    trainer = DiffusionTrainer(cfg, device=device,
+                               ema_decay=DIFF_CHECK_EMA_DECAY)
+    state = trainer.init_state(state_dict=params)
+    t0 = time.perf_counter()
+    loss = float(trainer.train_step(state, batch, t=t,
+                                    noise=noise)["Train MSE"])
+    seconds = time.perf_counter() - t0
+    grads, moved, stepped = [], [], []
+    for name, p in state.model.named_parameters():
+        if p.grad is None:
+            continue
+        grads.append(p.grad.flatten().cpu())
+        keep = _with_gradient(name, p)
+        moved.append((state.ema[name].cpu() - params[name])[keep])
+        stepped.append((p.detach().cpu() - params[name])[keep])
+    moved, stepped = torch.cat(moved), torch.cat(stepped)
+    rule = ((moved - (1 - DIFF_CHECK_EMA_DECAY) * stepped).norm()
+            / moved.norm()).item()
+    return loss, torch.cat(grads), moved, rule, seconds
+
+
+def _draws_ab(tag, trainer, state, batches, busy_ms):
+    """ms per train step with t and noise drawn on the card (the trainer's
+    own draws) and drawn on the host from a CPU generator and copied in
+    (given to train_step), in DIFF_DRAW_ROUNDS alternating rounds over
+    `batches`; the device's busy ms of a profiled step over each median."""
+    host = DiffusionTrainer(trainer.cfg, device="cpu")
+    times = {"card": [], "host": []}
+    for r in range(DIFF_DRAW_ROUNDS):
+        for mode in ("card", "host") if r % 2 == 0 else ("host", "card"):
+            for b in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                draws = ({} if mode == "card" else dict(zip(
+                    ("t", "noise"),
+                    host.draws(SEED + 7, state.step, b["target"]))))
+                trainer.train_step(state, b, **draws)
+                torch.cuda.synchronize()
+                times[mode].append(time.perf_counter() - t0)
+    ms = {mode: float(np.median(v)) * 1e3 for mode, v in times.items()}
+    print(f"{tag}: t and noise drawn on the card {ms['card']:.2f} ms per "
+          f"step, on the host and copied in {ms['host']:.2f} ms (medians "
+          f"of {len(times['card'])} steps each, alternating rounds); the "
+          f"profiled step's device {busy_ms:.2f} ms is "
+          f"{busy_ms / ms['card']:.1%} and {busy_ms / ms['host']:.1%} of "
+          "them")
+    return ms
+
+
+class _AttentionRecorder:
+    """Within `with`: the inputs (q, k, v, bias, mask) of the first
+    unshifted and the first shifted window-attention call of the Swin
+    blocks, by `masked`, copied."""
+
+    def __enter__(self):
+        self.seen = {}
+        self.real = swin_module.window_attention
+
+        def record(q, k, v, bias, mask=None):
+            self.seen.setdefault(mask is not None, tuple(
+                None if x is None else x.detach().clone()
+                for x in (q, k, v, bias, mask)))
+            return self.real(q, k, v, bias, mask)
+
+        swin_module.window_attention = record
+        return self
+
+    def __exit__(self, *exc):
+        swin_module.window_attention = self.real
+
+
+def _diffusion_train(tag, cfg, params, files, steps, expected, counts,
+                     cpu_check=False, ema_vs_cpu=False, draws_ab=False):
+    """DiffusionTrainer on the card fed by the device pipeline (diffusion
+    batches): 1 warm-up and `steps` timed steps, launches per step against
+    `expected`, one profiled step; with `draws_ab` the step with t and noise
+    drawn on the card against drawn on the host; with `cpu_check` one step
+    against the CPU: the loss, the gradient, the EMA's change against its
+    rule on each device, with `ema_vs_cpu` also against the CPU's change.
+    Adam's first step is about lr * sign(g), so the parameters' change, and
+    the EMA's, amplify the gradient's roundoff where g is near 0: hold them
+    to the CPU's only where the gradients agree far below the limit."""
+    trainer = DiffusionTrainer(cfg)                 # the GPU: no device given
+    check(trainer.device.type == "cuda", f"{tag} trainer on {trainer.device}")
+    loader = trainer._train_loader(None, files)
+    check(isinstance(loader, DevicePipelineLoader) and loader.pipe.diffusion,
+          f"{tag}: not fed by the device pipeline's diffusion batches")
+    trainer.set_steps_per_epoch(len(loader))
+    batches = []
+    while len(batches) < steps + 1:
+        batches.extend(loader)
+    batches = batches[:steps + 1]
+    check("kspace" not in batches[0] and batches[0]["mask_r"].is_cuda,
+          f"{tag}: pipeline batch keys {sorted(batches[0])}")
+    state = trainer.init_state(state_dict=params)
+    trained, ms, _, (groups, busy) = _timed_steps(
+        tag, trainer, state, batches, expected, ("Train MSE",))
+    for name, c in trained.items():
+        counts[name][f"{tag} steps"] = c["steps"]
+    if draws_ab:
+        _draws_ab(tag, trainer, state, batches[1:], busy)
+    del trainer, state
+    torch.cuda.empty_cache()
+    attention = {}
+    if cpu_check:
+        # the same t and noise on both devices, drawn on the CPU
+        t, noise = DiffusionTrainer(cfg, device="cpu").draws(
+            SEED + 7, 0, batches[0]["target"])
+        with _AttentionRecorder() as recorder:
+            gpu = _diffusion_step(cfg, params, batches[0],
+                                  batches[0]["maps"].device, t, noise)
+        cpu = _diffusion_step(cfg, params, batches[0], "cpu", t, noise)
+        rel_loss = abs(gpu[0] - cpu[0]) / abs(cpu[0])
+        rel_grad = ((gpu[1] - cpu[1]).norm() / cpu[1].norm()).item()
+        rel_ema = ((gpu[2] - cpu[2]).norm() / cpu[2].norm()).item()
+        print(f"{tag}: one step vs the port's CPU path ({cpu[4]:.1f} s on "
+              f"the CPU), the same t and noise: loss {gpu[0]:.6f} vs "
+              f"{cpu[0]:.6f} (rel {rel_loss:.3e}), gradient rel L2 "
+              f"{rel_grad:.3e} over {cpu[1].numel()} values; EMA (decay "
+              f"{DIFF_CHECK_EMA_DECAY}) change over {cpu[2].numel()} values "
+              f"(norm {cpu[2].norm():.3e}): from its rule rel L2 "
+              f"{gpu[3]:.3e} on the card, {cpu[3]:.3e} on the CPU; against "
+              f"the CPU's rel L2 {rel_ema:.3e}"
+              + ("" if ema_vs_cpu else " (not held: Adam's first step)"))
+        check(rel_loss <= TRAIN_LOSS_REL_TOL,
+              f"{tag} GPU vs CPU loss rel {rel_loss:.3e}")
+        check(rel_grad <= TRAIN_GRAD_REL_L2_TOL,
+              f"{tag} GPU vs CPU gradient rel L2 {rel_grad:.3e}")
+        check(gpu[2].norm() > 0 and cpu[2].norm() > 0
+              and max(gpu[3], cpu[3]) <= TRAIN_GRAD_REL_L2_TOL,
+              f"{tag}: the EMA's change from its rule {gpu[3]:.3e} on the "
+              f"card, {cpu[3]:.3e} on the CPU")
+        check(not ema_vs_cpu or rel_ema <= TRAIN_GRAD_REL_L2_TOL,
+              f"{tag} GPU vs CPU EMA change rel L2 {rel_ema:.3e}")
+        for masked, inputs in sorted(recorder.seen.items()):
+            attention[tag, masked] = kernels_attention_at(tag, masked,
+                                                          *inputs)
+    return ms, busy, attention
+
+
+def phase_diffusion():
+    """The diffusion paths on the card: Latte-2u serving and training, a
+    DiT train step and sampling run, SwinDiff serving and training (the
+    one diffusion path with window attention)."""
+    counts = {name: {} for name in COUNTERS}
+    T, Y, X, C, E = headline_shape()
+    slices = [make_cine_example(T=T, Y=Y, X=X, C=C, E=E, seed=SEED + s)
+              for s in range(SLICES)]
+    none = {name: 0 for name in COUNTERS}
+
+    latte = _diffusion_cfg("latte2")
+    params = _diffusion_params(latte)
+    examples = [ResampleTransform(ACCEL, latte)(k, m) for k, m, _ in slices]
+    print(f"diffusion: Latte-2u (latte2.yaml widths, "
+          f"{sum(v.numel() for v in params.values()) / 1e6:.2f}M params) on "
+          f"{SLICES} slices [{C},{T},{Y},{X}] E={E} at {ACCEL}x")
+    _serve_diffusion("latte", latte, params, examples, DIFF_SAMPLE_STEPS,
+                     none, counts)
+
+    t0 = time.perf_counter()
+    files = quality_split("train", 1)
+    print(f"diffusion: 1 quality-set train file ({len(files[0][1])} slices) "
+          f"made in {time.perf_counter() - t0:.1f} s")
+    _diffusion_train("latte train", latte, params, files, DIFF_TRAIN_STEPS,
+                     none, counts, cpu_check=True, ema_vs_cpu=True,
+                     draws_ab=True)
+
+    dit = _diffusion_cfg("dit")
+    dit_params = _diffusion_params(dit)
+    _diffusion_train("dit train", dit, dit_params, files, 1, none, counts)
+    _serve_diffusion("dit", dit, dit_params, examples[:1], DIFF_SHORT_STEPS,
+                     none, counts, batch_sizes=(1,))
+
+    swd = _swindiff_cfg()
+    p = swd.MODEL.PARAMETERS
+    per_net = p.NUM_SWINBLOCKS * p.NUM_LAYERS
+    swd_params = _diffusion_params(swd)
+    _serve_diffusion("swindiff", swd, swd_params, examples,
+                     DIFF_SHORT_STEPS,
+                     {**none, "window_attention": p.NUM_UNROLLS * per_net},
+                     counts, batch_sizes=(4,))
+    _, _, attention = _diffusion_train(
+        "swindiff train", swd, swd_params, files, 1,
+        {**none, "window_attention": p.NUM_UNROLLS * per_net,
+         "window_attention_bwd": p.NUM_UNROLLS * per_net},
+        counts, cpu_check=True)
+    check(sorted(key[1] for key in attention) == [False, True],
+          f"swindiff train: window-attention inputs seen {sorted(attention)}")
+    shutil.rmtree(RUNS, ignore_errors=True)
+    return counts, attention
+
+
 def _entry(name, source, replaces, res, launches):
     """One kernel's item of the `kernels` line: the numbers of its headline
     variant, then every variant it was measured at."""
@@ -1782,9 +2199,20 @@ def main():
               "headline": phase_headline(), "se": phase_se(),
               "modl": phase_modl(), "gan": phase_gan(),
               "pipeline": phase_pipeline()}
+    counts["diffusion"], attention = phase_diffusion()
 
     def by_path(name):
         return {path: c[name] for path, c in counts.items()}
+
+    def attention_variants(name, side):
+        """The Swin block's variants (batch, mask), then those a diffusion
+        path's own inputs gave (path, mask)."""
+        def mask(m):
+            return f"mask={'shift' if m else 'none'}"
+        return {**{f"B={B} {mask(m)}": r
+                   for (B, m), r in kres[name].items()},
+                **{f"{tag} {mask(m)}": r[side]
+                   for (tag, m), r in attention.items()}}
 
     def llr_by_path():
         return {path: {f"{side} {run}": n for side in ("pre", "post")
@@ -1800,14 +2228,12 @@ def main():
         _entry("window_attention",
                "dl_swin_gan_tpu_torch/kernels/csrc/window_attn.cu",
                "dl_swin_gan_tpu/kernels/window_attn.py:122",
-               {f"B={B} mask={'shift' if m else 'none'}": r
-                for (B, m), r in kres["window_attention"].items()},
+               attention_variants("window_attention", 0),
                by_path("window_attention")),
         _entry("window_attention_bwd",
                "dl_swin_gan_tpu_torch/kernels/csrc/window_attn_bwd.cu",
                "dl_swin_gan_tpu/kernels/window_attn.py:148",
-               {f"B={B} mask={'shift' if m else 'none'}": r
-                for (B, m), r in kres["window_attention_bwd"].items()},
+               attention_variants("window_attention_bwd", 1),
                by_path("window_attention_bwd")),
         _entry("llr_normal",
                "dl_swin_gan_tpu_torch/kernels/csrc/llr_normal.cu",

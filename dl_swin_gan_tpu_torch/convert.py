@@ -53,9 +53,34 @@ The tree of a SWIN solver, with S swinblocks:
             -> layers.{l}.downsample.{norm, reduction}
         PatchExpand_{j}/{Dense_0, LayerNorm_0}  -> expands.{j}.{expand, norm}
 
+The tree of a diffusion solver (`DiffusionUnrolled`) holds one net per
+unroll (one with SHARE_WEIGHTS), plus the final unroll's 2x-channel net
+under LEARN_SIGMA; its flax names need not be consecutive (non-shared
+LEARN_SIGMA skips the replaced net's index), so the k-th in index order
+becomes `nets.{k}`:
+
+    DiTResNet_{i}/SFE, final_layer, var_layer (ConvBlocks) -> nets.{k}.sfe,
+        .final_layer, .var_layer
+    DiTResNet_{i}/DiT/x_embedder {kernel [p0,p1,p2,Cin,D], bias}
+        -> nets.{k}.dit.x_embedder (Conv3d)
+    .../t_embedder/Dense_{0,1}         -> .t_embedder.fc{1,2}
+    .../y_embedder/Embed_0/embedding   -> .y_embedder.embedding_table.weight
+    .../DiTBlockFactor_{j} or DiTBlock_{j} (Latte: TransformerBlock_{j})
+        /adaLN_modulation, attn/{qkv, proj}, Mlp_0/Dense_{0,1}
+        -> .blocks.{j}.adaLN_modulation, .attn.{qkv, proj}, .mlp.fc{1,2}
+    .../final_layer/{adaLN_modulation, linear} -> .final_layer.*
+    LatteNet_{i}/Latte/...   -> nets.{k}.latte... (x_embedder a Conv2d)
+    SwinDiffNet_{i}/SFE, ConvBlock_{j}, final_layer -> .sfe, .convs.{j},
+        .final_layer; t_embedder, y_embedder as above;
+        film_in_{j}, film_out_{j} (Dense) -> .film_in.{j}, .film_out.{j};
+        SwinTransformer3D_{j} -> .trunks.{j}, as in the Swin tree
+
 Dense kernels [in, out] become Linear weights [out, in]; a LayerNorm's
 `scale` becomes its `weight`; the bias table is copied as it is. A key with
 no counterpart raises KeyError.
+
+`torch_to_flax` inverts `flax_to_torch` for the RES, SE and CBAM solvers,
+so the JAX package can serve the port's trained weights.
 """
 
 from typing import Dict, Mapping
@@ -253,22 +278,132 @@ def _swinnet(tree: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _embedders(name: str, node: Mapping, prefix: str):
+    """A diffusion backbone's t_embedder / y_embedder, or None."""
+    if name == "t_embedder":
+        leaf = _leaf(node, f"{prefix}.t_embedder", ("Dense_0", "Dense_1"))
+        return {**_dense(leaf["Dense_0"], f"{prefix}.t_embedder.fc1"),
+                **_dense(leaf["Dense_1"], f"{prefix}.t_embedder.fc2")}
+    if name == "y_embedder":
+        table = _leaf(_leaf(node, f"{prefix}.y_embedder", ("Embed_0",))[
+            "Embed_0"], f"{prefix}.y_embedder", ("embedding",))
+        return {f"{prefix}.y_embedder.embedding_table.weight":
+                _array(table["embedding"])}
+    return None
+
+
+def _adaln_block(tree: Mapping, prefix: str):
+    """A DiTBlockFactor / DiTBlock / TransformerBlock."""
+    out = {}
+    for name, node in tree.items():
+        if name == "adaLN_modulation":
+            out.update(_dense(node, f"{prefix}.adaLN_modulation"))
+        elif name == "attn":
+            attn = _leaf(node, f"{prefix}.attn", ("qkv", "proj"))
+            out.update(_dense(attn["qkv"], f"{prefix}.attn.qkv"))
+            out.update(_dense(attn["proj"], f"{prefix}.attn.proj"))
+        elif name == "Mlp_0":
+            mlp = _leaf(node, f"{prefix}.mlp", ("Dense_0", "Dense_1"))
+            out.update(_dense(mlp["Dense_0"], f"{prefix}.mlp.fc1"))
+            out.update(_dense(mlp["Dense_1"], f"{prefix}.mlp.fc2"))
+        else:
+            _unknown(prefix, name)
+    return out
+
+
+_BLOCKS = ("DiTBlockFactor_", "DiTBlock_", "TransformerBlock_")
+
+
+def _transformer(tree: Mapping, prefix: str):
+    """DiT or Latte: the patch embedding, the embedders, the blocks and the
+    final layer."""
+    out = {}
+    for name, node in tree.items():
+        emb = _embedders(name, node, prefix)
+        if emb is not None:
+            out.update(emb)
+        elif name == "x_embedder":
+            leaf = _leaf(node, f"{prefix}.x_embedder", ("kernel", "bias"))
+            out[f"{prefix}.x_embedder.weight"] = _kernel(leaf["kernel"])
+            out[f"{prefix}.x_embedder.bias"] = _array(leaf["bias"])
+        elif name.startswith(_BLOCKS):
+            out.update(_adaln_block(node, f"{prefix}.blocks.{_index(name)}"))
+        elif name == "final_layer":
+            leaf = _leaf(node, f"{prefix}.final_layer",
+                         ("adaLN_modulation", "linear"))
+            out.update(_dense(leaf["adaLN_modulation"],
+                              f"{prefix}.final_layer.adaLN_modulation"))
+            out.update(_dense(leaf["linear"], f"{prefix}.final_layer.linear"))
+        else:
+            _unknown(prefix, name)
+    return out
+
+
+def _dit_resnet(tree: Mapping, prefix: str):
+    out = {}
+    for name, node in tree.items():
+        if name in ("SFE", "final_layer", "var_layer"):
+            out.update(_conv(node, f"{prefix}.{name.lower()}"))
+        elif name == "DiT":
+            out.update(_transformer(node, f"{prefix}.dit"))
+        else:
+            _unknown(prefix, name)
+    return out
+
+
+def _latte_net(tree: Mapping, prefix: str):
+    (name, node), = _leaf(tree, prefix, ("Latte",)).items()
+    return _transformer(node, f"{prefix}.latte")
+
+
+def _swin_diff(tree: Mapping, prefix: str):
+    out = {}
+    for name, node in tree.items():
+        emb = _embedders(name, node, prefix)
+        if emb is not None:
+            out.update(emb)
+        elif name in ("SFE", "final_layer"):
+            out.update(_conv(node, f"{prefix}.{name.lower()}"))
+        elif name.startswith("ConvBlock_"):
+            out.update(_conv(node, f"{prefix}.convs.{_index(name)}"))
+        elif name.startswith(("film_in_", "film_out_")):
+            film = name.rsplit("_", 1)[0]
+            out.update(_dense(node, f"{prefix}.{film}.{_index(name)}"))
+        elif name.startswith("SwinTransformer3D_"):
+            out.update(_swin_transformer(
+                node, f"{prefix}.trunks.{_index(name)}"))
+        else:
+            _unknown(prefix, name)
+    return out
+
+
 # flax submodule name prefix -> (converter, torch module list)
 _DENOISERS = {"ResNet3D_": (_resnet, "nets"), "SEResNet3D_": (_resnet, "nets"),
               "CBAMResNet3D_": (_resnet, "nets"),
               "SwinNet3D_": (_swinnet, "nets"),
               "ResNet2D_": (_resnet, "spatial"),
               "ResNet1D_": (_resnet, "temporal")}
+# the diffusion solver's nets: numbered by their rank in index order
+_DIFFUSION = {"DiTResNet_": _dit_resnet, "LatteNet_": _latte_net,
+              "SwinDiffNet_": _swin_diff}
 _SCALARS = ("step_size", "lamda", "lambda_l", "lambda_r")
 
 
 def flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
     """JAX solver params (an `UnrolledSolver` with a RES, SE, CBAM or SWIN
-    denoiser, or a DSLR `UnrolledLR`) -> torch state_dict."""
+    denoiser, a `DiffusionUnrolled` with a DiT, Latte or SwinDiff backbone,
+    or a DSLR `UnrolledLR`) -> torch state_dict."""
     state = {}
+    diffusion = sorted((n for n in params if n.startswith(tuple(_DIFFUSION))),
+                       key=_index)
     for name, node in params.items():
         if name in _SCALARS:
             state[name] = _array(np.asarray(node).reshape(1))
+            continue
+        if name in diffusion:
+            convert = next(v for key, v in _DIFFUSION.items()
+                           if name.startswith(key))
+            state.update(convert(node, f"nets.{diffusion.index(name)}"))
             continue
         match = next((v for key, v in _DENOISERS.items()
                       if name.startswith(key)), None)
@@ -277,6 +412,101 @@ def flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
         convert, modules = match
         state.update(convert(node, f"{modules}.{_index(name)}"))
     return state
+
+
+# ------------------------------------------------------------ torch -> flax
+
+# MODEL_TYPE -> the flax name prefix of its unrolled nets
+_RESNET_ROOTS = {"RES": "ResNet3D_", "SE": "SEResNet3D_",
+                 "CBAM": "CBAMResNet3D_"}
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().astype(np.float32)
+
+
+def _flax_kernel(weight: torch.Tensor) -> np.ndarray:
+    """torch [Cout, Cin, *k] -> flax [*k, Cin, Cout]."""
+    w = _np(weight)
+    nd = w.ndim - 2
+    return w.transpose(*range(2, nd + 2), 1, 0)
+
+
+def _flax_conv(state: Mapping, prefix: str, index: int = 0) -> dict:
+    """The torch conv at `prefix` -> {name: node} of its flax conv module:
+    `Conv_{index}` (leaves under a nested `Conv_0`) or
+    `ComplexConv_{index}`."""
+    if f"{prefix}.kernel_re" in state:
+        return {f"ComplexConv_{index}": {
+            k: (_flax_kernel(state[f"{prefix}.{k}"]) if k.startswith("kernel")
+                else _np(state[f"{prefix}.{k}"]))
+            for k in ("kernel_re", "kernel_im", "bias_re", "bias_im")}}
+    return {f"Conv_{index}": {"Conv_0": {
+        "kernel": _flax_kernel(state[f"{prefix}.weight"]),
+        "bias": _np(state[f"{prefix}.bias"])}}}
+
+
+def _flax_conv_block(state: Mapping, prefix: str) -> dict:
+    """A ConvBlock at `prefix` (its conv at `prefix.conv`): full or
+    separable."""
+    conv = f"{prefix}.conv"
+    if any(k.startswith(f"{conv}.spatial.") for k in state):
+        return {"SeparableConv_0": {
+            **_flax_conv(state, f"{conv}.spatial", 0),
+            **_flax_conv(state, f"{conv}.temporal", 1)}}
+    return _flax_conv(state, conv)
+
+
+def _flax_dense(state: Mapping, prefix: str) -> dict:
+    return {"kernel": _np(state[f"{prefix}.weight"]).T.copy(),
+            "bias": _np(state[f"{prefix}.bias"])}
+
+
+def torch_to_flax(state: Mapping[str, torch.Tensor],
+                  model_type: str) -> dict:
+    """The inverse of `flax_to_torch` for an `UnrolledSolver` with a RES,
+    SE or CBAM trunk (MODEL_TYPE `model_type`): the port's state_dict ->
+    the JAX package's param tree. Every key of `state` must be consumed;
+    one with no flax counterpart raises KeyError."""
+    root = _RESNET_ROOTS[model_type.upper()]
+    tree, used = {}, set()
+    consumed = lambda prefix: used.update(   # noqa: E731
+        k for k in state if k.startswith(prefix + "."))
+    nets = sorted({int(k.split(".")[1]) for k in state
+                   if k.startswith("nets.")})
+    for i in nets:
+        p = f"nets.{i}"
+        net = {"ConvBlock_0": _flax_conv_block(state, f"{p}.head"),
+               "ConvBlock_1": _flax_conv_block(state, f"{p}.tail")}
+        consumed(f"{p}.head")
+        consumed(f"{p}.tail")
+        blocks = sorted({int(k.split(".")[3]) for k in state
+                         if k.startswith(f"{p}.blocks.")})
+        for j in blocks:
+            b = f"{p}.blocks.{j}"
+            block = {f"ConvBlock_{c}": _flax_conv_block(state, f"{b}.conv{c}")
+                     for c in (0, 1)}
+            consumed(f"{b}.conv0")
+            consumed(f"{b}.conv1")
+            if f"{b}.channel_gate.fc1.weight" in state:
+                block["ChannelGate_0"] = {
+                    "Dense_0": _flax_dense(state, f"{b}.channel_gate.fc1"),
+                    "Dense_1": _flax_dense(state, f"{b}.channel_gate.fc2")}
+                consumed(f"{b}.channel_gate")
+            if any(k.startswith(f"{b}.spatial_gate.") for k in state):
+                block["SpatialGate_0"] = _flax_conv(
+                    state, f"{b}.spatial_gate.conv")
+                consumed(f"{b}.spatial_gate")
+            net[f"GatedResBlock_{j}"] = block
+        tree[f"{root}{i}"] = net
+    for name in _SCALARS:
+        if name in state:
+            tree[name] = _np(state[name]).reshape(1)
+            used.add(name)
+    left = sorted(set(state) - used)
+    if left:
+        raise KeyError(f"no flax counterpart for {left}")
+    return tree
 
 
 def disc_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:

@@ -11,7 +11,11 @@ the physics runs on the device instead:
     from the host;
   - the FFT crop and flip round trip, the SENSE-adjoint target, the
     95th-percentile normalisation, the sliding-window init and, for DSLR,
-    the truncated block SVD run on the device, in the JAX package's order.
+    the truncated block SVD run on the device, in the JAX package's order;
+  - for diffusion (DDPM_X) the host also draws the 90/10 split of the
+    acquired lines (`submask_np`, from its own RandomState(SEED + 99)) right
+    after the mask, and the batch carries `mask_r` and `mask_p` and no raw
+    k-space, which the diffusion paths never read.
 
 The host draws follow `CinePreprocess._augment` and `subsample` call for
 call, so seeded (validation) masks, crops and flips are bit-identical to the
@@ -28,6 +32,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from dl_swin_gan_tpu_torch.data.host_ops import submask_np
 from dl_swin_gan_tpu_torch.ops import masks as ss
 from dl_swin_gan_tpu_torch.ops.fft import fftc, ifftc
 from dl_swin_gan_tpu_torch.ops.llr import BlockOp, decompose
@@ -74,16 +79,13 @@ class DevicePipeline:
 
     def __init__(self, cfg, use_seed: bool = False, diffusion: bool = False,
                  lr_decom: bool = False, device=None):
-        if diffusion:
-            raise NotImplementedError(
-                "the device pipeline's diffusion batches (submask_np) are "
-                "not ported to the torch package yet: ROADMAP.md Queue 1 "
-                "item 10 (diffusion)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.use_seed = use_seed
+        self.diffusion = diffusion
         self.lr_decom = lr_decom
         self.rng = np.random.RandomState()
+        self.submask_rng = np.random.RandomState(cfg.SEED + 99)
         self.aug = aug = cfg.AUG_TRAIN
         self.mask_func = ss.VDktMaskFunc(
             aug.UNDERSAMPLE.ACCELERATIONS,
@@ -126,7 +128,14 @@ class DevicePipeline:
         flips = np.asarray([self.rng.rand() > 0.5 for _ in range(3)],
                            np.float32)
         mask = self.mask_func((1, 1, T, Y, X), seed).astype(np.uint8)
-        return dict(xs=np.int32(xs), ys=np.int32(ys), flips=flips, mask=mask)
+        out = dict(xs=np.int32(xs), ys=np.int32(ys), flips=flips, mask=mask)
+        if self.diffusion and \
+                self.cfg.MODEL.META_ARCHITECTURE.lower() == "ddpm_x":
+            mask_r, mask_p = submask_np(mask.astype(np.float32), 0.9,
+                                        self.submask_rng)
+            out["mask_r"] = mask_r.astype(np.uint8)
+            out["mask_p"] = mask_p.astype(np.uint8)
+        return out
 
     # -- the device build ------------------------------------------------------
     def build(self, raw: Dict[str, torch.Tensor],
@@ -175,6 +184,11 @@ class DevicePipeline:
         out = dict(kspace=masked_kspace, mask=mask, maps=maps,
                    init_image=init_image,
                    scale=scale.to(torch.float32).reshape(1), target=target)
+        if self.diffusion:
+            del out["kspace"]
+            for key in ("mask_r", "mask_p"):
+                out[key] = (torch.from_numpy(params[key]).to(self.device).to(
+                    torch.float32) if key in params else mask)
         if self.lr_decom:
             # DSLR's L0/R0 from a truncated SVD of the init image's blocks.
             # SVD factor phases differ between libraries; L R^H does not
@@ -200,8 +214,9 @@ class DevicePipelineLoader:
 
     def __init__(self, root_directory: Optional[str], cfg, seed: int,
                  lr_decom: bool = False, sample_rate: float = 1.0,
-                 files=None, device=None):
-        self.pipe = DevicePipeline(cfg, lr_decom=lr_decom, device=device)
+                 files=None, device=None, diffusion: bool = False):
+        self.pipe = DevicePipeline(cfg, lr_decom=lr_decom, device=device,
+                                   diffusion=diffusion)
         self.seed = seed
         self._epoch = 0
         self._raw: List[Dict[str, torch.Tensor]] = []

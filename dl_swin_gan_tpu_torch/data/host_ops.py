@@ -2,7 +2,8 @@
 
 A copy of `data/host_ops.py` in the JAX package (numpy only, bit-identical
 results): the inference transforms and the synthetic phantom run these on the
-host before a batch goes to the device.
+host before a batch goes to the device. `submask_np` is a copy of the JAX
+package's `train/diffusion_trainer.py submask_np`, the DDPM_X mask split.
 """
 
 import numpy as np
@@ -70,3 +71,21 @@ def center_crop(data: np.ndarray, shapes, axes) -> np.ndarray:
         start = (data.shape[ax] - size) // 2
         slicer[ax] = slice(start, start + size)
     return data[tuple(slicer)]
+
+
+def submask_np(mask: np.ndarray, factor: float,
+               rng: np.random.RandomState):
+    """The DDPM_X split of the acquired lines, per frame: `factor` of the
+    acquired ky lines (a permutation drawn from `rng`) are removed from
+    mask_r, and the others from mask_p. mask [B, 1, F, Y, X]. A bit-exact
+    twin of the JAX package's `train/diffusion_trainer.py submask_np`."""
+    mask_unsamp = mask.copy()
+    mask_inv_unsamp = mask.copy()
+    for b in range(mask.shape[0]):
+        for f in range(mask.shape[2]):
+            ones = np.nonzero(mask[b, 0, f].sum(axis=1))[0]
+            num_remove = int(ones.shape[0] * factor)
+            perm = rng.permutation(ones.shape[0])
+            mask_unsamp[b, 0, f, ones[perm[:num_remove]], :] = 0
+            mask_inv_unsamp[b, 0, f, ones[perm[num_remove:]], :] = 0
+    return mask_unsamp, mask_inv_unsamp

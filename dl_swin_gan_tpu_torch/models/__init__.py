@@ -1,8 +1,10 @@
-"""Denoiser backbones. Ported so far: the RES, SE and CBAM trunks (real or
-complex convs, full or separable, float32 or a bfloat16 conv trunk) and the
-Swin trunk (SwinNet3D, float32); every other backbone raises
-NotImplementedError naming its ROADMAP.md queue item. The DSLR solver builds
-its 2D and 1D ResNets itself (`solvers/dslr.py`).
+"""Denoiser backbones: the RES, SE and CBAM trunks (real or complex convs,
+full or separable, float32 or a bfloat16 conv trunk), the Swin trunk
+(SwinNet3D, float32) and the diffusion backbones DiT, Latte and SwinDiff
+(float32; they take (x, t, y) and `solvers/diffusion_unrolled.py` composes
+them). A bfloat16 Swin, DiT or Latte raises NotImplementedError naming its
+ROADMAP.md queue item. The DSLR solver builds its 2D and 1D ResNets itself
+(`solvers/dslr.py`).
 
 CONV_BLOCK.NORM is read and, as in the JAX package's `build_denoiser`,
 not passed on: a config with NORM 'instance' builds the same trunk as one
@@ -20,24 +22,19 @@ from dl_swin_gan_tpu_torch.models.se import SEResNet3D
 
 # MODEL_TYPE -> its ResNet trunk (gate none, se or cbam)
 _RESNETS = {"RES": ResNet3D, "SE": SEResNet3D, "CBAM": CBAMResNet3D}
-# MODEL_TYPE -> the ROADMAP.md "Queue 1" item that ports it
-_NOT_PORTED = {
-    "DIT": "Queue 1 item 10 (diffusion)",
-    "SWIN_DIFF": "Queue 1 item 10 (diffusion)",
-    "LATTE": "Queue 1 item 10 (diffusion)",
-}
+# the diffusion backbones: they take (x, t, y)
+DIFFUSION_MODELS = ("DIT", "LATTE", "SWIN_DIFF")
 
 
 def build_denoiser(cfg, generator: Optional[torch.Generator] = None):
-    """Build the denoiser that MODEL.MODEL_TYPE names (RES, SE, CBAM or SWIN
-    so far); `generator` seeds its weights (torch-default init)."""
+    """Build the denoiser that MODEL.MODEL_TYPE names; `generator` seeds its
+    weights. The diffusion backbones take their MODEL.PARAMETERS as the JAX
+    package's `build_denoiser` passes them."""
     p = cfg.MODEL.PARAMETERS
     cb = p.CONV_BLOCK
     model_type = cfg.MODEL.MODEL_TYPE.upper()
-    if model_type in _NOT_PORTED:
-        raise NotImplementedError(
-            f"MODEL_TYPE={model_type} is not ported to the torch package yet: "
-            f"ROADMAP.md {_NOT_PORTED[model_type]}")
+    if model_type in DIFFUSION_MODELS:
+        return _build_diffusion_backbone(cfg, model_type, generator)
     if model_type not in (*_RESNETS, "SWIN"):
         raise ValueError(f"Unknown MODEL_TYPE: {model_type}")
     if cb.COMPLEX and model_type == "SWIN":
@@ -73,3 +70,41 @@ def build_denoiser(cfg, generator: Optional[torch.Generator] = None):
         act_type=cb.ACTIVATION, circular_pad=cb.CIRCULAR_PAD,
         generator=generator, use_complex_layers=cb.COMPLEX, dtype=dtype,
         reduction=p.RR, separable=cb.SEPARABLE)
+
+
+def _build_diffusion_backbone(cfg, model_type: str,
+                              generator: Optional[torch.Generator]):
+    p = cfg.MODEL.PARAMETERS
+    cb = p.CONV_BLOCK
+    if str(cb.DTYPE) not in DTYPES:
+        raise ValueError(f"Unknown CONV_BLOCK.DTYPE: {cb.DTYPE!r}")
+    if DTYPES[str(cb.DTYPE)] != torch.float32 and model_type != "SWIN_DIFF":
+        # the JAX package's bf16 DiT and Latte run their projections and
+        # attention products in bf16 (SwinDiff takes no dtype there)
+        raise NotImplementedError(
+            f"CONV_BLOCK.DTYPE={cb.DTYPE!r} with MODEL_TYPE={model_type} is "
+            "not ported yet: ROADMAP.md Queue 1 item 14 (the bf16 DiT and "
+            "Latte trunk)")
+    if model_type == "DIT":
+        from dl_swin_gan_tpu_torch.models.dit import DiTResNet
+        return DiTResNet(
+            num_emaps=p.NUM_EMAPS, hidden_size=p.NUM_FEATURES,
+            depth=p.NUM_LAYERS, num_heads=p.NUM_HEADS,
+            patch_size=tuple(p.PATCH_SIZE), learn_sigma=p.LEARN_SIGMA,
+            num_blocks=p.NUM_RESBLOCKS, circular_pad=cb.CIRCULAR_PAD,
+            generator=generator)
+    if model_type == "LATTE":
+        from dl_swin_gan_tpu_torch.models.latte import LatteNet
+        return LatteNet(
+            num_emaps=p.NUM_EMAPS, hidden_size=p.NUM_FEATURES,
+            depth=p.NUM_LAYERS, num_heads=p.NUM_HEADS,
+            patch_size=tuple(p.PATCH_SIZE)[-1], learn_sigma=p.LEARN_SIGMA,
+            num_blocks=p.NUM_RESBLOCKS, circular_pad=cb.CIRCULAR_PAD,
+            generator=generator)
+    from dl_swin_gan_tpu_torch.models.swin_diff import SwinDiffNet
+    return SwinDiffNet(
+        num_swinblocks=p.NUM_SWINBLOCKS, num_emaps=p.NUM_EMAPS,
+        hidden_size=p.NUM_FEATURES, depths=(p.NUM_LAYERS,),
+        num_heads=(p.NUM_HEADS,), window_size=(7, 8, 8),
+        num_blocks=p.NUM_RESBLOCKS, learn_sigma=p.LEARN_SIGMA,
+        circular_pad=cb.CIRCULAR_PAD, generator=generator)

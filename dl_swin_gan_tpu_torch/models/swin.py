@@ -37,7 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dl_swin_gan_tpu_torch.kernels.window_attn import window_attention
-from dl_swin_gan_tpu_torch.models.dit import Mlp, linear
+from dl_swin_gan_tpu_torch.models.dit import LabelEmbedder, Mlp, linear
 from dl_swin_gan_tpu_torch.models.layers import (
     ConvBlock, circular_pad_time, crop_time,
 )
@@ -162,10 +162,10 @@ class DropPath(nn.Module):
 
 def set_dropout_generator(module: nn.Module,
                           generator: Optional[torch.Generator]) -> None:
-    """Give every DropPath under `module` the generator its draws come
-    from."""
+    """Give every DropPath and LabelEmbedder under `module` the generator
+    its draws come from."""
     for m in module.modules():
-        if isinstance(m, DropPath):
+        if isinstance(m, (DropPath, LabelEmbedder)):
             m.generator = generator
 
 

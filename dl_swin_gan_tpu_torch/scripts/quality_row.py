@@ -3,15 +3,18 @@ re-undersampling at the parity seed, SSIM/RMSE/PSNR against the
 fully-sampled adjoint) over the held-out exams of the quality set.
 
 Counterpart of `scripts/quality_row.py` beside the JAX package (kinds
-`unrolled` and `zerofilled`). It takes the quality set's test split in
+`unrolled`, `diffusion` and `zerofilled`). It takes the quality set's test split in
 memory (`data.synthetic.quality_split`, the files
 `datasets/make_quality_set.sh` writes), so it needs neither h5py nor
 pyyaml: the config is `utils.headline.quality_cfg(--dtype, --model)`
 (`configs/quality/resnet.yaml` or `resnet_bf16.yaml`; `se.yaml`,
 `cbam.yaml`, `swin.yaml` or `swingan.yaml` with --model se, cbam, swin or
-swingan) with KEY VALUE overrides. Training batches are built on the device
-(DATALOADER.DEVICE_PIPELINE, as the YAMLs set it); swingan trains through
-GANTrainer. Under --out it writes `<exam>_1accel.im` and
+swingan; `latte2.yaml` or `dit.yaml` with --kind diffusion and --model
+latte2 or dit) with KEY VALUE overrides. Training batches are built on the
+device (DATALOADER.DEVICE_PIPELINE, as the YAMLs set it); swingan trains
+through GANTrainer, the diffusion rows through DiffusionTrainer, and those
+are scored by conditional sampling (`--sample-steps`, 100 by default, from
+the raw weights unless --use-ema). Under --out it writes `<exam>_1accel.im` and
 `<exam>_<R>accel.im` CFLs and `eval_<R>accel.csv` (scripts/evaluate.py).
 
     # train the row's network first (the config's 40 epochs on the train
@@ -25,6 +28,10 @@ GANTrainer. Under --out it writes `<exam>_1accel.im` and
     python -m dl_swin_gan_tpu_torch.scripts.quality_row --kind unrolled \\
         --model swingan --train --max-epochs 40 \\
         --out runs/torch_quality/swingan MODEL.GAN.ADV_WEIGHT 0.003
+    # the Latte-2u row: 8k steps (250 epochs of the 32 training slices)
+    python -m dl_swin_gan_tpu_torch.scripts.quality_row --kind diffusion \\
+        --model latte2 --train --max-epochs 250 --batch-size 4 \\
+        --out runs/torch_quality/latte2
     # score a checkpoint of the port's trainer
     python -m dl_swin_gan_tpu_torch.scripts.quality_row --kind unrolled \\
         --ckpt runs/x/checkpoints --out runs/x/recon
@@ -41,7 +48,7 @@ import time
 
 from dl_swin_gan_tpu_torch.data.synthetic import quality_split
 from dl_swin_gan_tpu_torch.infer.reconstruct import (
-    Reconstructor, accel_tag, accel_transform, load_checkpoint_params,
+    accel_tag, accel_transform, load_checkpoint_params, make_reconstructor,
     reconstruct_examples, write_image_cfl,
 )
 from dl_swin_gan_tpu_torch.scripts.evaluate import main as evaluate_main
@@ -65,7 +72,9 @@ def _cut(args) -> dict:
 def train(cfg, args, device):
     """Fit cfg on the in-memory train and validate splits; returns the
     checkpoint directory and the final step."""
-    from dl_swin_gan_tpu_torch.train import GANTrainer, Trainer
+    from dl_swin_gan_tpu_torch.train import (
+        DiffusionTrainer, GANTrainer, Trainer,
+    )
 
     cut = _cut(args)
     t0 = time.perf_counter()
@@ -73,8 +82,12 @@ def train(cfg, args, device):
     val_files = quality_split("validate", args.files, **cut)
     logger.info("quality set: %d train and %d validate files in %.1f s",
                 len(train_files), len(val_files), time.perf_counter() - t0)
-    trainer_cls = GANTrainer if args.model == "swingan" else Trainer
-    trainer = trainer_cls(cfg, device=device)
+    if args.kind == "diffusion":
+        trainer = DiffusionTrainer(cfg, device=device,
+                                   sample_steps=args.sample_steps)
+    else:
+        trainer = (GANTrainer if args.model == "swingan" else Trainer)(
+            cfg, device=device)
     state = trainer.fit(max_epochs=args.max_epochs, train_data=train_files,
                         val_data=val_files)
     return os.path.join(cfg.OUTPUT_DIR, "checkpoints"), state.step
@@ -83,14 +96,16 @@ def train(cfg, args, device):
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--kind", required=True,
-                        choices=["unrolled", "zerofilled"])
+                        choices=["unrolled", "diffusion", "zerofilled"])
     parser.add_argument("--dtype", default="float32",
                         choices=["float32", "bfloat16"],
                         help="CONV_BLOCK.DTYPE: resnet.yaml or resnet_bf16.yaml")
     parser.add_argument("--model", default="res",
-                        choices=["res", "se", "cbam", "swin", "swingan"],
+                        choices=["res", "se", "cbam", "swin", "swingan",
+                                 "latte2", "dit"],
                         help="the network: resnet.yaml, se.yaml, cbam.yaml, "
-                             "swin.yaml or swingan.yaml")
+                             "swin.yaml or swingan.yaml; latte2.yaml or "
+                             "dit.yaml (--kind diffusion)")
     parser.add_argument("--train", action="store_true",
                         help="train the network first (kind unrolled)")
     parser.add_argument("--ckpt", default=None,
@@ -100,6 +115,10 @@ def main(argv=None):
                              "<kind>[_<dtype>])")
     parser.add_argument("--acceleration", type=float, default=12)
     parser.add_argument("--batch-size", type=int, default=1)
+    parser.add_argument("--sample-steps", type=int, default=100,
+                        help="diffusion sampling steps")
+    parser.add_argument("--use-ema", action="store_true",
+                        help="score the checkpoint's EMA weights")
     parser.add_argument("--max-epochs", type=int, default=None,
                         help="training epochs (default OPTIMIZER.MAX_EPOCHS)")
     parser.add_argument("--device", default=None,
@@ -112,15 +131,20 @@ def main(argv=None):
                         help="T,Y,X,C of each slice (default 18,156,96,8)")
     parser.add_argument("opts", nargs="*", help="KEY VALUE config overrides")
     args = parser.parse_args(argv)
-    if args.kind == "unrolled" and not (args.ckpt or args.train):
-        parser.error("--kind unrolled needs --ckpt or --train")
+    diffusion_model = args.model in ("latte2", "dit")
+    if args.kind != "zerofilled" and \
+            (args.kind == "diffusion") != diffusion_model:
+        parser.error(f"--kind {args.kind} does not go with --model "
+                     f"{args.model}")
+    if args.kind != "zerofilled" and not (args.ckpt or args.train):
+        parser.error(f"--kind {args.kind} needs --ckpt or --train")
     if args.kind == "zerofilled" and (args.ckpt or args.train):
         parser.error("--kind zerofilled takes no --ckpt and no --train")
 
     device = resolve_device(args.device)
     out = args.out or os.path.join(
         "runs", "torch_quality",
-        args.kind + ("" if args.kind != "unrolled" else
+        args.kind + ("" if args.kind == "zerofilled" else
                      "_" + args.dtype if args.model == "res" else
                      f"_{args.model}_{args.dtype}"))
     cfg = quality_cfg(args.dtype, args.model)
@@ -136,9 +160,9 @@ def main(argv=None):
     accel = args.acceleration
     tag = accel_tag(accel)
     recon = None
-    if args.kind == "unrolled":
-        params = load_checkpoint_params(ckpt, step=step)
-        recon = Reconstructor(cfg, params, device)
+    if args.kind != "zerofilled":
+        params = load_checkpoint_params(ckpt, step=step, use_ema=args.use_ema)
+        recon = make_reconstructor(cfg, params, device, args.sample_steps)
 
     t0 = time.perf_counter()
     exams = quality_split("test", args.files, **_cut(args))

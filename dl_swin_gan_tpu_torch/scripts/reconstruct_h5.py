@@ -1,11 +1,13 @@
-"""H5 inference (RES, SWIN): re-undersample fully-sampled data at a fixed
-acceleration (parity seed 1000) and reconstruct; acceleration 1 writes the
-fully-sampled adjoint reference.
+"""H5 inference: re-undersample fully-sampled data at a fixed acceleration
+(parity seed 1000) and reconstruct, with the unrolled solver or, for DiT,
+Latte and SwinDiff, by conditional diffusion sampling; acceleration 1 writes
+the fully-sampled adjoint reference.
 
 Counterpart of `scripts/reconstruct_h5.py` beside the JAX package, with its
-arguments less `--data-parallel` (ROADMAP.md Queue 1 item 12) and
-`--model`/`--sample-steps` (diffusion, item 10), plus `--device`. It runs
-on the GPU unless `--device cpu` is given. It needs pyyaml and h5py.
+arguments less `--data-parallel` (ROADMAP.md Queue 1 item 12), plus
+`--device`. `--model` overrides MODEL.MODEL_TYPE and `--sample-steps` sets
+the diffusion sampling steps. It runs on the GPU unless `--device cpu` is
+given. It needs pyyaml and h5py.
 
     python -m dl_swin_gan_tpu_torch.scripts.reconstruct_h5 \\
         --config-file cfg.yaml --ckpt runs/x/checkpoints --file data.h5 \\
@@ -30,6 +32,10 @@ def main(argv=None):
     parser.add_argument("--out-directory", required=True)
     parser.add_argument("--acceleration", type=float, default=1)
     parser.add_argument("--batch-size", type=int, default=1)
+    parser.add_argument("--model", default=None,
+                        help="MODEL.MODEL_TYPE override (e.g. DiT, Latte)")
+    parser.add_argument("--sample-steps", type=int, default=100,
+                        help="diffusion sampling steps (DiT, Latte)")
     parser.add_argument("--use-ema", action="store_true",
                         help="reconstruct with the EMA weights")
     parser.add_argument("--device", default=None,
@@ -38,6 +44,8 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     cfg = load_cfg(args.config_file, freeze=False)
+    if args.model:
+        cfg.MODEL.MODEL_TYPE = args.model
     if args.opts:
         cfg.merge_from_list(args.opts)
     cfg.freeze()
@@ -46,7 +54,8 @@ def main(argv=None):
               if args.acceleration > 1 else None)
     out = reconstruct_h5_file(args.file, args.out_directory, cfg, params,
                               acceleration=args.acceleration,
-                              batch_size=args.batch_size, device=args.device)
+                              batch_size=args.batch_size, device=args.device,
+                              sample_steps=args.sample_steps)
     print(out)
     return out
 

@@ -24,7 +24,6 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from dl_swin_gan_tpu_torch.models.swin import DropPath
 from dl_swin_gan_tpu_torch.ops.cg import conjugate_gradient
 from dl_swin_gan_tpu_torch.ops.sense import SenseOp
 
@@ -45,19 +44,22 @@ def _replay(generators, states):
             g.set_state(state)
 
 
-def _checkpoint_replaying_dropout(net: nn.Module, x: torch.Tensor):
-    """`checkpoint(net, x)` whose recompute draws the same DropPath masks as
-    the forward did. torch's checkpoint restores only the default CPU and
-    CUDA RNG states, not the explicit generators DropPath draws from, so
-    without the replay the backward would run on other masks than the
-    forward (JAX's remat replays its dropout key the same way)."""
+def _checkpoint_replaying_dropout(net: nn.Module, x: torch.Tensor, *args):
+    """`checkpoint(net, x, *args)` whose recompute draws the same dropout
+    (DropPath masks, LabelEmbedder drops: every training-mode module with a
+    `generator`) as the forward did. torch's checkpoint restores only the
+    default CPU and CUDA RNG states, not the explicit generators these
+    modules draw from, so without the replay the
+    backward would run on other draws than the forward (JAX's remat
+    replays its dropout key the same way)."""
     generators = list({id(m.generator): m.generator for m in net.modules()
-                       if isinstance(m, DropPath) and m.training
-                       and m.rate > 0.0 and m.generator is not None
+                       if m.training
+                       and getattr(m, "generator", None) is not None
                        }.values())
     states = [g.get_state() for g in generators]
-    return checkpoint(net, x, use_reentrant=False, context_fn=lambda: (
-        contextlib.nullcontext(), _replay(generators, states)))
+    return checkpoint(net, x, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          _replay(generators, states)))
 
 
 class UnrolledSolver(nn.Module):
@@ -148,8 +150,13 @@ def build_solver(cfg, generator: Optional[torch.Generator] = None,
     """Construct the solver and its denoisers from a config; `generator`
     seeds the weights (torch-default init) and nothing else: the DropPath
     draws come from the trainer's own generator."""
-    from dl_swin_gan_tpu_torch.models import build_denoiser
+    from dl_swin_gan_tpu_torch.models import DIFFUSION_MODELS, build_denoiser
 
+    if cfg.MODEL.MODEL_TYPE.upper() in DIFFUSION_MODELS:
+        raise ValueError(
+            f"MODEL_TYPE={cfg.MODEL.MODEL_TYPE} is a diffusion backbone, "
+            "conditioned on (t, c): build it with build_diffusion_solver "
+            "(solvers.build_model dispatches)")
     p = cfg.MODEL.PARAMETERS
     meta = (dc_mode or cfg.MODEL.META_ARCHITECTURE).lower()
     if meta not in _DC_MODE_FROM_META:

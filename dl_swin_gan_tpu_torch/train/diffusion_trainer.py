@@ -1,0 +1,246 @@
+"""The diffusion trainer for DiT, Latte and SwinDiff reconstruction.
+
+Counterpart of `train/diffusion_trainer.py` in the JAX package (the
+reference's train_DiT.py / train_Latte.py, one trainer with the backbone
+from MODEL.MODEL_TYPE): two processes, a 1000-step one for training and a
+fresh `sample_steps` one for sampling; t drawn uniformly; for DDPM_X the
+90/10 split of the acquired lines (`submask_np`) and the k-space L1 loss,
+for DDPM_E the eps MSE; Adam (`train_state.make_optimizer` and the
+Trainer's clip, accumulation and StepLR); the EMA of the weights
+(`ema_decay` 0.9999) after every step; conditional hard-DC sampling.
+
+One module serves as the JAX package's two (the deterministic and the
+stochastic model share their weights there): `train()` for the train step,
+`eval()` for validation and sampling. The step's t and noise come from a
+generator on the trainer's device re-seeded from (SEED + 7, step), so the
+card's step draws them without the host; `train_step` also takes them as
+arguments, so a test can feed the JAX package's draws, or the same draws
+to a CPU and a GPU step. The RENORMALIZE_DATA scaling multiplies
+the target (and so the loss) by the batch's scale, as in the JAX package.
+
+`validate` scores the training objective on the validation batches: the
+same deliberate divergence from the reference as the JAX package's (the
+reference scores training_kspace_loss on the initial guess, a leftover of
+before its training step moved to the target). With
+EVAL.RECON_SSIM_EVERY_N_EPOCHS it also samples the first validation batch
+from the raw and the EMA weights and scores the SSIM against the target.
+LOGGER.LOG_PREDICTION_EVERY_N_STEPS is not read: the port's trainers write
+no images (ROADMAP.md Queue 1 item 12).
+"""
+
+import copy
+import logging
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from dl_swin_gan_tpu_torch.data.host_ops import submask_np
+from dl_swin_gan_tpu_torch.diffusion import create_diffusion
+from dl_swin_gan_tpu_torch.diffusion.gaussian import Randn, generator_randn
+from dl_swin_gan_tpu_torch.solvers.diffusion_unrolled import (
+    build_diffusion_solver, model_kwargs,
+)
+from dl_swin_gan_tpu_torch.train.trainer import (
+    MetricsWriter, Trainer, dropout_seed,
+)
+from dl_swin_gan_tpu_torch.train.train_state import TrainState, ema_update
+
+logger = logging.getLogger(__name__)
+
+
+class DiffusionTrainer(Trainer):
+    """DDPM_X / DDPM_E trainer with EMA, on `cuda` unless the caller asks
+    for the CPU."""
+
+    batch_keys = ("maps", "mask", "mask_r", "mask_p", "init_image", "scale",
+                  "target")
+
+    def __init__(self, cfg, device=None, ema_decay: float = 0.9999,
+                 sample_steps: int = 100):
+        super().__init__(cfg, device=device, use_ema=True,
+                         ema_decay=ema_decay)
+        p = cfg.MODEL.PARAMETERS
+        self.meta = cfg.MODEL.META_ARCHITECTURE.lower()
+        predict_xstart = self.meta != "ddpm_e"
+        self.diffusion = create_diffusion(
+            timestep_respacing="", noise_schedule=p.NOISE_SCHED,
+            diffusion_steps=1000, learn_sigma=p.LEARN_SIGMA,
+            predict_xstart=predict_xstart)
+        # a fresh shorter process for sampling, as the reference's
+        self.diffusion2 = create_diffusion(
+            timestep_respacing="", noise_schedule=p.NOISE_SCHED,
+            diffusion_steps=sample_steps, learn_sigma=p.LEARN_SIGMA,
+            predict_xstart=predict_xstart)
+        self.submask_rng = np.random.RandomState(cfg.SEED + 99)
+        self.draw_generator = torch.Generator(device=self.device)
+        self._ema_model = None
+
+    # -- hooks of Trainer -------------------------------------------------
+    def build_model(self, generator: torch.Generator) -> torch.nn.Module:
+        return build_diffusion_solver(self.cfg, generator=generator)
+
+    def _device_pipeline_kwargs(self) -> dict:
+        return {"diffusion": True}
+
+    @property
+    def train_metric(self) -> str:
+        return "Train MSE"
+
+    @property
+    def default_monitor(self) -> str:
+        return "Validate MSE"
+
+    # -- batches ----------------------------------------------------------
+    def prepare_batch(self, batch: dict) -> dict:
+        """A host batch (numpy) for the diffusion paths: no raw k-space; for
+        DDPM_X the 90/10 split of the acquired lines from the trainer's
+        RandomState(SEED + 99), else mask_r = mask_p = mask. A batch that
+        already has them (the device pipeline's) is returned as it is."""
+        if "mask_r" in batch:
+            return batch
+        batch = {k: v for k, v in batch.items() if k != "kspace"}
+        if self.meta == "ddpm_x":
+            batch["mask_r"], batch["mask_p"] = submask_np(
+                np.asarray(batch["mask"], np.float32), 0.9, self.submask_rng)
+        else:
+            batch["mask_r"] = batch["mask_p"] = batch["mask"]
+        return batch
+
+    def _target(self, b: Dict[str, torch.Tensor]) -> torch.Tensor:
+        target = b["target"]
+        if self.renormalize:
+            target = target * b["scale"].reshape(
+                (-1,) + (1,) * (target.ndim - 1))
+        return target
+
+    def draws(self, seed_base: int, index: int, target: torch.Tensor):
+        """(t, noise) of one loss evaluation: t uniform over the training
+        process, the noise standard normal over the stacked real/imag
+        target, on the trainer's device from its generator seeded from
+        (seed_base, index)."""
+        g = self.draw_generator.manual_seed(dropout_seed(seed_base, index))
+        B = target.shape[0]
+        t = torch.randint(0, self.diffusion.num_timesteps, (B,), generator=g,
+                          device=self.device)
+        shape = (B, 2 * target.shape[1]) + tuple(target.shape[2:])
+        return t, torch.randn(shape, generator=g, device=self.device)
+
+    def _loss(self, model, b, t, noise):
+        target = self._target(b)
+        kwargs = model_kwargs(b["maps"], b["mask_p"], target, b["mask_r"])
+        if self.meta == "ddpm_x":
+            terms, _, _ = self.diffusion.training_kspace_loss(
+                model, target, t, kwargs, noise=noise)
+        else:
+            terms, _, _ = self.diffusion.training_losses(
+                model, target, t, kwargs, noise=noise)
+        return torch.mean(terms["loss"])
+
+    # -- steps ------------------------------------------------------------
+    def train_step(self, state: TrainState, batch: dict,
+                   t: Optional[torch.Tensor] = None,
+                   noise: Optional[torch.Tensor] = None
+                   ) -> Dict[str, torch.Tensor]:
+        """One batch: the loss at (t, noise) (drawn from (SEED + 7, step)
+        when not given), backward, the optimizer update every
+        GRAD_ACCUM_ITERS batches, and the EMA. Updates `state` in place."""
+        model = state.model.train()
+        b = self._to_device(self.prepare_batch(batch))
+        self.dropout_generator.manual_seed(
+            dropout_seed(self.cfg.SEED + 17, state.step))
+        if t is None or noise is None:
+            t, noise = self.draws(self.cfg.SEED + 7, state.step, b["target"])
+        if state.step % self.accum == 0:
+            state.optimizer.zero_grad(set_to_none=True)
+        loss = self._loss(model, b, t.to(self.device), noise.to(self.device))
+        loss.backward()
+        self._update(model.parameters(), state.optimizer, self.lr_schedule,
+                     state.step)
+        ema_update(state.ema, model, self.ema_decay)
+        state.step += 1
+        self._ema_model = None
+        return {"Train MSE": loss.detach()}
+
+    @torch.no_grad()
+    def val_loss(self, state: TrainState, batch: dict,
+                 index: int) -> torch.Tensor:
+        """The training objective of the eval-mode model on a prepared
+        batch, at draws from (SEED + 23, index)."""
+        model = state.model.eval()
+        b = self._to_device(batch)
+        t, noise = self.draws(self.cfg.SEED + 23, index, b["target"])
+        return self._loss(model, b, t, noise)
+
+    def ema_model(self, state: TrainState) -> torch.nn.Module:
+        """An eval-mode copy of the model holding the EMA weights (rebuilt
+        after each train step, on first use)."""
+        if self._ema_model is None:
+            model = copy.deepcopy(state.model)
+            model.load_state_dict(state.ema, strict=False)
+            self._ema_model = model.eval()
+        return self._ema_model
+
+    @torch.no_grad()
+    def sample(self, model: torch.nn.Module, batch: dict, seed: int = 0,
+               randn: Optional[Randn] = None) -> torch.Tensor:
+        """Conditional hard-DC reconstruction of a batch through the
+        `sample_steps` process, DC with the full mask, starting from the
+        init image; the noise from a generator seeded with `seed` on the
+        trainer's device (or from `randn`). Returns complex
+        [N, E, T, Y, X] on the device, unscaled."""
+        model = model.eval()
+        b = self._to_device(self.prepare_batch(batch))
+        if randn is None:
+            g = torch.Generator(device=self.device).manual_seed(seed)
+            randn = generator_randn(g)
+        kwargs = model_kwargs(b["maps"], b["mask"], b["target"],
+                              b["mask_r"])
+        return self.diffusion2.p_sample_loop_conditional(
+            model, b["init_image"], kwargs, clip_denoised=False, randn=randn)
+
+    def validate(self, state: TrainState, val_loader,
+                 writer: Optional[MetricsWriter] = None,
+                 recon_metric: Optional[bool] = None) -> Dict[str, float]:
+        """Mean validation loss ("Validate MSE"); with recon_metric (by
+        default: every EVAL.RECON_SSIM_EVERY_N_EPOCHS epochs) also the
+        sampling SSIM of the first batch from the raw and the EMA
+        weights."""
+        if recon_metric is None:
+            every = self.cfg.EVAL.RECON_SSIM_EVERY_N_EPOCHS
+            epoch = state.step // self.steps_per_epoch
+            recon_metric = bool(every) and epoch % every == 0
+        losses, first = [], None
+        for i, batch in enumerate(val_loader):
+            prepared = self.prepare_batch(batch)
+            if i == 0:
+                first = prepared
+            losses.append(float(self.val_loss(state, prepared, i)))
+        out = {"Validate MSE": float(np.mean(losses))}
+        if recon_metric and first is not None:
+            out.update(self._recon_ssim(state, first))
+        if writer is not None:
+            writer.scalars(state.step, out)
+        logger.info("validate step %d: %s", state.step, out)
+        return out
+
+    def _recon_ssim(self, state: TrainState, batch: dict) -> Dict[str, float]:
+        """Sampling quality: one validation batch sampled (fixed seed) from
+        the raw and the EMA weights, the SSIM of emap 0 frame by frame
+        against the batch target. The denoising loss is no proxy for it."""
+        from dl_swin_gan_tpu_torch.infer.evaluate import ssim2d
+
+        ref = np.abs(np.asarray(batch["target"]))[:, 0]      # [B, T, Y, X]
+        out = {}
+        for tag, model in (("", state.model),
+                           (" (EMA)", self.ema_model(state))):
+            gen = self.sample(model, batch, seed=self.cfg.SEED + 99)
+            mag = gen.abs()[:, 0].cpu().numpy()
+            vals = []
+            for b in range(min(ref.shape[0], mag.shape[0])):
+                rng = ref[b].max() - ref[b].min()
+                vals.extend(ssim2d(ref[b, t], mag[b, t], data_range=rng)
+                            for t in range(ref.shape[1]))
+            out[f"Validate recon SSIM{tag}"] = float(np.mean(vals))
+        return out
+

@@ -211,7 +211,14 @@ _QUALITY_MODELS = {"res": ("RES", 5, 2, 64, 40, 10, "runs/resq2"),
                    "se": ("SE", 5, 1, 96, 24, 8, "runs/seq2"),
                    "cbam": ("CBAM", 5, 1, 96, 24, 8, "runs/cbamq2"),
                    "swin": ("SWIN", 3, 2, 96, 20, 10, "runs/swinq2"),
-                   "swingan": ("SWIN", 3, 2, 96, 40, 10, "runs/sganq3")}
+                   "swingan": ("SWIN", 3, 2, 96, 40, 10, "runs/sganq3"),
+                   "latte2": ("Latte", 2, 0, 192, 1000, 20, "runs/latteq4"),
+                   "dit": ("DiT", 2, 0, 256, 2000, 20, "runs/ditq2")}
+
+# the diffusion models' further columns: (NUM_LAYERS, NUM_HEADS,
+# SHARE_WEIGHTS, EVAL.CKPT_EVERY_N_STEPS) of their YAMLs
+_DIFFUSION_QUALITY_MODELS = {"latte2": (12, 6, True, 64),
+                             "dit": (6, 8, False, 0)}
 
 
 def quality_cfg(dtype: str = "float32", model: str = "res"):
@@ -219,7 +226,8 @@ def quality_cfg(dtype: str = "float32", model: str = "res"):
     sets. `model` "res" is `configs/quality/resnet.yaml` (float32) or
     `resnet_bf16.yaml` (bfloat16); "se", "cbam", "swin" and "swingan" are
     `configs/quality/se.yaml`, `cbam.yaml`, `swin.yaml` and `swingan.yaml`
-    (float32 in their YAMLs). Like every quality YAML it sets
+    (float32 in their YAMLs); "latte2" and "dit" the diffusion rows'
+    `latte2.yaml` and `dit.yaml` (DDPM_X). Like every quality YAML it sets
     DATALOADER.DEVICE_PIPELINE: training batches are built on the device."""
     from dl_swin_gan_tpu_torch.config import get_cfg
 
@@ -282,4 +290,31 @@ def quality_cfg(dtype: str = "float32", model: str = "res"):
     cfg.OUTPUT_DIR = ("runs/resbf16" if model == "res" and dtype == "bfloat16"
                       else output_dir)
     cfg.VERSION = 1
+    if model in _DIFFUSION_QUALITY_MODELS:
+        _diffusion_fields(cfg, model)
     return cfg
+
+
+def _diffusion_fields(cfg, model: str) -> None:
+    """Where `configs/quality/latte2.yaml` and `dit.yaml` differ from the
+    other quality YAMLs: hard-DC (DDPM_X) unrolls, 1000 training steps of
+    the linear schedule, transformer widths, StepLR."""
+    layers, heads, share, ckpt_every = _DIFFUSION_QUALITY_MODELS[model]
+    cfg.MODEL.META_ARCHITECTURE = "DDPM_X"
+    cfg.MODEL.STRATEGY = "none"
+    p = cfg.MODEL.PARAMETERS
+    if model == "latte2":
+        p.NUM_SWINBLOCKS = 0
+    p.NUM_LAYERS = layers
+    p.NUM_HEADS = heads
+    p.SHARE_WEIGHTS = share
+    p.SLWIN_INIT = False
+    p.LEARN_SIGMA = False
+    p.NOISE_SCHED = "linear"
+    p.PATCH_SIZE = (2, 4, 4)
+    cfg.MODEL.RECON_LOSS.LOSS_WEIGHT = False
+    cfg.LR_SCHEDULER.STEP_SIZE = 1000
+    cfg.LR_SCHEDULER.GAMMA = 0.5
+    cfg.EVAL.CKPT_EVERY_N_STEPS = ckpt_every
+    cfg.LOGGER.LOG_METRICS_EVERY_N_STEPS = 50
+    cfg.LOGGER.LOG_PREDICTION_EVERY_N_STEPS = 0

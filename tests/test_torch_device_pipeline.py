@@ -137,8 +137,19 @@ def test_pipeline_lr_decom_matches_jax_and_host():
 
 
 def test_pipeline_diffusion_raises():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        DevicePipeline(_cfg(get_cfg), diffusion=True, device="cpu")
+    """diffusion=True builds diffusion batches (it raised before they were
+    ported): DDPM_X draws mask_r and mask_p after the mask, DDPM_E takes
+    the mask for both; no raw k-space in either
+    (tests/test_torch_diffusion.py holds them against the JAX pipeline)."""
+    k, m, _ = make_cine_example(seed=0, **SHAPE)
+    for meta in ("DDPM_X", "DDPM_E"):
+        cfg = _cfg(get_cfg)
+        cfg.MODEL.META_ARCHITECTURE = meta
+        params, got = _ours(cfg, k, m, "d0", diffusion=True)
+        assert "kspace" not in got
+        assert ("mask_r" in params) == (meta == "DDPM_X")
+        assert (got["mask_r"] + got["mask_p"] == got["mask"]).all() \
+            if meta == "DDPM_X" else (got["mask_r"] == got["mask"]).all()
 
 
 def test_pipeline_needs_cuda_or_explicit_cpu(monkeypatch):

@@ -153,28 +153,46 @@ def test_init_params_seeded_torch_default():
 
 @pytest.mark.parametrize("change", [
     ("MODEL.META_ARCHITECTURE", "dslr-pgd"),   # the other DSLR modes build
-    # the diffusion trunks with the DC rules of their configs (the rules
-    # themselves are ported: tests/test_torch_solver_modes.py)
-    ("MODEL.MODEL_TYPE", "DIT", "MODEL.META_ARCHITECTURE", "ddpm_x"),
-    ("MODEL.MODEL_TYPE", "LATTE", "MODEL.META_ARCHITECTURE", "ddpm_e"),
     # bf16 builds for RES, SE and CBAM; the bf16 Swin trunk is not ported
     ("MODEL.MODEL_TYPE", "SWIN", "MODEL.PARAMETERS.CONV_BLOCK.DTYPE",
      "bfloat16"),
-    ("MODEL.MODEL_TYPE", "SWIN_DIFF", "MODEL.META_ARCHITECTURE", "ddpm_x"),
     ("MODEL.MODEL_TYPE", "SWIN", "MODEL.PARAMETERS.CONV_BLOCK.DTYPE",
      "bfloat16", "MODEL.META_ARCHITECTURE", "modl"),
-    ("MODEL.MODEL_TYPE", "SWIN_DIFF"),   # SWIN itself is ported
-    ("MODEL.MODEL_TYPE", "DIT"),
-    ("MODEL.MODEL_TYPE", "LATTE"),
-    ("MODEL.MODEL_TYPE", "DIT", "MODEL.META_ARCHITECTURE", "ddpm"),
-    ("MODEL.MODEL_TYPE", "LATTE", "MODEL.META_ARCHITECTURE", "ddpm_x"),
-    ("MODEL.MODEL_TYPE", "DIT", "MODEL.META_ARCHITECTURE", "ddpm_e"),
 ])
 def test_unported_options_raise(change):
     cfg = _tiny(get_cfg())
     cfg.merge_from_list(list(change))
     with pytest.raises(NotImplementedError, match="not ported"):
         build_model(cfg)
+
+
+@pytest.mark.parametrize("change,dc_mode", [
+    (("MODEL.MODEL_TYPE", "DIT", "MODEL.META_ARCHITECTURE", "ddpm_x"), "dc"),
+    (("MODEL.MODEL_TYPE", "LATTE", "MODEL.META_ARCHITECTURE", "ddpm_e"),
+     "none"),
+    (("MODEL.MODEL_TYPE", "SWIN_DIFF", "MODEL.META_ARCHITECTURE", "ddpm_x"),
+     "dc"),
+    (("MODEL.MODEL_TYPE", "SWIN_DIFF"), "pgd"),
+    (("MODEL.MODEL_TYPE", "DIT"), "pgd"),
+    (("MODEL.MODEL_TYPE", "LATTE"), "pgd"),
+    (("MODEL.MODEL_TYPE", "DIT", "MODEL.META_ARCHITECTURE", "ddpm"), "none"),
+    (("MODEL.MODEL_TYPE", "LATTE", "MODEL.META_ARCHITECTURE", "ddpm_x"),
+     "dc"),
+    (("MODEL.MODEL_TYPE", "DIT", "MODEL.META_ARCHITECTURE", "ddpm_e"),
+     "none"),
+])
+def test_diffusion_options_build(change, dc_mode):
+    """The diffusion backbones build, with the DC rule of their config, as
+    a DiffusionUnrolled (tests/test_torch_diffusion_models.py holds them
+    against the JAX package); the unrolled solver refuses them."""
+    from dl_swin_gan_tpu_torch.solvers import DiffusionUnrolled
+
+    cfg = _tiny(get_cfg())
+    cfg.merge_from_list(list(change))
+    model = build_model(cfg)
+    assert isinstance(model, DiffusionUnrolled) and model.dc_mode == dc_mode
+    with pytest.raises(ValueError, match="diffusion backbone"):
+        build_solver(cfg)
 
 
 def test_unknown_model_type_is_an_error():

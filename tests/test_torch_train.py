@@ -575,6 +575,13 @@ def test_train_package_imports_no_jax_subprocess():
         "import dl_swin_gan_tpu_torch.train.train_lr\n"
         "import dl_swin_gan_tpu_torch.train.perceptual\n"
         "import dl_swin_gan_tpu_torch.scripts.train_swin_gan\n"
+        "import dl_swin_gan_tpu_torch.scripts.train_dit\n"
+        "import dl_swin_gan_tpu_torch.scripts.train_latte\n"
+        "import dl_swin_gan_tpu_torch.train.diffusion_trainer\n"
+        "import dl_swin_gan_tpu_torch.diffusion.timestep_sampler\n"
+        "import dl_swin_gan_tpu_torch.models.latte\n"
+        "import dl_swin_gan_tpu_torch.models.swin_diff\n"
+        "import dl_swin_gan_tpu_torch.infer.reconstruct\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'dl_swin_gan_tpu')]\n"
         "print(bad)\n"
