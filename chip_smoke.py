@@ -24,7 +24,11 @@ then exits non-zero and prints no result:
               torch.profiler); the coil pass's blocks per SM at 180x64 (two
               at least) and the attention forward's at full width; the
               backwards and the block-LLR op also called twice for
-              bitwise-equal results
+              bitwise-equal results; both window-attention kernels with
+              bfloat16 q, k, v (and g) at the Swin block's shapes and at
+              SwinDiff's head_dim 24, against their plain versions, the
+              float32 kernels on the same values, SDPA in bfloat16, and
+              their bounds at the bf16 rate
   4. main     the headline config (configs/basic/example.yaml: 5 unrolls x 2
               resblocks x 64 features, float32, seeded torch-default weights)
               on 4 synthetic 20x180x64 slices with 8 coils and 2 maps, through
@@ -130,8 +134,21 @@ then exits non-zero and prints no result:
               and shifted) through the forward and backward kernels
               against their plain versions, added to the kernels line as
               the "swindiff train" variants
- 14. result   one JSON line of kernels, then the last line
-              {"ok": true, "device": {...}}
+ 14. swin_bf16 config_swin.yaml with CONV_BLOCK.DTYPE bfloat16 (full
+              width): served at batch 1 and 4 like swin (30 window-attention
+              launches per batch, bf16 q, k, v); 1 warm-up and
+              SWIN_BF16_TRAIN_STEPS timed Trainer steps at batch 1 (60 / 30
+              / 9 launches per step, asserted), one profiled; one step at 1
+              unroll on SWIN_BF16_CPU_FRAMES frames against the CPU path
+ 15. diffusion_bf16 configs/quality/dit_bf16.yaml: 1 warm-up and
+              DIFF_BF16_STEPS timed DiffusionTrainer steps through the
+              device pipeline, and a DIFF_SHORT_STEPS sampling run (slice 0
+              at 2 steps against the CPU path); Latte at latte2.yaml's
+              widths in bfloat16: DIFF_BF16_STEPS timed train steps, one held
+              against the CPU path
+ 16. result   one JSON line of kernels (the bf16 window-attention variants
+              under window_attention and window_attention_bwd), then the
+              last line {"ok": true, "device": {...}}
 
 Needs one CUDA device, nvcc and this checkout; no network, no JAX.
 """
@@ -276,9 +293,34 @@ DIFF_DRAW_ROUNDS = 4
 # reconstruct_cfl vs Reconstructor on the same scanner arrays: the same
 # inputs through the same solver
 CFL_REL_L2_TOL = 1e-6
+# the swin_bf16 phase's timed train steps; the diffusion_bf16 phase's timed
+# DiT and Latte steps
+SWIN_BF16_TRAIN_STEPS = 3
+DIFF_BF16_STEPS = 3
+# the frames of the swin_bf16 step held against the CPU (all 20 took the
+# card's host 20 s)
+SWIN_BF16_CPU_FRAMES = 8
+# the bfloat16 window-attention kernels against their plain versions: both
+# widen q, k, v (and g) to float32 and round only the outputs, and their
+# float32 values differ by the float32 kernels' KERNEL_REL_TOL, so each
+# rounded element is within one bf16 ulp (of the larger magnitude) plus
+# KERNEL_REL_TOL of the largest element; rel L2 over all within
+# BF16_KERNEL_REL_L2 (a kernel that multiplied in bf16 or rounded p first is
+# 4e-3 to 5e-3 away on the CPU, tests/test_torch_window_attn.py); dbias is
+# float32, held to KERNEL_REL_TOL
+BF16_KERNEL_REL_L2 = 5e-4
+# a bfloat16 trunk's train step (Swin at 1 unroll, Latte) on the card
+# against the port's CPU path: other conv, GEMM and attention kernels sum in
+# other orders, so a few bf16 roundings go the other way. The H100 showed
+# loss rel 2.8e-6 and 4.4e-6, gradient rel L2 1.7e-3 and 1.0e-3 (the Swin
+# step on all 20 frames); the limits are the bf16 RES step's loss limit and
+# 6x the larger gradient
+BF16_TRUNK_LOSS_REL_TOL = BF16_LOSS_REL_TOL
+BF16_TRUNK_GRAD_REL_L2_TOL = 1e-2
 # published H100 SXM peaks (NVIDIA data sheet) for the bound
 FP32_FLOPS = 67e12        # float32 outside the tensor cores
 TF32_FLOPS = 495e12       # dense TF32 on the tensor cores; 3xTF32 runs at 1/3
+BF16_FLOPS = 989e12       # dense bf16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -379,6 +421,7 @@ def phase_kernels():
     return {"sense_normal": kernels_sense_normal(),
             "window_attention": kernels_window_attention(),
             "window_attention_bwd": kernels_window_attention_bwd(),
+            "window_attention_bf16": kernels_window_attention_bf16(),
             "llr_normal": kernels_llr_normal()}
 
 
@@ -460,11 +503,13 @@ def _bound_text(bound, ms):
             f"{bound['bound_ms'] / ms:.1%} of the bound")
 
 
-def _attention_work(W, H, N, D, nW):
+def _attention_work(W, H, N, D, nW, io_bytes=4):
     """(FLOP, bytes) of one window-attention call: the two products, and
-    q, k, v, out, bias and the mask each moved once."""
+    q, k, v, out (io_bytes each element), bias and the mask (float32) each
+    moved once."""
     flops = 4 * W * H * N * N * D
-    nbytes = 4 * (4 * W * H * N * D + H * N * N + (nW * N * N if nW else 0))
+    nbytes = (io_bytes * 4 * W * H * N * D
+              + 4 * (H * N * N + (nW * N * N if nW else 0)))
     return flops, nbytes
 
 
@@ -538,13 +583,14 @@ def kernels_window_attention():
     return results
 
 
-def _attention_bwd_work(W, H, N, D, nW):
+def _attention_bwd_work(W, H, N, D, nW, io_bytes=4):
     """(FLOP, bytes) of one window-attention backward: the five products
-    (s, dp, dv, dq, dk); q, k, v, g in, dq, dk, dv out, bias in, dbias out
-    and the mask in, each moved once."""
+    (s, dp, dv, dq, dk); q, k, v, g in, dq, dk, dv out (io_bytes each
+    element), bias in, dbias out and the mask in (float32), each moved
+    once."""
     flops = 10 * W * H * N * N * D
-    nbytes = 4 * (7 * W * H * N * D + 2 * H * N * N
-                  + (nW * N * N if nW else 0))
+    nbytes = (io_bytes * 7 * W * H * N * D
+              + 4 * (2 * H * N * N + (nW * N * N if nW else 0)))
     return flops, nbytes
 
 
@@ -590,7 +636,8 @@ def sdpa_backward(q, k, v, bias, mask, g):
     W, H, N, _ = q.shape
     full = bias[None] + (mask.repeat(W // mask.shape[0], 1, 1)[:, None]
                          if mask is not None else 0)
-    full = full.expand(W, H, N, N).contiguous().requires_grad_(True)
+    full = full.expand(W, H, N, N).to(q.dtype).contiguous().requires_grad_(
+        True)
     leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
     out = torch.nn.functional.scaled_dot_product_attention(*leaves,
                                                            attn_mask=full)
@@ -618,7 +665,7 @@ def kernels_window_attention_bwd():
             0.5 * rng.standard_normal((H, N, N)).astype(np.float32)).cuda()
         for masked in (True, False):
             m = mask if masked else None
-            out, lse = WA.window_attention_fwd(q, k, v, bias, m)
+            out, lse, _ = WA.window_attention_fwd(q, k, v, bias, m)
 
             def kernel():
                 return WA.window_attention_bwd(q, k, v, bias, m, g, out, lse)
@@ -689,6 +736,156 @@ def kernels_window_attention_bwd():
     return results
 
 
+def _bf16_errors(a, b):
+    """(max abs error, rel L2, and the largest excess over one bf16 ulp plus
+    KERNEL_REL_TOL of the largest element, which must be <= 0) of bf16 a
+    against bf16 b, in float32."""
+    a, b = a.float(), b.float()
+    mag = torch.maximum(a.abs(), b.abs())
+    ulp = torch.exp2(torch.floor(torch.log2(torch.where(
+        mag > 0, mag, torch.ones_like(mag)))) - 7)
+    diff = (a - b).abs()
+    excess = (diff - ulp - KERNEL_REL_TOL * b.abs().max()).max().item()
+    return (diff.max().item(), ((a - b).norm() / b.norm()).item(), excess)
+
+
+def _bf16_attention_cases():
+    """(tag, W, H, N, D, mask or None): the full-width Swin block at batch 1
+    and 4, shifted and not, and SwinDiff's window at head_dim 24 (7 frames
+    shrunk to 6: N = 384), shifted by (0, 4, 4) on a 6x16x40 grid (10
+    windows) and not."""
+    swin = torch.from_numpy(compute_shift_mask(
+        *SWIN_GRID, SWIN_WINDOW, SWIN_SHIFT)).cuda()
+    swd = torch.from_numpy(compute_shift_mask(
+        6, 16, 40, (6, 8, 8), (0, 4, 4))).cuda()
+    N = SWIN_WINDOW[0] * SWIN_WINDOW[1] * SWIN_WINDOW[2]
+    cases = [(f"B={B} mask={'shift' if m else 'none'}",
+              swin.shape[0] * B, SWIN_HEADS, N, SWIN_HEAD_DIM,
+              swin if m else None) for B in (1, 4) for m in (True, False)]
+    cases += [(f"swindiff mask={'shift' if m else 'none'}", swd.shape[0], 4,
+               384, 24, swd if m else None) for m in (True, False)]
+    return cases
+
+
+def kernels_window_attention_bf16():
+    """Both window-attention kernels with bfloat16 q, k, v (and g): each
+    against its plain version (bf16 outputs within one ulp; dbias and lse
+    float32), the backward called twice for bitwise-equal gradients; timed
+    against the float32 kernel on the same values widened, SDPA on the
+    bf16 inputs with a bf16 float mask (forward, and backward with that
+    mask requiring grad) and its plain version; its bound moves bf16 q, k,
+    v, out (g, dq, dk, dv) and float32 bias, mask (dbias), and counts the
+    products at the bf16 tensor-core rate, the 3xTF32 figure beside. The
+    backward's delta reads the forward's float32 output (out32): the
+    backward handed the rounded bf16 output instead shows what that choice
+    buys. Returns ({tag: forward numbers}, {tag: backward numbers})."""
+    rng = np.random.RandomState(SEED + 4)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fwd_res, bwd_res = {}, {}
+    for tag, W, H, N, D, mask in _bf16_attention_cases():
+        q, k, v, g = (torch.from_numpy(rng.standard_normal(
+            (W, H, N, D)).astype(np.float32)).cuda().bfloat16()
+            for _ in range(4))
+        bias = torch.from_numpy(
+            0.5 * rng.standard_normal((H, N, N)).astype(np.float32)).cuda()
+        nW = 0 if mask is None else mask.shape[0]
+        out, lse, out32 = WA.window_attention_fwd(q, k, v, bias, mask)
+
+        def backward(o=out32):
+            return WA.window_attention_bwd(q, k, v, bias, mask, g, o, lse)
+
+        grads, again = backward(), backward()
+        rounded = backward(out.float())      # delta from the bf16 output
+        plain_out = WA.window_attention_plain(q, k, v, bias, mask)
+        plain = WA.window_attention_bwd_plain(q, k, v, bias, mask, g)
+        torch.cuda.synchronize()
+        at = f"bf16 {tag} [{W},{H},{N},{D}]"
+        check(torch.isfinite(out.float()).all().item()
+              and torch.equal(out, out32.bfloat16()),
+              f"window_attention {at}: out not finite or not out32 rounded")
+        fwd_abs, fwd_rel, excess = _bf16_errors(out, plain_out)
+        check(excess <= 0 and fwd_rel <= BF16_KERNEL_REL_L2,
+              f"window_attention vs plain at {at}: rel L2 {fwd_rel:.3e}, "
+              f"{excess:.3e} past one ulp")
+        rels, bwd_abs, delta_rels = {}, 0.0, {}
+        for name, a, b, c, r in zip(("dq", "dk", "dv", "dbias"), grads, plain,
+                                    again, rounded):
+            check(torch.isfinite(a.float()).all().item() and torch.equal(a, c),
+                  f"backward {name} not finite or not repeatable at {at}")
+            if name == "dbias":
+                err = (a - b).abs().max().item()
+                rels[name] = err / b.abs().max().item()
+                ok = rels[name] <= KERNEL_REL_TOL
+                delta_rels[name] = ((r - b).abs().max()
+                                    / b.abs().max()).item()
+            else:
+                err, rels[name], excess = _bf16_errors(a, b)
+                ok = excess <= 0 and rels[name] <= BF16_KERNEL_REL_L2
+                delta_rels[name] = _bf16_errors(r, b)[1]
+            bwd_abs = max(bwd_abs, err)
+            check(ok, f"backward {name} vs plain at {at}: rel "
+                  f"{rels[name]:.3e}")
+
+        wide = [t.float() for t in (q, k, v, g)]
+        f32_out, f32_lse, _ = WA.window_attention_fwd(*wide[:3], bias, mask)
+        full = bias[None] + (mask.repeat(W // nW, 1, 1)[:, None] if nW
+                             else 0)
+        full = full.expand(W, H, N, N).bfloat16().contiguous()
+        library_bwd = sdpa_backward(q, k, v, bias, mask, g)
+        for res, work, kernel, f32_kernel, plain_fn, library_fn, max_abs, \
+                rel in (
+                (fwd_res, _attention_work,
+                 lambda: WA.window_attention_fwd(q, k, v, bias, mask,
+                                                 with_lse=False),
+                 lambda: WA.window_attention_fwd(*wide[:3], bias, mask,
+                                                 with_lse=False),
+                 lambda: WA.window_attention_plain(q, k, v, bias, mask),
+                 lambda: sdpa(q, k, v, attn_mask=full), fwd_abs, fwd_rel),
+                (bwd_res, _attention_bwd_work, backward,
+                 lambda: WA.window_attention_bwd(*wide[:3], bias, mask,
+                                                 wide[3], f32_out, f32_lse),
+                 lambda: WA.window_attention_bwd_plain(q, k, v, bias, mask,
+                                                       g),
+                 library_bwd, bwd_abs, max(rels.values()))):
+            flops, nbytes = work(W, H, N, D, nW, io_bytes=2)
+            t_ops = flops / BF16_FLOPS * 1e3
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            bound = max(t_ops, t_bytes)
+            ms = cuda_ms(kernel)
+            res[tag] = dict(
+                max_abs_err=max_abs, rel_err=rel, ms=ms,
+                f32_kernel_ms=cuda_ms(f32_kernel),
+                plain_ms=cuda_ms(plain_fn), library_ms=cuda_ms(library_fn),
+                bound_ms=bound,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                three_tf32_ops_ms=flops / (TF32_FLOPS / 3) * 1e3,
+                bound_share=bound / ms, gflop=flops / 1e9,
+                mbytes=nbytes / 1e6, dtype="bfloat16")
+        bwd_res[tag]["rel_err_by_grad"] = rels
+        bwd_res[tag]["rel_l2_with_delta_from_bf16_out"] = delta_rels
+        fwd_res[tag]["train_forward_ms"] = cuda_ms(
+            lambda: WA.window_attention_fwd(q, k, v, bias, mask))
+        del library_bwd
+        for what, r in (("window_attention", fwd_res[tag]),
+                        ("window_attention_bwd", bwd_res[tag])):
+            print(f"kernel {what} {at}: rel L2 vs plain {r['rel_err']:.3e} "
+                  f"(max abs {r['max_abs_err']:.3e}) kernel_ms "
+                  f"{r['ms']:.4f} f32 kernel_ms {r['f32_kernel_ms']:.4f} "
+                  f"plain_ms {r['plain_ms']:.4f} library_ms (SDPA bf16) "
+                  f"{r['library_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
+                  f"({r['bound_by']} at the bf16 rate; 3xTF32 operations "
+                  f"{r['three_tf32_ops_ms']:.4f}; {r['gflop']:.3f} GFLOP, "
+                  f"{r['mbytes']:.2f} MB; {r['bound_share']:.1%} of the "
+                  "bound)")
+        print(f"kernel window_attention_bwd {at}: rel L2 by gradient "
+              + ", ".join(f"{n} {x:.3e}" for n, x in rels.items())
+              + "; with delta from the bf16-rounded out instead of out32: "
+              + ", ".join(f"{n} {x:.3e}" for n, x in delta_rels.items())
+              + f"; the forward with lse and out32 (training's) "
+              f"{fwd_res[tag]['train_forward_ms']:.4f} ms")
+    return fwd_res, bwd_res
+
+
 def kernels_attention_at(tag, masked, q, k, v, bias, mask):
     """The forward and backward window-attention kernels against their plain
     versions on the inputs a path gave them (a seeded cotangent for the
@@ -698,7 +895,7 @@ def kernels_attention_at(tag, masked, q, k, v, bias, mask):
     nW = mask.shape[0] if masked else 0
     g = torch.from_numpy(np.random.RandomState(SEED + 3).standard_normal(
         tuple(q.shape)).astype(np.float32)).cuda()
-    out, lse = WA.window_attention_fwd(q, k, v, bias, mask)
+    out, lse, _ = WA.window_attention_fwd(q, k, v, bias, mask)
 
     def backward():
         return WA.window_attention_bwd(q, k, v, bias, mask, g, out, lse)
@@ -987,7 +1184,7 @@ def profile_device(label, fn, split=None):
 
 
 def run_path(tag, cfg, expected, cpu_tol=CPU_REL_L2_TOL, cpu_unrolls=None,
-             batch_invariant=True):
+             batch_invariant=True, batch_tol=1e-4, cpu_check=True):
     """Drive one reconstruction path through Reconstructor on the card and
     check it. `expected` maps each counter of COUNTERS to its launches per
     batch; returns ({counter: {batch size: launches}}, the raw slices, their
@@ -997,7 +1194,8 @@ def run_path(tag, cfg, expected, cpu_tol=CPU_REL_L2_TOL, cpu_unrolls=None,
     whose output depends on the batch (`batch_invariant` False: the hqs
     rule's CG takes its step sizes from inner products over the whole
     batch, in the JAX package too) prints batch 1 against batch 4 instead
-    of holding them to 1e-4."""
+    of holding them to `batch_tol`. Without `cpu_check` the CPU
+    comparison is left to the caller."""
     cfg.freeze()
     T, Y, X, C, E = headline_shape()
     nunroll = cfg.MODEL.PARAMETERS.NUM_UNROLLS
@@ -1034,7 +1232,8 @@ def run_path(tag, cfg, expected, cpu_tol=CPU_REL_L2_TOL, cpu_unrolls=None,
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     rel_b = np.linalg.norm(outs[1] - outs[4]) / np.linalg.norm(outs[1])
     if batch_invariant:
-        check(rel_b <= 1e-4, f"batch 1 vs batch 4 outputs differ: {rel_b:.3e}")
+        check(rel_b <= batch_tol,
+              f"batch 1 vs batch 4 outputs differ: {rel_b:.3e}")
 
     for bs in (1, 4):
         _, sec = _time_recon(recon, examples, bs, repeats=3)
@@ -1063,6 +1262,8 @@ def run_path(tag, cfg, expected, cpu_tol=CPU_REL_L2_TOL, cpu_unrolls=None,
               f"{groups[1]:.3f} ms device time ({sense_ms / groups[1]:.2%}), "
               f"{expected.get('sense_normal', 0)} launches")
 
+    if not cpu_check:
+        return counts, slices, examples, outs[1], params, groups
     gpu_out, cut_cfg, cut_params = outs[1][:1], cfg, params
     if cpu_unrolls is not None:
         cut_cfg = _cut(cfg, cpu_unrolls)
@@ -1510,9 +1711,16 @@ def _timed_steps(tag, trainer, state, batches, expected, keys,
     return counts, ms, values, groups
 
 
-def _cpu_step_check(tag, cut, params, batch, trainer_cls=Trainer):
+def _cpu_step_check(tag, cut, params, batch, trainer_cls=Trainer,
+                    loss_tol=TRAIN_LOSS_REL_TOL,
+                    grad_tol=TRAIN_GRAD_REL_L2_TOL, frames=None):
     """One train step of the cut config on the card and on the port's CPU
-    path from the same weights and batch, held to the train limits."""
+    path from the same weights and batch (its first `frames` frames when
+    given), held to the train limits (a bfloat16 trunk's: loss_tol,
+    grad_tol)."""
+    if frames is not None:      # [B, *, T, Y, X] arrays; maps have no T
+        batch = {k: v[:, :, :frames] if np.ndim(v) == 5 else v
+                 for k, v in batch.items()}
     gpu = _step_and_grads(cut, params, batch, "cuda", trainer_cls)
     cpu = _step_and_grads(cut, params, batch, "cpu", trainer_cls)
     rel_loss = abs(gpu[0] - cpu[0]) / abs(cpu[0])
@@ -1522,9 +1730,9 @@ def _cpu_step_check(tag, cut, params, batch, trainer_cls=Trainer):
           f"{T} frames, vs the port's CPU path ({cpu[2]:.1f} s on the CPU): "
           f"loss {gpu[0]:.6f} vs {cpu[0]:.6f} (rel {rel_loss:.3e}), gradient "
           f"rel L2 {rel_grad:.3e} over {cpu[1].numel()} values")
-    check(rel_loss <= TRAIN_LOSS_REL_TOL,
+    check(rel_loss <= loss_tol,
           f"{tag} GPU vs CPU train loss rel {rel_loss:.3e}")
-    check(rel_grad <= TRAIN_GRAD_REL_L2_TOL,
+    check(rel_grad <= grad_tol,
           f"{tag} GPU vs CPU gradient rel L2 {rel_grad:.3e}")
 
 
@@ -1887,8 +2095,8 @@ def _cpu_randn(seed, device):
                                             generator=g).to(device)
 
 
-def _diffusion_cfg(model):
-    cfg = quality_cfg(model=model)
+def _diffusion_cfg(model, dtype="float32"):
+    cfg = quality_cfg(dtype, model)
     cfg.OUTPUT_DIR = str(RUNS)
     cfg.freeze()
     return cfg
@@ -1909,11 +2117,11 @@ def _swindiff_cfg():
 
 
 def _serve_diffusion(tag, cfg, params, examples, steps, expected, counts,
-                     batch_sizes=(1, 4)):
+                     batch_sizes=(1, 4), cpu_tol=CPU_REL_L2_TOL):
     """DiffusionReconstructor on the card over `examples` at `steps`
     sampling steps and each batch size: launches per batch checked against
     `expected` (per sampling step), ms per slice, peak memory; slice 0 at 2
-    steps held against the CPU path with the same noise."""
+    steps held against the CPU path with the same noise (to cpu_tol)."""
     E, T, Y, X = examples[0]["init_image"].shape
     recon = DiffusionReconstructor(cfg, params, sample_steps=steps)
     check(recon.device.type == "cuda", f"{tag} on {recon.device}")
@@ -1951,7 +2159,7 @@ def _serve_diffusion(tag, cfg, params, examples, steps, expected, counts,
     print(f"{tag}: slice 0 at 2 sampling steps vs the port's CPU path "
           f"({time.perf_counter() - t0:.1f} s on the CPU), the same noise: "
           f"rel L2 {rel:.3e}")
-    check(rel <= CPU_REL_L2_TOL, f"{tag} GPU vs CPU rel L2 {rel:.3e}")
+    check(rel <= cpu_tol, f"{tag} GPU vs CPU rel L2 {rel:.3e}")
     return out
 
 
@@ -2045,7 +2253,9 @@ class _AttentionRecorder:
 
 
 def _diffusion_train(tag, cfg, params, files, steps, expected, counts,
-                     cpu_check=False, ema_vs_cpu=False, draws_ab=False):
+                     cpu_check=False, ema_vs_cpu=False, draws_ab=False,
+                     loss_tol=TRAIN_LOSS_REL_TOL,
+                     grad_tol=TRAIN_GRAD_REL_L2_TOL):
     """DiffusionTrainer on the card fed by the device pipeline (diffusion
     batches): 1 warm-up and `steps` timed steps, launches per step against
     `expected`, one profiled step; with `draws_ab` the step with t and noise
@@ -2054,7 +2264,8 @@ def _diffusion_train(tag, cfg, params, files, steps, expected, counts,
     rule on each device, with `ema_vs_cpu` also against the CPU's change.
     Adam's first step is about lr * sign(g), so the parameters' change, and
     the EMA's, amplify the gradient's roundoff where g is near 0: hold them
-    to the CPU's only where the gradients agree far below the limit."""
+    to the CPU's only where the gradients agree far below the limit. A
+    bfloat16 trunk's loss and gradient are held to loss_tol and grad_tol."""
     trainer = DiffusionTrainer(cfg)                 # the GPU: no device given
     check(trainer.device.type == "cuda", f"{tag} trainer on {trainer.device}")
     loader = trainer._train_loader(None, files)
@@ -2097,9 +2308,9 @@ def _diffusion_train(tag, cfg, params, files, steps, expected, counts,
               f"{gpu[3]:.3e} on the card, {cpu[3]:.3e} on the CPU; against "
               f"the CPU's rel L2 {rel_ema:.3e}"
               + ("" if ema_vs_cpu else " (not held: Adam's first step)"))
-        check(rel_loss <= TRAIN_LOSS_REL_TOL,
+        check(rel_loss <= loss_tol,
               f"{tag} GPU vs CPU loss rel {rel_loss:.3e}")
-        check(rel_grad <= TRAIN_GRAD_REL_L2_TOL,
+        check(rel_grad <= grad_tol,
               f"{tag} GPU vs CPU gradient rel L2 {rel_grad:.3e}")
         check(gpu[2].norm() > 0 and cpu[2].norm() > 0
               and max(gpu[3], cpu[3]) <= TRAIN_GRAD_REL_L2_TOL,
@@ -2165,6 +2376,84 @@ def phase_diffusion():
     return counts, attention
 
 
+def phase_swin_bf16():
+    """config_swin.yaml with a bfloat16 trunk on the card: served like the
+    swin phase (bf16 q, k, v through the window-attention kernels);
+    Trainer steps at batch 1 with the launches of the float32 path; one
+    step at 1 unroll on the first SWIN_BF16_CPU_FRAMES frames against the
+    CPU, which checks the forward as well (the script's time limit leaves
+    no room for a CPU comparison of the serving path too)."""
+    counts = {name: {} for name in COUNTERS}
+    cfg = swin_cfg()
+    cfg.MODEL.PARAMETERS.CONV_BLOCK.DTYPE = "bfloat16"
+    p = cfg.MODEL.PARAMETERS
+    served = run_path("swin_bf16", cfg, {
+        "sense_normal": p.NUM_UNROLLS,
+        "window_attention": 6 * p.NUM_SWINBLOCKS * p.NUM_UNROLLS,
+        "window_attention_bwd": 0}, batch_tol=BF16_REL_L2_TOL,
+        cpu_check=False)[0]
+    for name, by_bs in served.items():
+        for bs, n in by_bs.items():
+            counts[name][f"serve batch {bs}"] = n
+
+    train_cfg = swin_cfg(output_dir=str(RUNS))
+    train_cfg.MODEL.PARAMETERS.CONV_BLOCK.DTYPE = "bfloat16"
+    train_cfg.freeze()
+    trainer = Trainer(train_cfg)                # the GPU: no device given
+    check(trainer.device.type == "cuda", f"Trainer on {trainer.device}")
+    batches = _train_batches("swin_bf16 train", train_cfg, trainer,
+                             SWIN_BF16_TRAIN_STEPS + 1)
+    state = trainer.init_state(state_dict=init_params(train_cfg, SEED))
+    check(state.model.nets[0].trunks[0].dtype == torch.bfloat16
+          and all(q.dtype == torch.float32 for q in state.model.parameters()),
+          "swin_bf16: trunk dtype or parameter dtypes")
+    trained = _timed_steps("swin_bf16 train", trainer, state, batches,
+                           _train_launches(train_cfg),
+                           ("Train/complex_l1",))[0]
+    for name, c in trained.items():
+        counts[name]["train steps"] = c["steps"]
+    del trainer, state
+    torch.cuda.empty_cache()
+    cut = _cut(train_cfg, 1)
+    _cpu_step_check("swin_bf16 train", cut, init_params(cut, SEED),
+                    batches[0], loss_tol=BF16_TRUNK_LOSS_REL_TOL,
+                    grad_tol=BF16_TRUNK_GRAD_REL_L2_TOL,
+                    frames=SWIN_BF16_CPU_FRAMES)
+    shutil.rmtree(RUNS, ignore_errors=True)
+    return counts
+
+
+def phase_diffusion_bf16():
+    """configs/quality/dit_bf16.yaml's DiT trained through the device
+    pipeline and sampled for DIFF_SHORT_STEPS steps; Latte at latte2.yaml's
+    widths in bfloat16, its steps timed and one against the CPU. No kernel of the
+    port runs on these paths (their attention is plain matmuls, as in the
+    JAX package)."""
+    counts = {name: {} for name in COUNTERS}
+    none = {name: 0 for name in COUNTERS}
+    T, Y, X, C, E = headline_shape()
+    example = ResampleTransform(ACCEL, headline_cfg())(*make_cine_example(
+        T=T, Y=Y, X=X, C=C, E=E, seed=SEED)[:2])
+    files = quality_split("train", 1)
+
+    dit = _diffusion_cfg("dit", "bfloat16")
+    check(dit.MODEL.PARAMETERS.CONV_BLOCK.DTYPE == "bfloat16",
+          "diffusion_bf16: dit_bf16's dtype")
+    params = _diffusion_params(dit)
+    _diffusion_train("dit_bf16 train", dit, params, files, DIFF_BF16_STEPS,
+                     none, counts)
+    _serve_diffusion("dit_bf16", dit, params, [example], DIFF_SHORT_STEPS,
+                     none, counts, batch_sizes=(1,), cpu_tol=BF16_REL_L2_TOL)
+
+    latte = _diffusion_cfg("latte2", "bfloat16")
+    _diffusion_train("latte_bf16 train", latte, _diffusion_params(latte),
+                     files, DIFF_BF16_STEPS, none, counts, cpu_check=True,
+                     loss_tol=BF16_TRUNK_LOSS_REL_TOL,
+                     grad_tol=BF16_TRUNK_GRAD_REL_L2_TOL)
+    shutil.rmtree(RUNS, ignore_errors=True)
+    return counts
+
+
 def _entry(name, source, replaces, res, launches):
     """One kernel's item of the `kernels` line: the numbers of its headline
     variant, then every variant it was measured at."""
@@ -2191,28 +2480,41 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(1)
-    phase_device()
-    phase_build()
-    kres = phase_kernels()
-    counts = {"main": phase_main(), "swin": phase_swin(),
-              "train": phase_train(), "dslr": phase_dslr(),
-              "headline": phase_headline(), "se": phase_se(),
-              "modl": phase_modl(), "gan": phase_gan(),
-              "pipeline": phase_pipeline()}
-    counts["diffusion"], attention = phase_diffusion()
+    t_start = time.perf_counter()
+
+    def timed(phase):
+        t0 = time.perf_counter()
+        out = phase()
+        print(f"phase {phase.__name__[6:]}: {time.perf_counter() - t0:.1f} s "
+              f"({time.perf_counter() - t_start:.1f} s in all)")
+        return out
+
+    timed(phase_device)
+    timed(phase_build)
+    kres = timed(phase_kernels)
+    counts = {name: timed(phase) for name, phase in (
+        ("main", phase_main), ("swin", phase_swin), ("train", phase_train),
+        ("dslr", phase_dslr), ("headline", phase_headline),
+        ("se", phase_se), ("modl", phase_modl), ("gan", phase_gan),
+        ("pipeline", phase_pipeline))}
+    counts["diffusion"], attention = timed(phase_diffusion)
+    counts["swin_bf16"] = timed(phase_swin_bf16)
+    counts["diffusion_bf16"] = timed(phase_diffusion_bf16)
 
     def by_path(name):
         return {path: c[name] for path, c in counts.items()}
 
     def attention_variants(name, side):
         """The Swin block's variants (batch, mask), then those a diffusion
-        path's own inputs gave (path, mask)."""
+        path's own inputs gave (path, mask), then the bfloat16 ones."""
         def mask(m):
             return f"mask={'shift' if m else 'none'}"
         return {**{f"B={B} {mask(m)}": r
                    for (B, m), r in kres[name].items()},
                 **{f"{tag} {mask(m)}": r[side]
-                   for (tag, m), r in attention.items()}}
+                   for (tag, m), r in attention.items()},
+                **{f"bf16 {tag}": r for tag, r in
+                   kres["window_attention_bf16"][side].items()}}
 
     def llr_by_path():
         return {path: {f"{side} {run}": n for side in ("pre", "post")

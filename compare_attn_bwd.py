@@ -101,7 +101,7 @@ def main():
             0.5 * rng.standard_normal((H, N, N)).astype(np.float32)).cuda()
         for masked in (True, False):
             m = shift if masked else None
-            out, lse = WA.window_attention_fwd(q, k, v, bias, m)
+            out, lse, _ = WA.window_attention_fwd(q, k, v, bias, m)
             versions = {
                 "old": lambda: old_bwd(old, q, k, v, bias, m, g, out, lse),
                 "new": lambda: WA.window_attention_bwd(q, k, v, bias, m, g,

@@ -8,12 +8,24 @@
 //     p   = softmax(s) over the keys, the row max subtracted, in float32
 //     out = p v[w,h]
 //
-// Layout, all float32 and contiguous:
-//   q, k, v, out  [W, H, N, D]    W = batch * windows, D % 4 == 0, D <= 32
-//   bias          [H, N, N]       relative-position bias, gathered per head
-//   mask          [nW, N, N]      0 / -100 shift mask, or null
-//   lse           [W, H, N]       each row's log-sum-exp, or null; written
+// Layout, all contiguous:
+//   q, k, v, out  [W, H, N, D]    W = batch * windows, D % 4 == 0, D <= 32;
+//                                 float32 (window_attn_launch) or bfloat16
+//                                 (window_attn_bf16_launch)
+//   bias          [H, N, N]       float32 relative-position bias, per head
+//   mask          [nW, N, N]      float32 0 / -100 shift mask, or null
+//   lse           [W, H, N]       float32 row log-sum-exp, or null; written
 //                                 for the backward (window_attn_bwd.cu)
+//   out32         [W, H, N, D]    bf16 only: the output in float32 as well,
+//                                 or null; the backward's delta reads it
+//
+// bfloat16 is the Pallas kernel's bf16 contract: q, k and v widen to float32
+// exactly as their tiles are staged, everything after runs as in float32,
+// and only the stored output rounds to bf16. The backward's delta =
+// rowsum(g o out) would lose about 8 bits if it read that rounded output,
+// where the Pallas backward's rowsum(dp o p) is float32 throughout; so when
+// the backward will run, the forward also writes out32 (4 more bytes per
+// element) and the backward reads that.
 //
 // Arithmetic: both products run on the tensor cores as 3xTF32
 // (`mma.sync.m16n8k8`, mma_tf32.cuh), as in the backward: each float32
@@ -33,7 +45,11 @@
 // reaches about 300 TFLOP/s of TF32 on the H100 (compare_attn_fwd.py
 // --probe), and the padding to 24 adds a fifth: 0.018 ms. Every block also
 // reads its rows of bias[h] and mask[w % nW] through L2: 77 MB of each per
-// slice (16 MB distinct).
+// slice (16 MB distinct). With bf16 I/O q, k, v and out move half the
+// bytes (23 MB per slice: 0.0068 ms), and at the bf16 tensor-core rate
+// (989 TFLOP/s) the products could take 0.0016 ms: the bytes bound it.
+// This kernel keeps the 3xTF32 products for bf16 too (a bf16 value splits
+// into hi = itself and lo = 0, so two of the three mma are wasted there).
 //
 // Design, the backward's kv pass mirrored (window_attn_bwd.cu). A block
 // takes one (window, head) and kRows = 128 query rows: 4 warps of two
@@ -83,15 +99,16 @@ constexpr float kLog2e = 1.4426950408889634f;
 // fragments outgrow that cap
 constexpr int min_blocks(int D) { return D <= 20 ? 3 : 2; }
 
-// dynamic shared memory of a block, in bytes: two raw (K, V) stages and
-// the split K and V planes
-template <int D>
+// dynamic shared memory of a block, in bytes: two raw (K, V) stages of T
+// and the split K and V planes
+template <int D, typename T>
 constexpr size_t fwd_smem() {
   using C = Dims<D>;
-  return sizeof(float) * (2 * 2 * C::kRaw + 4 * C::kPlane);
+  return sizeof(T) * 2 * 2 * C::kRaw + sizeof(float) * 4 * C::kPlane;
 }
-// it depends on head_dim only, and the widest fits a Hopper block's opt-in
-static_assert(fwd_smem<32>() <= 232448, "shared memory past the opt-in");
+// it depends on head_dim and T only, and the widest fits a Hopper block's
+// opt-in
+static_assert(fwd_smem<32, float>() <= 232448, "shared memory past the opt-in");
 
 __device__ __forceinline__ float ex2(float x) {   // 2^x, approximate
   float y;
@@ -154,21 +171,20 @@ __device__ __forceinline__ void online_softmax(
     }
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, min_blocks(D))
-window_attn_fwd_kernel(const float* __restrict__ q,
-                       const float* __restrict__ k,
-                       const float* __restrict__ v,
+window_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v,
                        const float* __restrict__ bias,
-                       const float* __restrict__ mask,
-                       float* __restrict__ out, float* __restrict__ lse,
+                       const float* __restrict__ mask, T* __restrict__ out,
+                       float* __restrict__ out32, float* __restrict__ lse,
                        int H, int N, int nW, float scale) {
   using C = Dims<D>;
   // the row sums come out of the p v product where V has a padding column
   constexpr bool kOnes = D % 8 != 0;
   constexpr int kStage = 2 * C::kRaw;   // raw k, v
   extern __shared__ float4 smem4[];
-  float* raw = reinterpret_cast<float*>(smem4);
+  T* raw = reinterpret_cast<T*>(smem4);
   uint32_t* kpl = reinterpret_cast<uint32_t*>(raw + 2 * kStage);
   uint32_t* vpl = kpl + 2 * C::kPlane;
 
@@ -204,7 +220,7 @@ window_attn_fwd_kernel(const float* __restrict__ q,
 
   const int tiles = (N + kTile - 1) / kTile;
   auto prefetch = [&](int jt) {
-    float* st = raw + (jt & 1) * kStage;
+    T* st = raw + (jt & 1) * kStage;
     stage_raw<D, kThreads>(st, k + rows * D, jt * kTile, N);
     stage_raw<D, kThreads>(st + C::kRaw, v + rows * D, jt * kTile, N);
   };
@@ -216,7 +232,7 @@ window_attn_fwd_kernel(const float* __restrict__ q,
     cp_async_commit();
     cp_async_wait_one();             // tile jt has landed
     __syncthreads();
-    const float* st = raw + (jt & 1) * kStage;
+    const T* st = raw + (jt & 1) * kStage;
     split_tile<D, kThreads>(kpl, st, 1.f);
     split_tile<D, kThreads, kOnes>(vpl, st + C::kRaw, 1.f);
     __syncthreads();
@@ -285,39 +301,45 @@ window_attn_fwd_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int nd = 0; nd < C::kSteps; ++nd) {
         const int d = 8 * nd + 2 * tc;   // even, and D % 4 == 0: d + 1 < D
-        if (d < D)
-          *reinterpret_cast<float2*>(out + (rows + i) * D + d) =
-              make_float2(acc[gi][nd][2 * r] / t, acc[gi][nd][2 * r + 1] / t);
+        if (d < D) {
+          const float a = acc[gi][nd][2 * r] / t;
+          const float b = acc[gi][nd][2 * r + 1] / t;
+          store2(out + (rows + i) * D + d, a, b);
+          if (out32 != nullptr) store2(out32 + (rows + i) * D + d, a, b);
+        }
       }
       if (lse != nullptr && tc == 0) lse[rows + i] = mx[gi][r] + logf(t);
     }
 }
 
-template <int D>
+template <int D, typename T>
 cudaError_t set_smem() {
-  return cudaFuncSetAttribute(window_attn_fwd_kernel<D>,
+  return cudaFuncSetAttribute(window_attn_fwd_kernel<D, T>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(fwd_smem<D>()));
+                              static_cast<int>(fwd_smem<D, T>()));
 }
 
-template <int D>
-int launch(const float* q, const float* k, const float* v, const float* bias,
-           const float* mask, float* out, float* lse, int W, int H, int N,
-           int nW, float scale, cudaStream_t stream) {
-  const cudaError_t err = set_smem<D>();
+template <int D, typename T>
+int launch(const void* q, const void* k, const void* v, const void* bias,
+           const void* mask, void* out, void* out32, void* lse, int W, int H,
+           int N, int nW, float scale, cudaStream_t stream) {
+  const cudaError_t err = set_smem<D, T>();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + kRows - 1) / kRows, H, W);
-  window_attn_fwd_kernel<D><<<grid, kThreads, fwd_smem<D>(), stream>>>(
-      q, k, v, bias, mask, out, lse, H, N, nW, scale);
+  window_attn_fwd_kernel<D, T><<<grid, kThreads, fwd_smem<D, T>(), stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const float*>(bias),
+      static_cast<const float*>(mask), static_cast<T*>(out),
+      static_cast<float*>(out32), static_cast<float*>(lse), H, N, nW, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, typename T>
 int blocks_per_sm() {
   int n = 0;
-  if (set_smem<D>() != cudaSuccess ||
+  if (set_smem<D, T>() != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, window_attn_fwd_kernel<D>, kThreads, fwd_smem<D>()) !=
+          &n, window_attn_fwd_kernel<D, T>, kThreads, fwd_smem<D, T>()) !=
           cudaSuccess)
     return -1;
   return n;
@@ -345,42 +367,60 @@ long long with_head_dim(int D, F f, long long otherwise) {
   }
 }
 
+// the launch of either element type on `stream` for head_dim D, or
+// cudaErrorInvalidValue for a head_dim the kernel is not built for
+template <typename T>
+int launch_any(const void* q, const void* k, const void* v, const void* bias,
+               const void* mask, void* out, void* out32, void* lse, int W,
+               int H, int N, int D, int nW, float scale, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(with_head_dim(
+      D,
+      [&](auto d) {
+        return static_cast<long long>(launch<decltype(d)::value, T>(
+            q, k, v, bias, mask, out, out32, lse, W, H, N, nW, scale, s));
+      },
+      cudaErrorInvalidValue));
+}
+
 }  // namespace
 
 extern "C" {
 
 // Blocks that fit one SM at head_dim D (registers, threads and shared
-// memory), or -1 on a CUDA error or a head_dim the kernel is not built for.
+// memory) with float32 I/O, or -1 on a CUDA error or a head_dim the kernel
+// is not built for.
 int window_attn_blocks_per_sm(int D) {
   return static_cast<int>(with_head_dim(
-      D, [](auto d) { return (long long)blocks_per_sm<decltype(d)::value>(); },
+      D,
+      [](auto d) {
+        return (long long)blocks_per_sm<decltype(d)::value, float>();
+      },
       -1));
 }
 
 // Launches the kernel on `stream`; returns the CUDA error code (0 = ok).
-// `mask` may be null (then nW is not read). `lse` may be null; otherwise it
-// receives each row's log-sum-exp [W, H, N], which the backward
-// (window_attn_bwd.cu) reads. D is a multiple of 4 up to 32; any other
-// head_dim returns cudaErrorInvalidValue.
+// q, k, v and out are float32. `mask` may be null (then nW is not read).
+// `lse` may be null; otherwise it receives each row's log-sum-exp
+// [W, H, N], which the backward (window_attn_bwd.cu) reads. D is a
+// multiple of 4 up to 32; any other head_dim returns cudaErrorInvalidValue.
 int window_attn_launch(const void* q, const void* k, const void* v,
                        const void* bias, const void* mask, void* out,
                        void* lse, int W, int H, int N, int D, int nW,
                        float scale, void* stream) {
-  const auto* qf = static_cast<const float*>(q);
-  const auto* kf = static_cast<const float*>(k);
-  const auto* vf = static_cast<const float*>(v);
-  const auto* bf = static_cast<const float*>(bias);
-  const auto* mf = static_cast<const float*>(mask);
-  auto* of = static_cast<float*>(out);
-  auto* lf = static_cast<float*>(lse);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(with_head_dim(
-      D,
-      [&](auto d) {
-        return static_cast<long long>(launch<decltype(d)::value>(
-            qf, kf, vf, bf, mf, of, lf, W, H, N, nW, scale, s));
-      },
-      cudaErrorInvalidValue));
+  return launch_any<float>(q, k, v, bias, mask, out, nullptr, lse, W, H, N,
+                           D, nW, scale, stream);
+}
+
+// The same with q, k, v and out bfloat16 (bias, mask and lse float32);
+// `out32` may be null, else it receives the output in float32 too (the
+// backward's delta reads it).
+int window_attn_bf16_launch(const void* q, const void* k, const void* v,
+                            const void* bias, const void* mask, void* out,
+                            void* out32, void* lse, int W, int H, int N,
+                            int D, int nW, float scale, void* stream) {
+  return launch_any<bf16>(q, k, v, bias, mask, out, out32, lse, W, H, N, D,
+                          nW, scale, stream);
 }
 
 const char* window_attn_error_string(int code) {

@@ -13,11 +13,22 @@
 //     dq    = ds k * scale,  dk = ds^T q * scale
 //     dbias = sum over w of ds; the mask gets no gradient
 //
-// Layout, all float32 and contiguous:
-//   q, k, v, g, out, dq, dk, dv  [W, H, N, D]   D % 4 == 0, D <= 32, any N
-//   bias, dbias                  [H, N, N]
-//   mask                         [nW, N, N], or null
-//   lse                          [W, H, N]      from window_attn.cu
+// Layout, all contiguous:
+//   q, k, v, g, dq, dk, dv  [W, H, N, D]   D % 4 == 0, D <= 32, any N;
+//                                          float32 (window_attn_bwd_launch)
+//                                          or bfloat16 (..._bf16_launch)
+//   out                     [W, H, N, D]   float32: the forward's output,
+//                                          for bf16 its out32
+//   bias, dbias             [H, N, N]      float32
+//   mask                    [nW, N, N]     float32, or null
+//   lse                     [W, H, N]      float32, from window_attn.cu
+//
+// bfloat16 is the Pallas kernel's bf16 contract: q, k, v and g widen to
+// float32 exactly where their tiles are staged or their fragments built,
+// every product and sum is the float32 kernel's, and dq, dk and dv round
+// to bf16 only when they are stored; ds and dbias stay float32. delta
+// reads the forward's float32 output (window_attn.cu's out32), so it is
+// float32-exact as the Pallas backward's rowsum(dp o p) is.
 //
 // Arithmetic: every product runs on the tensor cores as 3xTF32
 // (`mma.sync.m16n8k8` with TF32 operands). Each float32 operand x is split
@@ -33,7 +44,10 @@
 // out, the mask in). At the Swin denoiser's full width (N = 448, D = 20,
 // H = 8, W = 12 per slice) that is 3.85 GFLOP against 47 MB: at 3xTF32 on
 // the tensor cores (495 TFLOP/s of TF32 / 3) the operations bound it at
-// 0.0234 ms per slice, ahead of the bytes (0.0139 ms at 3.35 TB/s).
+// 0.0234 ms per slice, ahead of the bytes (0.0139 ms at 3.35 TB/s). With
+// bf16 I/O the seven [W, H, N, D] tensors move half the bytes (35 MB:
+// 0.0104 ms), ahead of the products at the bf16 rate (0.0039 ms); the
+// kernel keeps 3xTF32 for them all the same.
 //
 // Design. CUDA blocks run in no order, and dk/dv sum over query rows, dq
 // over keys, dbias over windows, so no block can own all four, and float
@@ -88,6 +102,12 @@ constexpr int kDsStride = kTile + 8;       // floats per staged row of ds
 // blocks per SM the registers must allow: 3 cap a thread at 168 registers,
 // which the kv pass's split fragments outgrow (spill) from head_dim 24 on
 constexpr int min_blocks(int D) { return D <= 20 ? 3 : 2; }
+// the kv pass with bf16 I/O at head_dim 20 needs 8 bytes more than 168
+// registers a thread (ptxas, CUDA 12.8): 2 blocks per SM, no spill
+template <typename T>
+constexpr int kv_min_blocks(int D) {
+  return sizeof(T) == 4 || D < 20 ? min_blocks(D) : 2;
+}
 
 // the [64, 64] tile at (i0, j0) of x [N, N] into dst [64][kDsStride], zero
 // outside x; 16-byte copies where N % 4 == 0 keeps them aligned
@@ -110,6 +130,18 @@ __device__ __forceinline__ void stage_square(float* dst, const float* x,
   }
 }
 
+// one stage of the kv kernel (raw q and g of T, then raw out and lse of
+// float32) and of the dq kernel (raw k of T, then a tile of ds), in
+// elements of T; each is a multiple of 16 bytes for every D % 4 == 0, so
+// every part of the next stage stays aligned
+template <int D, typename T>
+struct Stages {
+  static constexpr int kPerFloat = 4 / sizeof(T);   // T elements per float
+  static constexpr int kKv = 2 * Dims<D>::kRaw
+                             + (Dims<D>::kRaw + kTile) * kPerFloat;
+  static constexpr int kDq = Dims<D>::kRaw + kTile * kDsStride * kPerFloat;
+};
+
 // x[i0 .. i0+63] into dst [64], zero past N-1
 __device__ __forceinline__ void stage_row_values(float* dst, const float* x,
                                                  int i0, int N) {
@@ -120,13 +152,14 @@ __device__ __forceinline__ void stage_row_values(float* dst, const float* x,
 }
 
 // delta = rowsum(g o out) of a staged tile's rows, in a fixed order
-template <int D>
-__device__ __forceinline__ void tile_delta(float* delta, const float* g,
+template <int D, typename T>
+__device__ __forceinline__ void tile_delta(float* delta, const T* g,
                                            const float* out) {
   for (int r = threadIdx.x; r < kTile; r += kThreads) {
     float d = 0.f;
 #pragma unroll
-    for (int c = 0; c < D; ++c) d = fmaf(g[r * D + c], out[r * D + c], d);
+    for (int c = 0; c < D; ++c)
+      d = fmaf(to_f32(g[r * D + c]), out[r * D + c], d);
     delta[r] = d;
   }
 }
@@ -150,21 +183,19 @@ __device__ __forceinline__ void load_bias_t(float bm[kChunkTiles][4],
 }
 
 // dk, dv and ds of one (64-key tile, head, window); see the note at the top
-template <int D>
-__global__ void __launch_bounds__(kThreads, min_blocks(D))
-attn_bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v,
-                   const float* __restrict__ bias,
-                   const float* __restrict__ mask,
-                   const float* __restrict__ g,
+template <int D, typename T>
+__global__ void __launch_bounds__(kThreads, kv_min_blocks<T>(D))
+attn_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const float* __restrict__ bias,
+                   const float* __restrict__ mask, const T* __restrict__ g,
                    const float* __restrict__ out,
-                   const float* __restrict__ lse, float* __restrict__ dk,
-                   float* __restrict__ dv, float* __restrict__ ds, int H,
-                   int N, int nW, float scale) {
+                   const float* __restrict__ lse, T* __restrict__ dk,
+                   T* __restrict__ dv, float* __restrict__ ds, int H, int N,
+                   int nW, float scale) {
   using C = Dims<D>;
-  constexpr int kStage = 3 * C::kRaw + kTile;   // raw q, g, out, lse
+  constexpr int kStage = Stages<D, T>::kKv;   // raw q, g; out, lse
   extern __shared__ float4 smem4[];
-  float* raw = reinterpret_cast<float*>(smem4);
+  T* raw = reinterpret_cast<T*>(smem4);
   uint32_t* qs = reinterpret_cast<uint32_t*>(raw + 2 * kStage);   // q * scale
   uint32_t* gs = qs + 2 * C::kPlane;
   float* delta = reinterpret_cast<float*>(gs + 2 * C::kPlane);
@@ -187,11 +218,12 @@ attn_bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int tiles = (N + kTile - 1) / kTile;
   auto prefetch = [&](int it) {
-    float* st = raw + (it & 1) * kStage;
+    T* st = raw + (it & 1) * kStage;
+    float* so = reinterpret_cast<float*>(st + 2 * C::kRaw);
     stage_raw<D, kThreads>(st, q + rows * D, it * kTile, N);
     stage_raw<D, kThreads>(st + C::kRaw, g + rows * D, it * kTile, N);
-    stage_raw<D, kThreads>(st + 2 * C::kRaw, out + rows * D, it * kTile, N);
-    stage_row_values(st + 3 * C::kRaw, lse + rows, it * kTile, N);
+    stage_raw<D, kThreads>(so, out + rows * D, it * kTile, N);
+    stage_row_values(so + C::kRaw, lse + rows, it * kTile, N);
   };
   prefetch(0);
   cp_async_commit();
@@ -201,11 +233,12 @@ attn_bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_commit();
     cp_async_wait_one();             // tile it has landed
     __syncthreads();
-    const float* st = raw + (it & 1) * kStage;
-    const float* ls = st + 3 * C::kRaw;
+    const T* st = raw + (it & 1) * kStage;
+    const float* so = reinterpret_cast<const float*>(st + 2 * C::kRaw);
+    const float* ls = so + C::kRaw;
     split_tile<D, kThreads>(qs, st, scale);
     split_tile<D, kThreads>(gs, st + C::kRaw, 1.f);
-    tile_delta<D>(delta, st + C::kRaw, st + 2 * C::kRaw);
+    tile_delta<D>(delta, st + C::kRaw, so);
     __syncthreads();
 
     const int i0 = it * kTile;
@@ -259,22 +292,22 @@ attn_bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int j = j0 + gr + 8 * (e >> 1);
       const int d = 8 * nd + 2 * tc + (e & 1);
       if (j < N && d < D) {
-        dk[(rows + j) * D + d] = dkc[nd][e];
-        dv[(rows + j) * D + d] = dvc[nd][e];
+        store1(dk + (rows + j) * D + d, dkc[nd][e]);
+        store1(dv + (rows + j) * D + d, dvc[nd][e]);
       }
     }
 }
 
 // dq = ds k * scale of one (64-row query tile, head, window), ds read back
 // from the kv pass's scratch
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, min_blocks(D))
-attn_bwd_dq_kernel(const float* __restrict__ ds, const float* __restrict__ k,
-                   float* __restrict__ dq, int H, int N, float scale) {
+attn_bwd_dq_kernel(const float* __restrict__ ds, const T* __restrict__ k,
+                   T* __restrict__ dq, int H, int N, float scale) {
   using C = Dims<D>;
-  constexpr int kStage = C::kRaw + kTile * kDsStride;   // raw k, ds
+  constexpr int kStage = Stages<D, T>::kDq;   // raw k; a [64][kDsStride] ds
   extern __shared__ float4 smem4[];
-  float* raw = reinterpret_cast<float*>(smem4);
+  T* raw = reinterpret_cast<T*>(smem4);
   uint32_t* kpl = reinterpret_cast<uint32_t*>(raw + 2 * kStage);
 
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -288,9 +321,10 @@ attn_bwd_dq_kernel(const float* __restrict__ ds, const float* __restrict__ k,
 
   const int tiles = (N + kTile - 1) / kTile;
   auto prefetch = [&](int jt) {
-    float* st = raw + (jt & 1) * kStage;
+    T* st = raw + (jt & 1) * kStage;
     stage_raw<D, kThreads>(st, k + rows * D, jt * kTile, N);
-    stage_square(st + C::kRaw, dsw, i0, jt * kTile, N);
+    stage_square(reinterpret_cast<float*>(st + C::kRaw), dsw, i0,
+                 jt * kTile, N);
   };
   prefetch(0);
   cp_async_commit();
@@ -300,13 +334,14 @@ attn_bwd_dq_kernel(const float* __restrict__ ds, const float* __restrict__ k,
     cp_async_commit();
     cp_async_wait_one();
     __syncthreads();
-    const float* st = raw + (jt & 1) * kStage;
+    const T* st = raw + (jt & 1) * kStage;
     split_tile<D, kThreads>(kpl, st, 1.f);
     __syncthreads();
 
     // A = ds with its 8 columns in the C fragment's order (k = t is column
     // 2t, k = t+4 column 2t+1), so B reads k's rows as load_b_perm does
-    const float* dst = st + C::kRaw + (r0 + gr) * kDsStride + 2 * tc;
+    const float* dst = reinterpret_cast<const float*>(st + C::kRaw)
+                       + (r0 + gr) * kDsStride + 2 * tc;
 #pragma unroll 2
     for (int kk = 0; kk < kTile / 8; ++kk) {
       const float2 top = *reinterpret_cast<const float2*>(dst + 8 * kk);
@@ -326,7 +361,7 @@ attn_bwd_dq_kernel(const float* __restrict__ ds, const float* __restrict__ k,
     for (int e = 0; e < 4; ++e) {
       const int i = i0 + r0 + gr + 8 * (e >> 1);
       const int d = 8 * nd + 2 * tc + (e & 1);
-      if (i < N && d < D) dq[(rows + i) * D + d] = dqc[nd][e] * scale;
+      if (i < N && d < D) store1(dq + (rows + i) * D + d, dqc[nd][e] * scale);
     }
 }
 
@@ -345,39 +380,40 @@ attn_bwd_dbias_kernel(const float* __restrict__ ds, float* __restrict__ dbias,
 }
 
 // dynamic shared memory of each kernel, in bytes
-template <int D>
+template <int D, typename T>
 constexpr size_t kv_smem() {
   using C = Dims<D>;
-  return sizeof(float) * (2 * (3 * C::kRaw + kTile) + 4 * C::kPlane + kTile);
+  return sizeof(T) * 2 * Stages<D, T>::kKv
+         + sizeof(float) * (4 * C::kPlane + kTile);
 }
-template <int D>
+template <int D, typename T>
 constexpr size_t dq_smem() {
   using C = Dims<D>;
-  return sizeof(float) * (2 * (C::kRaw + kTile * kDsStride) + 2 * C::kPlane);
+  return sizeof(T) * 2 * Stages<D, T>::kDq + sizeof(float) * 2 * C::kPlane;
 }
 
-template <int D>
-int launch(const float* q, const float* k, const float* v, const float* bias,
-           const float* mask, const float* g, const float* out,
-           const float* lse, float* ds, float* dq, float* dk, float* dv,
+template <int D, typename T>
+int launch(const T* q, const T* k, const T* v, const float* bias,
+           const float* mask, const T* g, const float* out,
+           const float* lse, float* ds, T* dq, T* dk, T* dv,
            float* dbias, int W, int H, int N, int nW, float scale,
            cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      attn_bwd_kv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kv_smem<D>()));
+      attn_bwd_kv_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kv_smem<D, T>()));
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(attn_bwd_dq_kernel<D>,
+    err = cudaFuncSetAttribute(attn_bwd_dq_kernel<D, T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(dq_smem<D>()));
+                               static_cast<int>(dq_smem<D, T>()));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (N + kTile - 1) / kTile;
-  attn_bwd_kv_kernel<D><<<dim3(tiles, H, W), kThreads, kv_smem<D>(),
-                          stream>>>(q, k, v, bias, mask, g, out, lse, dk, dv,
-                                    ds, H, N, nW, scale);
+  attn_bwd_kv_kernel<D, T><<<dim3(tiles, H, W), kThreads, kv_smem<D, T>(),
+                             stream>>>(q, k, v, bias, mask, g, out, lse, dk,
+                                       dv, ds, H, N, nW, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_bwd_dq_kernel<D><<<dim3(tiles, H, W), kThreads, dq_smem<D>(),
-                          stream>>>(ds, k, dq, H, N, scale);
+  attn_bwd_dq_kernel<D, T><<<dim3(tiles, H, W), kThreads, dq_smem<D, T>(),
+                             stream>>>(ds, k, dq, H, N, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long NN = (long long)N * N;
@@ -387,40 +423,31 @@ int launch(const float* q, const float* k, const float* v, const float* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-extern "C" {
-
-// Launches the three kernels on `stream`; returns the CUDA error code (0 =
-// ok). `mask` may be null (then nW is not read). `ds` is scratch of
-// W * H * N * N floats. D is a multiple of 4 up to 32; any other head_dim
-// returns cudaErrorInvalidValue. Every element of dq, dk, dv and dbias is
-// written.
-int window_attn_bwd_launch(const void* q, const void* k, const void* v,
-                           const void* bias, const void* mask, const void* g,
-                           const void* out, const void* lse, void* ds,
-                           void* dq, void* dk, void* dv, void* dbias, int W,
-                           int H, int N, int D, int nW, float scale,
-                           void* stream) {
-  const auto* qf = static_cast<const float*>(q);
-  const auto* kf = static_cast<const float*>(k);
-  const auto* vf = static_cast<const float*>(v);
+template <typename T>
+int launch_any(const void* q, const void* k, const void* v, const void* bias,
+               const void* mask, const void* g, const void* out,
+               const void* lse, void* ds, void* dq, void* dk, void* dv,
+               void* dbias, int W, int H, int N, int D, int nW, float scale,
+               void* stream) {
+  const auto* qf = static_cast<const T*>(q);
+  const auto* kf = static_cast<const T*>(k);
+  const auto* vf = static_cast<const T*>(v);
   const auto* bf = static_cast<const float*>(bias);
   const auto* mf = static_cast<const float*>(mask);
-  const auto* gf = static_cast<const float*>(g);
+  const auto* gf = static_cast<const T*>(g);
   const auto* of = static_cast<const float*>(out);
   const auto* lf = static_cast<const float*>(lse);
   auto* dsf = static_cast<float*>(ds);
-  auto* dqf = static_cast<float*>(dq);
-  auto* dkf = static_cast<float*>(dk);
-  auto* dvf = static_cast<float*>(dv);
+  auto* dqf = static_cast<T*>(dq);
+  auto* dkf = static_cast<T*>(dk);
+  auto* dvf = static_cast<T*>(dv);
   auto* dbf = static_cast<float*>(dbias);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
 #define WINDOW_ATTN_BWD_CASE(DIM)                                          \
     case DIM:                                                              \
-      return launch<DIM>(qf, kf, vf, bf, mf, gf, of, lf, dsf, dqf, dkf,    \
-                         dvf, dbf, W, H, N, nW, scale, s);
+      return launch<DIM, T>(qf, kf, vf, bf, mf, gf, of, lf, dsf, dqf, dkf, \
+                            dvf, dbf, W, H, N, nW, scale, s);
     WINDOW_ATTN_BWD_CASE(4)
     WINDOW_ATTN_BWD_CASE(8)
     WINDOW_ATTN_BWD_CASE(12)
@@ -433,6 +460,37 @@ int window_attn_bwd_launch(const void* q, const void* k, const void* v,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches the three kernels on `stream`; returns the CUDA error code (0 =
+// ok). q, k, v, g, out, dq, dk and dv are float32. `mask` may be null (then
+// nW is not read). `ds` is scratch of W * H * N * N floats. D is a multiple
+// of 4 up to 32; any other head_dim returns cudaErrorInvalidValue. Every
+// element of dq, dk, dv and dbias is written.
+int window_attn_bwd_launch(const void* q, const void* k, const void* v,
+                           const void* bias, const void* mask, const void* g,
+                           const void* out, const void* lse, void* ds,
+                           void* dq, void* dk, void* dv, void* dbias, int W,
+                           int H, int N, int D, int nW, float scale,
+                           void* stream) {
+  return launch_any<float>(q, k, v, bias, mask, g, out, lse, ds, dq, dk, dv,
+                           dbias, W, H, N, D, nW, scale, stream);
+}
+
+// The same with q, k, v, g, dq, dk and dv bfloat16; `out` (the forward's
+// out32), bias, mask, lse, ds and dbias float32.
+int window_attn_bwd_bf16_launch(const void* q, const void* k, const void* v,
+                                const void* bias, const void* mask,
+                                const void* g, const void* out,
+                                const void* lse, void* ds, void* dq, void* dk,
+                                void* dv, void* dbias, int W, int H, int N,
+                                int D, int nW, float scale, void* stream) {
+  return launch_any<bf16>(q, k, v, bias, mask, g, out, lse, ds, dq, dk, dv,
+                          dbias, W, H, N, D, nW, scale, stream);
 }
 
 const char* window_attn_bwd_error_string(int code) {

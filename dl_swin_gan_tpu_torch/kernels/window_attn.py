@@ -15,14 +15,24 @@ reads. There is no other route: a CUDA tensor the kernels cannot take
 raises. The source notes in the `.cu` files give each kernel's design and
 bound.
 
-    q, k, v  [W, H, N, D]   W = batch * windows, H heads, N tokens a window
-    bias     [H, N, N]      relative-position bias
-    mask     [nW, N, N]     additive shift mask (0 / -100) or None; window w
-                            takes row w % nW, and W must be a multiple of nW
+    q, k, v  [W, H, N, D]   W = batch * windows, H heads, N tokens a window;
+                            float32 or bfloat16, one dtype
+    bias     [H, N, N]      relative-position bias, float32
+    mask     [nW, N, N]     additive shift mask (0 / -100) or None, float32;
+                            window w takes row w % nW, and W must be a
+                            multiple of nW
     ->       [W, H, N, D]   in q's dtype
 
 The backward gives q, k, v and the bias their gradients (dbias sums over the
 windows); the mask gets none, as in the JAX package's custom VJP.
+
+The dtype contract is the Pallas kernels' (`_fwd_kernel`, `_bwd_kernel`):
+bfloat16 q, k, v (and g) are widened to float32, every product, the
+softmax and every sum run in float32, and only the outputs are rounded:
+out, dq, dk and dv to their inputs' dtypes, dbias and the log-sum-exp
+float32. It is not the JAX package's `_attention_xla`, which multiplies in
+bfloat16 and rounds p to bfloat16 before p v. The CUDA kernels read and
+write bfloat16 themselves (no float32 copy of q, k or v is made).
 """
 
 import ctypes
@@ -40,12 +50,15 @@ _MAX_TOKENS = 46_340
 def window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            bias: torch.Tensor,
                            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The JAX package's `_attention_xla` in plain PyTorch: explicit
-    products, the bias and mask adds and the softmax in float32, the output
-    in v's (= q's) dtype. The CPU path and the tests use it; the CUDA path
-    never does."""
-    p = _probabilities(q, k, bias, mask)
-    return torch.matmul(p.to(v.dtype), v)
+    """The JAX package's `_fwd_kernel` in plain PyTorch, for all windows and
+    heads at once: q, k and v widened to float32, explicit products, the
+    bias and mask adds and the softmax in float32, the output rounded to
+    q's dtype. For float32 inputs that is also `_attention_xla`; for
+    bfloat16 ones it is the Pallas kernel's contract, not `_attention_xla`'s
+    (bfloat16 products, p rounded to bfloat16). The CPU path and the tests
+    use it; the CUDA path never does."""
+    p = _probabilities(q.float(), k.float(), bias, mask)
+    return torch.matmul(p, v.float()).to(q.dtype)
 
 
 def _probabilities(q, k, bias, mask):
@@ -64,11 +77,12 @@ def window_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                                mask: Optional[torch.Tensor],
                                g: torch.Tensor):
     """The JAX package's `_bwd_kernel` in plain PyTorch, for all windows and
-    heads at once: recompute p in float32, then dv = p^T g, dp = g v^T,
-    ds = p (dp - rowsum(dp p)), dq = ds k scale, dk = ds^T q scale and
-    dbias = the sum of ds over the windows. Returns (dq, dk, dv, dbias) in
-    the dtypes of q, k, v and bias. The CPU path and the tests use it; the
-    CUDA path never does."""
+    heads at once: q, k, v and g widened to float32, p recomputed in
+    float32, then dv = p^T g, dp = g v^T, ds = p (dp - rowsum(dp p)),
+    dq = ds k scale, dk = ds^T q scale and dbias = the sum of ds over the
+    windows, all in float32. Returns (dq, dk, dv, dbias) rounded to the
+    dtypes of q, k, v and bias (the Pallas kernel's contract for bfloat16
+    too). The CPU path and the tests use it; the CUDA path never does."""
     scale = q.shape[-1] ** -0.5
     qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
     p = _probabilities(qf, kf, bias.float(), mask)
@@ -102,19 +116,32 @@ def _check(q, k, v, bias, mask):
     return tensors
 
 
-def _kernel_inputs(tensors, what):
+# the element types of q, k, v and g that the kernels are built for
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _kernel_inputs(io, floats, what):
     """Tensors as the kernels read them: a view with the neg (or conj) bit
     set is resolved to a tensor of its values, since the kernels read raw
-    memory; then float32, contiguous and 16-byte aligned, or raise."""
-    tensors = [t.resolve_conj().resolve_neg() for t in tensors]
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError(f"{what}'s kernel takes float32 only; got "
-                        + ", ".join(str(t.dtype) for t in tensors))
-    if not all(t.is_contiguous() for t in tensors):
+    memory. `io` (q, k, v and, in the backward, g) share one dtype, float32
+    or bfloat16; `floats` (bias, mask, the forward's output and lse in the
+    backward; None where absent) are float32. All contiguous and 16-byte
+    aligned, or raise. Returns (io, floats), resolved."""
+    io = [t.resolve_conj().resolve_neg() for t in io]
+    floats = [None if t is None else t.resolve_conj().resolve_neg()
+              for t in floats]
+    present = io + [t for t in floats if t is not None]
+    if (len({t.dtype for t in io}) != 1 or io[0].dtype not in KERNEL_DTYPES
+            or any(t.dtype != torch.float32 for t in present[len(io):])):
+        raise TypeError(
+            f"{what}'s kernel takes q, k, v (and g) of one dtype, float32 or "
+            "bfloat16, with a float32 bias, mask, out and lse; got "
+            + ", ".join(str(t.dtype) for t in present))
+    if not all(t.is_contiguous() for t in present):
         raise ValueError(f"{what}'s kernel needs contiguous inputs")
-    if any(t.data_ptr() % 16 for t in tensors):
+    if any(t.data_ptr() % 16 for t in present):
         raise ValueError(f"{what}'s kernel needs 16-byte aligned inputs")
-    return tensors
+    return io, floats
 
 
 def _check_kernel_shape(q, what):
@@ -136,6 +163,10 @@ def _library():
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float,
                                                       ctypes.c_void_p])
     lib.window_attn_launch.restype = ctypes.c_int
+    lib.window_attn_bf16_launch.argtypes = (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float,
+                                                      ctypes.c_void_p])
+    lib.window_attn_bf16_launch.restype = ctypes.c_int
     lib.window_attn_error_string.argtypes = [ctypes.c_int]
     lib.window_attn_error_string.restype = ctypes.c_char_p
     return lib
@@ -146,10 +177,10 @@ def _bwd_library():
     from dl_swin_gan_tpu_torch.kernels import _build
 
     lib = _build.load("window_attn_bwd").cdll
-    lib.window_attn_bwd_launch.argtypes = (
-        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_float,
-                                                       ctypes.c_void_p])
-    lib.window_attn_bwd_launch.restype = ctypes.c_int
+    for fn in (lib.window_attn_bwd_launch, lib.window_attn_bwd_bf16_launch):
+        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     lib.window_attn_bwd_error_string.argtypes = [ctypes.c_int]
     lib.window_attn_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -173,40 +204,46 @@ def _ptr(t: Optional[torch.Tensor]):
 def window_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          bias: torch.Tensor, mask: Optional[torch.Tensor],
                          with_lse: bool = True):
-    """(out, lse or None): the forward kernel on CUDA tensors, with each
-    row's log-sum-exp lse [W, H, N] float32 when `with_lse` (what
-    window_attention_bwd's kernel reads)."""
+    """(out, lse, out32): the forward kernel on CUDA tensors. With
+    `with_lse`, lse [W, H, N] is each row's float32 log-sum-exp and out32
+    the output in float32 (out itself for float32 inputs; for bfloat16 ones
+    a second store of the unrounded output): what window_attention_bwd's
+    kernel reads. Without it both are None."""
     _check(q, k, v, bias, mask)
     if q.device.type != "cuda":
         raise ValueError(f"window_attention has no kernel for {q.device}")
-    tensors = _kernel_inputs([q, k, v, bias]
-                             + ([] if mask is None else [mask]),
-                             "window_attention")
-    q, k, v, bias = tensors[:4]
-    mask = tensors[4] if mask is not None else None
+    (q, k, v), (bias, mask) = _kernel_inputs([q, k, v], [bias, mask],
+                                             "window_attention")
     W, H, N, D = q.shape
+    bf16 = q.dtype == torch.bfloat16
     out = torch.empty_like(q)
-    lse = (torch.empty((W, H, N), dtype=torch.float32, device=q.device)
-           if with_lse else None)
+    lse = out32 = None
+    if with_lse:
+        lse = torch.empty((W, H, N), dtype=torch.float32, device=q.device)
+        out32 = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
+                 if bf16 else out)
     if q.numel() == 0:
-        return out, lse
+        return out, lse, out32
     _check_kernel_shape(q, "window_attention")
     if N > _MAX_TOKENS:
         raise ValueError(f"window_attention's kernel takes at most "
                          f"{_MAX_TOKENS} tokens a window; got {N}")
     lib = _library()
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            _ptr(mask), out.data_ptr())
+    tail = (W, H, N, D, 1 if mask is None else mask.shape[0], D ** -0.5)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.window_attn_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            _ptr(mask), out.data_ptr(), _ptr(lse),
-            W, H, N, D, 1 if mask is None else mask.shape[0], D ** -0.5,
-            stream)
+        if bf16:
+            err = lib.window_attn_bf16_launch(*head, _ptr(out32), _ptr(lse),
+                                              *tail, stream)
+        else:
+            err = lib.window_attn_launch(*head, _ptr(lse), *tail, stream)
     if err != 0:
         raise RuntimeError("window_attention kernel launch failed: "
                            + lib.window_attn_error_string(err).decode())
     window_attention.launches += 1
-    return out, lse
+    return out, lse, out32
 
 
 def window_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -214,9 +251,10 @@ def window_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          g: torch.Tensor, out: Optional[torch.Tensor] = None,
                          lse: Optional[torch.Tensor] = None):
     """(dq, dk, dv, dbias) for the cotangent g of window_attention's output:
-    the backward kernel on the GPU, which reads the forward's `out` and its
-    row log-sum-exp `lse` [W, H, N] (from the forward kernel); the plain
-    version on the CPU, which recomputes everything and reads neither."""
+    the backward kernel on the GPU, which reads the forward's float32 output
+    `out` (window_attention_fwd's out32) and its row log-sum-exp `lse`
+    [W, H, N]; the plain version on the CPU, which recomputes everything
+    and reads neither. g has q's dtype."""
     _check(q, k, v, bias, mask)
     if g.shape != q.shape or g.device != q.device:
         raise ValueError(f"g {tuple(g.shape)} on {g.device} does not match q "
@@ -230,11 +268,8 @@ def window_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or tuple(lse.shape) != (W, H, N):
         raise ValueError("window_attention_bwd's kernel needs the forward's "
                          "out [W, H, N, D] and lse [W, H, N]")
-    tensors = _kernel_inputs([q, k, v, bias, g, out, lse]
-                             + ([] if mask is None else [mask]),
-                             "window_attention_bwd")
-    q, k, v, bias, g, out, lse = tensors[:7]
-    mask = tensors[7] if mask is not None else None
+    (q, k, v, g), (bias, mask, out, lse) = _kernel_inputs(
+        [q, k, v, g], [bias, mask, out, lse], "window_attention_bwd")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     if q.numel() == 0:    # no window: dbias sums nothing
         return dq, dk, dv, torch.zeros_like(bias)
@@ -244,9 +279,11 @@ def window_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # each window's ds, written once by the kv pass, read back by the dq
     # pass and summed over the windows in order by the dbias pass
     ds = torch.empty((W, H, N, N), dtype=torch.float32, device=q.device)
+    launch = (lib.window_attn_bwd_bf16_launch if q.dtype == torch.bfloat16
+              else lib.window_attn_bwd_launch)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.window_attn_bwd_launch(
+        err = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             _ptr(mask), g.data_ptr(), out.data_ptr(), lse.data_ptr(),
             ds.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -267,19 +304,24 @@ class _WindowAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias, mask):
         if q.device.type == "cpu":
-            out, lse = window_attention_plain(q, k, v, bias, mask), None
+            out = window_attention_plain(q, k, v, bias, mask)
+            saved = ()
         else:
-            out, lse = window_attention_fwd(q, k, v, bias, mask, with_lse=True)
+            out, lse, out32 = window_attention_fwd(q, k, v, bias, mask,
+                                                   with_lse=True)
+            saved = (out32, lse)
         ctx.has_mask = mask is not None
-        ctx.save_for_backward(q, k, v, bias, out,
-                              *(t for t in (lse, mask) if t is not None))
+        ctx.save_for_backward(q, k, v, bias, *saved,
+                              *(() if mask is None else (mask,)))
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, bias, out, *rest = ctx.saved_tensors
-        lse = rest.pop(0) if q.device.type != "cpu" else None
-        mask = rest[0] if ctx.has_mask else None
+        q, k, v, bias, *rest = ctx.saved_tensors
+        out = lse = None
+        if q.device.type != "cpu":
+            out, lse = rest[:2]
+        mask = rest[-1] if ctx.has_mask else None
         dq, dk, dv, dbias = window_attention_bwd(
             q, k, v, bias, mask, g.contiguous(), out, lse)
         return dq, dk, dv, dbias, None

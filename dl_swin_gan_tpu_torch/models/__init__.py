@@ -1,9 +1,10 @@
 """Denoiser backbones: the RES, SE and CBAM trunks (real or complex convs,
 full or separable, float32 or a bfloat16 conv trunk), the Swin trunk
-(SwinNet3D, float32) and the diffusion backbones DiT, Latte and SwinDiff
-(float32; they take (x, t, y) and `solvers/diffusion_unrolled.py` composes
-them). A bfloat16 Swin, DiT or Latte raises NotImplementedError naming its
-ROADMAP.md queue item. The DSLR solver builds its 2D and 1D ResNets itself
+(SwinNet3D) and the diffusion backbones DiT, Latte and SwinDiff (they take
+(x, t, y) and `solvers/diffusion_unrolled.py` composes them). CONV_BLOCK.DTYPE
+reaches every trunk the JAX package's `build_denoiser` passes it to: the
+ResNets, Swin, DiT and Latte; SwinDiff takes none there and is float32
+here too. The DSLR solver builds its 2D and 1D ResNets itself
 (`solvers/dslr.py`).
 
 CONV_BLOCK.NORM is read and, as in the JAX package's `build_denoiser`,
@@ -46,13 +47,6 @@ def build_denoiser(cfg, generator: Optional[torch.Generator] = None):
     if str(cb.DTYPE) not in DTYPES:
         raise ValueError(f"Unknown CONV_BLOCK.DTYPE: {cb.DTYPE!r}")
     dtype = DTYPES[str(cb.DTYPE)]
-    if dtype != torch.float32 and model_type == "SWIN":
-        # the JAX package's bf16 Swin hands bf16 q/k/v to both
-        # window-attention kernels, whose counterparts are float32 only
-        raise NotImplementedError(
-            f"CONV_BLOCK.DTYPE={cb.DTYPE!r} with MODEL_TYPE=SWIN is not "
-            "ported yet: ROADMAP.md Queue 1 item 13 (the bf16 Swin trunk, "
-            "with bf16-I/O window-attention kernels)")
     if model_type == "SWIN":
         from dl_swin_gan_tpu_torch.models.swin import SwinNet3D
 
@@ -63,7 +57,7 @@ def build_denoiser(cfg, generator: Optional[torch.Generator] = None):
             window_size=(7, 8, 8), num_emaps=p.NUM_EMAPS,
             num_features=p.NUM_FEATURES, kernel_size=cb.KERNEL_SIZE[0],
             circular_pad=cb.CIRCULAR_PAD, act_type=cb.ACTIVATION,
-            generator=generator)
+            generator=generator, dtype=dtype)
     return _RESNETS[model_type](
         num_resblocks=p.NUM_RESBLOCKS, num_emaps=p.NUM_EMAPS,
         num_features=p.NUM_FEATURES, kernel_size=cb.KERNEL_SIZE[0],
@@ -78,13 +72,7 @@ def _build_diffusion_backbone(cfg, model_type: str,
     cb = p.CONV_BLOCK
     if str(cb.DTYPE) not in DTYPES:
         raise ValueError(f"Unknown CONV_BLOCK.DTYPE: {cb.DTYPE!r}")
-    if DTYPES[str(cb.DTYPE)] != torch.float32 and model_type != "SWIN_DIFF":
-        # the JAX package's bf16 DiT and Latte run their projections and
-        # attention products in bf16 (SwinDiff takes no dtype there)
-        raise NotImplementedError(
-            f"CONV_BLOCK.DTYPE={cb.DTYPE!r} with MODEL_TYPE={model_type} is "
-            "not ported yet: ROADMAP.md Queue 1 item 14 (the bf16 DiT and "
-            "Latte trunk)")
+    dtype = DTYPES[str(cb.DTYPE)]
     if model_type == "DIT":
         from dl_swin_gan_tpu_torch.models.dit import DiTResNet
         return DiTResNet(
@@ -92,7 +80,7 @@ def _build_diffusion_backbone(cfg, model_type: str,
             depth=p.NUM_LAYERS, num_heads=p.NUM_HEADS,
             patch_size=tuple(p.PATCH_SIZE), learn_sigma=p.LEARN_SIGMA,
             num_blocks=p.NUM_RESBLOCKS, circular_pad=cb.CIRCULAR_PAD,
-            generator=generator)
+            generator=generator, dtype=dtype)
     if model_type == "LATTE":
         from dl_swin_gan_tpu_torch.models.latte import LatteNet
         return LatteNet(
@@ -100,7 +88,8 @@ def _build_diffusion_backbone(cfg, model_type: str,
             depth=p.NUM_LAYERS, num_heads=p.NUM_HEADS,
             patch_size=tuple(p.PATCH_SIZE)[-1], learn_sigma=p.LEARN_SIGMA,
             num_blocks=p.NUM_RESBLOCKS, circular_pad=cb.CIRCULAR_PAD,
-            generator=generator)
+            generator=generator, dtype=dtype)
+    # SwinDiff takes no dtype, as in the JAX package
     from dl_swin_gan_tpu_torch.models.swin_diff import SwinDiffNet
     return SwinDiffNet(
         num_swinblocks=p.NUM_SWINBLOCKS, num_emaps=p.NUM_EMAPS,

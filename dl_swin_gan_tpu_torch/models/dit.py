@@ -25,6 +25,15 @@ modules initialise theirs (flax's lecun-normal Dense, zero adaLN and final
 projections, xavier-uniform patch embedding, N(0, 0.02) embedders), drawn
 from an explicit generator; `linear` is the seeded torch-default Linear the
 Swin blocks use.
+
+`dtype` (CONV_BLOCK.DTYPE) is where the JAX modules take `dtype=`: the
+patch embedding, the attention's qkv and proj and its two products, the
+MLPs and the final linear compute in it, each as flax's `Dense(dtype=)` or
+`Conv(dtype=)` does (`Linear`, `conv_in`): the input, the kernel and the
+bias cast to it, the product and the bias add in it. The softmax, the
+LayerNorms, the adaLN modulations, the embedders and the residual stream
+stay float32: a bfloat16 branch added to the float32 stream promotes to
+float32, as in jnp. Parameters stay float32.
 """
 
 import math
@@ -40,12 +49,73 @@ from dl_swin_gan_tpu_torch.models.layers import (
 )
 
 
+class Linear(nn.Linear):
+    """nn.Linear computed in `dtype` as flax's `Dense(dtype=)` computes it:
+    for bfloat16 the input, the weight and the bias are cast to it, the
+    product comes out in it (accumulated in float32, rounded once) and the
+    bias is added in it. float32 is nn.Linear itself. The parameters stay
+    float32."""
+
+    dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype == torch.float32:
+            return super().forward(x)
+        y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        return y if self.bias is None else y + self.bias.to(self.dtype)
+
+
+def conv_in(layer: nn.Module, x: torch.Tensor,
+            dtype: torch.dtype) -> torch.Tensor:
+    """A patch conv (a Conv2d or Conv3d whose stride is its kernel, no
+    padding) or its transpose (a ConvTranspose3d of the same kind) applied
+    in `dtype` as flax's `Conv(dtype=)` / `ConvTranspose(dtype=)` apply it:
+    the input, kernel and bias cast to `dtype`, the output in it. float32
+    is the layer itself. In bfloat16 either is one product over the
+    non-overlapping patches, the same sums: torch's CPU conv3d in bfloat16
+    is wrong at stride 4 with 16 input channels (rel error about 1 against
+    float64, torch 2.13), and it is the transposed conv's input gradient.
+    The products are right on every device."""
+    if dtype == torch.float32:
+        return layer(x)
+    w, b = layer.weight.to(dtype), layer.bias.to(dtype)
+    k = w.shape[2:]
+    if isinstance(layer, nn.ConvTranspose3d):
+        # [N, C, *G] -> [N, *G, O, *k] -> [N, O, *(G k)]
+        n, _, *grid = x.shape
+        y = (x.to(dtype).movedim(1, -1) @ w.flatten(1)).reshape(
+            n, *grid, w.shape[1], *k)
+        nd = len(k)
+        y = y.permute([0, nd + 1]
+                      + [d for i in range(nd) for d in (1 + i, nd + 2 + i)])
+        y = y.reshape(n, w.shape[1], *(g * p for g, p in zip(grid, k)))
+        return y + b.reshape((-1,) + (1,) * nd)
+    return (_patches(x.to(dtype), k) @ w.flatten(1).T + b).movedim(-1, 1)
+
+
+def _patches(x: torch.Tensor, k) -> torch.Tensor:
+    """x [N, C, *S] -> [N, *G, C * prod(k)]: its non-overlapping patches of
+    size k (G = S // k; a ragged end is dropped, as VALID drops it), each
+    flattened in the order of a conv kernel [C, *k]."""
+    n, c, *size = x.shape
+    grid = [s // p for s, p in zip(size, k)]
+    x = x[(slice(None), slice(None))
+          + tuple(slice(0, g * p) for g, p in zip(grid, k))]
+    x = x.reshape([n, c] + [v for g, p in zip(grid, k) for v in (g, p)])
+    nd = len(k)
+    x = x.permute([0, *range(2, 2 + 2 * nd, 2), 1,
+                   *range(3, 3 + 2 * nd, 2)])
+    return x.reshape(n, *grid, -1)
+
+
 def linear(in_features: int, out_features: int, bias: bool = True,
-           generator: Optional[torch.Generator] = None) -> nn.Linear:
-    """nn.Linear with torch's default init, U(+-1/sqrt(fan_in)) for the
-    weight and the bias, drawn from `generator` (nothing is drawn from the
-    global generator)."""
-    layer = nn.utils.skip_init(nn.Linear, in_features, out_features, bias=bias)
+           generator: Optional[torch.Generator] = None,
+           dtype: torch.dtype = torch.float32) -> Linear:
+    """`Linear` in `dtype` with torch's default init, U(+-1/sqrt(fan_in))
+    for the weight and the bias, drawn from `generator` (nothing is drawn
+    from the global generator)."""
+    layer = nn.utils.skip_init(Linear, in_features, out_features, bias=bias)
+    layer.dtype = dtype
     bound = 1.0 / math.sqrt(in_features)
     with torch.no_grad():
         layer.weight.uniform_(-bound, bound, generator=generator)
@@ -55,11 +125,13 @@ def linear(in_features: int, out_features: int, bias: bool = True,
 
 
 def dense(in_features: int, out_features: int, init: str = "lecun",
-          generator: Optional[torch.Generator] = None) -> nn.Linear:
-    """nn.Linear initialised as a flax Dense: `init` "lecun" (flax's
-    default: a normal of variance 1/fan_in truncated at 2 std), "zeros", or
-    "normal" (N(0, 0.02)); the bias zero."""
-    layer = nn.utils.skip_init(nn.Linear, in_features, out_features)
+          generator: Optional[torch.Generator] = None,
+          dtype: torch.dtype = torch.float32) -> Linear:
+    """`Linear` in `dtype` initialised as a flax Dense: `init` "lecun"
+    (flax's default: a normal of variance 1/fan_in truncated at 2 std),
+    "zeros", or "normal" (N(0, 0.02)); the bias zero."""
+    layer = nn.utils.skip_init(Linear, in_features, out_features)
+    layer.dtype = dtype
     with torch.no_grad():
         layer.bias.zero_()
         if init == "zeros":
@@ -75,28 +147,49 @@ def dense(in_features: int, out_features: int, init: str = "lecun",
     return layer
 
 
+def gelu(x: torch.Tensor, approximate: bool) -> torch.Tensor:
+    """GELU, the tanh form or the exact erf one. float32 is F.gelu; a
+    bfloat16 x goes through jax.nn.gelu's formula op by op, each op
+    rounding to bfloat16 as jnp's bf16 ops do (its constants rounded to
+    bfloat16 first): a single-rounding GELU differs from it in about a
+    third of the elements, by one bf16 ulp."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="tanh" if approximate else "none")
+
+    def const(c):
+        return torch.tensor(c, dtype=x.dtype, device=x.device)
+
+    if approximate:
+        inner = const(math.sqrt(2 / math.pi)) * (
+            x + const(0.044715) * (x * x * x))
+        return x * (0.5 * (1.0 + torch.tanh(inner)))
+    return 0.5 * x * torch.special.erfc(-x * const(math.sqrt(0.5)))
+
+
 class Mlp(nn.Module):
     """Linear -> GELU -> Linear on the last dim (timm's Mlp). As in the JAX
     package, `approximate=True` is the tanh GELU (DiT, Latte) and
     `approximate=False` the exact erf one (the Swin blocks). `init` "torch"
     is the torch-default Linear (the Swin blocks), "lecun" flax's Dense
-    (DiT, Latte)."""
+    (DiT, Latte). Both linears compute in `dtype`, the GELU runs on the
+    first one's output in that dtype, and the output is in it."""
 
     def __init__(self, in_features: int, hidden: int, out: int,
                  approximate: bool = True,
                  generator: Optional[torch.Generator] = None,
-                 init: str = "torch"):
+                 init: str = "torch", dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.approximate = "tanh" if approximate else "none"
+        self.approximate = approximate
         if init == "torch":
-            self.fc1 = linear(in_features, hidden, generator=generator)
-            self.fc2 = linear(hidden, out, generator=generator)
+            self.fc1 = linear(in_features, hidden, generator=generator,
+                              dtype=dtype)
+            self.fc2 = linear(hidden, out, generator=generator, dtype=dtype)
         else:
-            self.fc1 = dense(in_features, hidden, init, generator)
-            self.fc2 = dense(hidden, out, init, generator)
+            self.fc1 = dense(in_features, hidden, init, generator, dtype)
+            self.fc2 = dense(hidden, out, init, generator, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
+        return self.fc2(gelu(self.fc1(x), self.approximate))
 
 
 # ---------------------------------------------------------------- embeddings
@@ -234,14 +327,17 @@ def constant(key: tuple, make, device) -> torch.Tensor:
 
 class Attention(nn.Module):
     """Multi-head self-attention on [B, N, C] (timm-equivalent,
-    qkv_bias=True): two matmuls, the softmax in float32."""
+    qkv_bias=True): two matmuls, the softmax in float32. With a bfloat16
+    `dtype` qkv, proj and both products run in it and the probabilities are
+    rounded to it before p v, as the JAX module's einsums do."""
 
     def __init__(self, dim: int, num_heads: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
-        self.qkv = dense(dim, 3 * dim, "lecun", generator)
-        self.proj = dense(dim, dim, "lecun", generator)
+        self.qkv = dense(dim, 3 * dim, "lecun", generator, dtype)
+        self.proj = dense(dim, dim, "lecun", generator, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, N, C = x.shape
@@ -251,7 +347,7 @@ class Attention(nn.Module):
         q, k, v = qkv[0] * head ** -0.5, qkv[1], qkv[2]
         attn = torch.softmax(torch.matmul(q, k.transpose(-1, -2)).float(),
                              dim=-1)
-        out = torch.matmul(attn, v)
+        out = torch.matmul(attn.to(v.dtype), v)
         return self.proj(out.transpose(1, 2).reshape(B, N, C))
 
 
@@ -290,12 +386,14 @@ class DiTBlockFactor(nn.Module):
 
     def __init__(self, hidden_size: int, num_heads: int,
                  mlp_ratio: float = 4.0,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.adaLN_modulation = dense(hidden_size, 9 * hidden_size, "zeros")
-        self.attn = Attention(hidden_size, num_heads, generator)
+        self.attn = Attention(hidden_size, num_heads, generator, dtype)
         self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio),
-                       hidden_size, generator=generator, init="lecun")
+                       hidden_size, generator=generator, init="lecun",
+                       dtype=dtype)
 
     def forward(self, x, c, grid):
         (sh_sp, sc_sp, g_sp, sh_tm, sc_tm, g_tm, sh_mlp, sc_mlp,
@@ -319,12 +417,14 @@ class DiTBlock(nn.Module):
 
     def __init__(self, hidden_size: int, num_heads: int,
                  mlp_ratio: float = 4.0,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.adaLN_modulation = dense(hidden_size, 6 * hidden_size, "zeros")
-        self.attn = Attention(hidden_size, num_heads, generator)
+        self.attn = Attention(hidden_size, num_heads, generator, dtype)
         self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio),
-                       hidden_size, generator=generator, init="lecun")
+                       hidden_size, generator=generator, init="lecun",
+                       dtype=dtype)
 
     def forward(self, x, c):
         sh_a, sc_a, g_a, sh_m, sc_m, g_m = torch.chunk(
@@ -334,17 +434,20 @@ class DiTBlock(nn.Module):
 
 
 class FinalLayer(nn.Module):
-    """The zero-initialised output projection."""
+    """The zero-initialised output projection, in `dtype`, its output
+    float32."""
 
-    def __init__(self, hidden_size: int, patch_vol: int, out_channels: int):
+    def __init__(self, hidden_size: int, patch_vol: int, out_channels: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.adaLN_modulation = dense(hidden_size, 2 * hidden_size, "zeros")
-        self.linear = dense(hidden_size, patch_vol * out_channels, "zeros")
+        self.linear = dense(hidden_size, patch_vol * out_channels, "zeros",
+                            dtype=dtype)
 
     def forward(self, x, c):
         shift, scale = torch.chunk(self.adaLN_modulation(F.silu(c)), 2,
                                    dim=1)
-        return self.linear(modulate(_ln(x), shift, scale))
+        return self.linear(modulate(_ln(x), shift, scale)).float()
 
 
 def patch_embedding(in_channels: int, hidden_size: int, patch,
@@ -382,11 +485,13 @@ class DiT(nn.Module):
                  num_heads: int = 16, mlp_ratio: float = 4.0,
                  num_classes: int = 1, class_dropout_prob: float = 0.1,
                  learn_sigma: bool = False, factorized: bool = True,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.hidden_size = hidden_size
         self.patch_size = tuple(patch_size)
         self.factorized = factorized
+        self.dtype = dtype
         self.out_channels = in_channels * 2 if learn_sigma else in_channels
         self.x_embedder = patch_embedding(in_channels, hidden_size,
                                           self.patch_size, generator)
@@ -395,10 +500,10 @@ class DiT(nn.Module):
                                         class_dropout_prob, generator)
         block = DiTBlockFactor if factorized else DiTBlock
         self.blocks = nn.ModuleList(
-            block(hidden_size, num_heads, mlp_ratio, generator)
+            block(hidden_size, num_heads, mlp_ratio, generator, dtype)
             for _ in range(depth))
         self.final_layer = FinalLayer(hidden_size, math.prod(self.patch_size),
-                                      self.out_channels)
+                                      self.out_channels, dtype)
 
     def forward(self, x, t, y):
         N, F_, H, W, _ = x.shape
@@ -407,7 +512,9 @@ class DiT(nn.Module):
         h = F.pad(x, (0, 0, 0, pads[2], 0, pads[1], 0, pads[0]))
         Gf, Gh, Gw = ((n + p) // q for n, p, q in
                       zip((F_, H, W), pads, self.patch_size))
-        h = self.x_embedder(h.permute(0, 4, 1, 2, 3))    # [N, D, Gf, Gh, Gw]
+        h = conv_in(self.x_embedder, h.permute(0, 4, 1, 2, 3),
+                    self.dtype)                          # [N, D, Gf, Gh, Gw]
+        # the float32 positional add puts the stream back in float32
         tokens = h.flatten(2).transpose(1, 2)
         tokens = tokens + constant(
             ("pos3d", self.hidden_size, Gf, Gh, Gw),
@@ -445,24 +552,26 @@ class DiTResNet(nn.Module):
                  num_blocks: int = 2, kernel_size: int = 3,
                  act_type: str = "relu", circular_pad: bool = True,
                  learn_sigma: bool = False, num_classes: int = 1,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         in_chans = 2 * num_emaps
         self.learn_sigma = learn_sigma
         self.pad = ((2 * num_blocks + 2) * (kernel_size - 1) // 2
                     if circular_pad else 0)
         self.sfe = ConvBlock(in_chans, hidden_size, kernel_size, "none",
-                             generator)
+                             generator, dtype=dtype)
         self.dit = DiT(in_channels=hidden_size, hidden_size=hidden_size,
                        patch_size=patch_size, depth=depth,
                        num_heads=num_heads, learn_sigma=learn_sigma,
-                       num_classes=num_classes, generator=generator)
+                       num_classes=num_classes, generator=generator,
+                       dtype=dtype)
         self.final_layer = ConvBlock(hidden_size, in_chans, kernel_size,
-                                     act_type, generator)
+                                     act_type, generator, dtype=dtype)
         # the reference's learn_sigma path through DiTResNet is broken; as
         # in the JAX package the variance channels get a conv of their own
         self.var_layer = (ConvBlock(hidden_size, in_chans, kernel_size,
-                                    act_type, generator)
+                                    act_type, generator, dtype=dtype)
                           if learn_sigma else None)
 
     def forward(self, x, t, y):

@@ -10,7 +10,9 @@ package keeps them: depth is consumed in (spatial, temporal) pairs; the
 temporal embedding is added only before the first temporal block; the
 positional embeddings are float32 adds; LatteNet's reference defines an
 SFE conv that it never calls, so Latte runs on the 2E real channels
-directly and no SFE exists here.
+directly and no SFE exists here. `dtype` casts the layers the JAX module
+casts: the patch embedding, the blocks' attention and MLP and the final
+linear (see `models/dit.py`).
 """
 
 from typing import Optional
@@ -22,7 +24,7 @@ from torch import nn
 
 from dl_swin_gan_tpu_torch.models.dit import (
     DiTBlock, FinalLayer, LabelEmbedder, TimestepEmbedder, _crop_padding,
-    _sincos_1d, constant, patch_embedding, pos_embed_2d,
+    _sincos_1d, constant, conv_in, patch_embedding, pos_embed_2d,
     to_complex_solver_layout,
 )
 from dl_swin_gan_tpu_torch.models.layers import circular_pad_time, crop_time
@@ -40,11 +42,13 @@ class Latte(nn.Module):
                  mlp_ratio: float = 4.0, num_classes: int = 1,
                  class_dropout_prob: float = 0.1, extras: int = 1,
                  learn_sigma: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.hidden_size = hidden_size
         self.patch_size = patch_size
         self.extras = extras
+        self.dtype = dtype
         self.out_channels = in_channels * 2 if learn_sigma else in_channels
         self.x_embedder = patch_embedding(in_channels, hidden_size,
                                           (patch_size, patch_size), generator)
@@ -53,10 +57,11 @@ class Latte(nn.Module):
                                          class_dropout_prob, generator)
                            if extras == 2 else None)
         self.blocks = nn.ModuleList(
-            TransformerBlock(hidden_size, num_heads, mlp_ratio, generator)
+            TransformerBlock(hidden_size, num_heads, mlp_ratio, generator,
+                             dtype)
             for _ in range(depth))
         self.final_layer = FinalLayer(hidden_size, patch_size ** 2,
-                                      self.out_channels)
+                                      self.out_channels, dtype)
 
     def forward(self, x, t, y=None):
         N, F_, H, W, C = x.shape
@@ -68,7 +73,9 @@ class Latte(nn.Module):
 
         h = F.pad(x, (0, 0, 0, padW, 0, padH)).reshape(
             N * F_, H + padH, W + padW, C)
-        h = self.x_embedder(h.permute(0, 3, 1, 2))       # [NF, D, Gh, Gw]
+        h = conv_in(self.x_embedder, h.permute(0, 3, 1, 2),
+                    self.dtype)                          # [NF, D, Gh, Gw]
+        # the float32 positional add puts the stream back in float32
         tokens = h.flatten(2).transpose(1, 2)            # [NF, n_sp, D]
         tokens = tokens + constant(("pos2d", D, Gh, Gw),
                                    lambda: pos_embed_2d(D, (Gh, Gw)),
@@ -116,7 +123,8 @@ class LatteNet(nn.Module):
                  num_blocks: int = 2, kernel_size: int = 3,
                  circular_pad: bool = True, learn_sigma: bool = False,
                  num_classes: int = 1,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.learn_sigma = learn_sigma
         self.pad = ((2 * num_blocks + 2) * (kernel_size - 1) // 2
@@ -124,7 +132,8 @@ class LatteNet(nn.Module):
         self.latte = Latte(in_channels=2 * num_emaps, hidden_size=hidden_size,
                            patch_size=patch_size, depth=depth,
                            num_heads=num_heads, learn_sigma=learn_sigma,
-                           num_classes=num_classes, generator=generator)
+                           num_classes=num_classes, generator=generator,
+                           dtype=dtype)
 
     def forward(self, x, t, y):
         h = circular_pad_time(torch.cat([x.real, x.imag], dim=1), self.pad)

@@ -4,7 +4,9 @@ spatial axes.
 Counterpart of `models/layers.py` in the JAX package: `Conv` (SAME
 padding, a cubic or per-axis kernel), `ComplexConv`, `SeparableConv`,
 `ConvBlock`, `normalize`, `activation`, `circular_pad_time` and
-`crop_time`. The JAX package runs channels-last
+`crop_time`. SAME padding is XLA's: (k - 1) // 2 before and k // 2 after
+on each axis, so an even kernel pads one more after than before (an
+explicit `F.pad`, as `models/discriminator.py` pads). The JAX package runs channels-last
 [N, *spatial, C]; here the trunk runs torch's [N, C, *spatial], so the first
 spatial axis (time for 3D and 1D, rows for 2D) is dim 2. Convolutions go to
 cuDNN (the JAX package left them to XLA).
@@ -46,7 +48,8 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def conv_nd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-            padding: Sequence[int], dtype: torch.dtype) -> torch.Tensor:
+            padding: Union[int, Sequence[int]],
+            dtype: torch.dtype) -> torch.Tensor:
     """SAME conv of `weight.ndim - 2` spatial axes computed in `dtype`, then
     the bias added in float32 (one fused call when `dtype` is float32)."""
     conv = _CONV[weight.ndim - 2]
@@ -99,19 +102,29 @@ KernelSize = Union[int, Sequence[int]]
 
 
 def _kernel_shape(kernel_size: KernelSize, ndim: int):
-    """(kernel, SAME padding) per axis; only odd sizes are ported."""
+    """(kernel, SAME padding) per axis. The padding is the conv's own
+    (symmetric) padding where every size is odd, else an `F.pad` argument
+    for XLA's SAME: (k - 1) // 2 before and k // 2 after each axis."""
     k = ((kernel_size,) * ndim if isinstance(kernel_size, int)
          else tuple(kernel_size))
-    if len(k) != ndim or any(n % 2 != 1 for n in k):
-        raise NotImplementedError(
-            f"kernel {k}: only odd conv kernel sizes are ported (SAME "
-            "padding)")
-    return k, tuple(n // 2 for n in k)
+    if len(k) != ndim:
+        raise ValueError(f"kernel {k} for {ndim} spatial axes")
+    if all(n % 2 for n in k):
+        return k, tuple(n // 2 for n in k)
+    # F.pad's order: the last axis first, (before, after) each
+    return k, [p for n in reversed(k) for p in ((n - 1) // 2, n // 2)]
+
+
+def _same_conv(x, weight, bias, padding, dtype):
+    """conv_nd with SAME padding as `_kernel_shape` gives it."""
+    if isinstance(padding, tuple):
+        return conv_nd(x, weight, bias, padding, dtype)
+    return conv_nd(F.pad(x, padding), weight, bias, 0, dtype)
 
 
 class Conv(nn.Module):
-    """Real conv with SAME padding (odd kernel sizes, cubic or one per
-    axis), `ndim` spatial axes."""
+    """Real conv with SAME padding (a cubic kernel or one per axis), `ndim`
+    spatial axes."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: KernelSize,
@@ -126,7 +139,8 @@ class Conv(nn.Module):
         self.bias = _uniform((out_channels,), fan_in, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv_nd(x, self.weight, self.bias, self.padding, self.dtype)
+        return _same_conv(x, self.weight, self.bias, self.padding,
+                          self.dtype)
 
 
 class ComplexConv(nn.Module):
@@ -151,8 +165,8 @@ class ComplexConv(nn.Module):
         weight = torch.cat([torch.cat([kr, -ki], dim=1),
                             torch.cat([ki, kr], dim=1)], dim=0)
         bias = torch.cat([self.bias_re, self.bias_im])
-        out = conv_nd(torch.cat([x.real, x.imag], dim=1), weight, bias,
-                      self.padding, self.dtype)
+        out = _same_conv(torch.cat([x.real, x.imag], dim=1), weight, bias,
+                         self.padding, self.dtype)
         c = kr.shape[0]
         return torch.complex(out[:, :c].contiguous(), out[:, c:].contiguous())
 

@@ -23,6 +23,15 @@ convolutions (the ConvBlocks, the stride-4 patch embedding and the
 transposed-conv unembedding) see torch's NCDHW. Window attention goes
 through `kernels.window_attn.window_attention`: the hand-written kernel on
 the GPU, its plain version on the CPU.
+
+`dtype` (CONV_BLOCK.DTYPE) casts what the JAX modules cast: the attention's
+qkv and proj and the MLPs (flax `Dense(dtype=)`, `models.dit.Linear`), so
+window attention takes bfloat16 q, k, v with a float32 bias table and mask
+and returns bfloat16; the patch embedding and unembedding and
+PatchMerging's and PatchExpand's linears, each cast back to float32 after;
+the ConvBlocks through `layers.conv_nd`. The LayerNorms and the residual
+stream stay float32: a bfloat16 branch added to the float32 shortcut
+promotes to float32, as in jnp. Parameters stay float32.
 """
 
 import functools
@@ -37,7 +46,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from dl_swin_gan_tpu_torch.kernels.window_attn import window_attention
-from dl_swin_gan_tpu_torch.models.dit import LabelEmbedder, Mlp, linear
+from dl_swin_gan_tpu_torch.models.dit import (
+    LabelEmbedder, Mlp, conv_in, linear,
+)
 from dl_swin_gan_tpu_torch.models.layers import (
     ConvBlock, circular_pad_time, crop_time,
 )
@@ -174,7 +185,8 @@ class WindowAttention3D(nn.Module):
 
     def __init__(self, dim: int, window_size: Tuple[int, int, int],
                  num_heads: int, qkv_bias: bool = True,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.window_size = tuple(window_size)
         self.num_heads = num_heads
@@ -185,8 +197,9 @@ class WindowAttention3D(nn.Module):
         with torch.no_grad():   # flax's truncated_normal(0.02): cut at 2 std
             nn.init.trunc_normal_(self.relative_position_bias_table, std=0.02,
                                   a=-0.04, b=0.04, generator=generator)
-        self.qkv = linear(dim, 3 * dim, bias=qkv_bias, generator=generator)
-        self.proj = linear(dim, dim, generator=generator)
+        self.qkv = linear(dim, 3 * dim, bias=qkv_bias, generator=generator,
+                          dtype=dtype)
+        self.proj = linear(dim, dim, generator=generator, dtype=dtype)
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -209,16 +222,17 @@ class SwinBlock3D(nn.Module):
                  shift_size: Tuple[int, int, int] = (0, 0, 0),
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  drop_path: float = 0.0,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.window_size = tuple(window_size)
         self.shift_size = tuple(shift_size)
         self.norm1 = LayerNorm(dim)
         self.attn = WindowAttention3D(dim, window_size, num_heads, qkv_bias,
-                                      generator)
+                                      generator, dtype)
         self.norm2 = LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, approximate=False,
-                       generator=generator)
+                       generator=generator, dtype=dtype)
         self.drop_path = DropPath(drop_path)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -248,33 +262,36 @@ class SwinBlock3D(nn.Module):
 class PatchMerging(nn.Module):
     """2x2 spatial downsample: gather 4 -> norm -> linear 4C -> 2C."""
 
-    def __init__(self, dim: int, generator: Optional[torch.Generator] = None):
+    def __init__(self, dim: int, generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.norm = LayerNorm(4 * dim)
         self.reduction = linear(4 * dim, 2 * dim, bias=False,
-                                generator=generator)
+                                generator=generator, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         H, W = x.shape[2], x.shape[3]
         x = F.pad(x, (0, 0, 0, W % 2, 0, H % 2))
         x = torch.cat([x[:, :, 0::2, 0::2], x[:, :, 1::2, 0::2],
                        x[:, :, 0::2, 1::2], x[:, :, 1::2, 1::2]], dim=-1)
-        return self.reduction(self.norm(x))
+        return self.reduction(self.norm(x)).float()
 
 
 class PatchExpand(nn.Module):
     """2x2 spatial upsample: linear C -> 2C -> pixel shuffle to C/2 channels
     -> centred crop -> norm."""
 
-    def __init__(self, dim: int, generator: Optional[torch.Generator] = None):
+    def __init__(self, dim: int, generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.expand = linear(dim, 2 * dim, bias=False, generator=generator)
+        self.expand = linear(dim, 2 * dim, bias=False, generator=generator,
+                             dtype=dtype)
         self.norm = LayerNorm(dim // 2)
 
     def forward(self, x: torch.Tensor,
                 target_hw: Tuple[int, int]) -> torch.Tensor:
         B, D, H, W, _ = x.shape
-        x = self.expand(x)
+        x = self.expand(x).float()
         c = x.shape[-1] // 4
         x = x.reshape(B, D, H, W, 2, 2, c).permute(0, 1, 2, 4, 3, 5, 6)
         x = x.reshape(B, D, 2 * H, 2 * W, c)
@@ -291,7 +308,8 @@ class BasicLayer(nn.Module):
                  window_size: Tuple[int, int, int] = (1, 7, 7),
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  drop_path: Sequence[float] = (), downsample: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         shift = tuple(w // 2 for w in window_size)
         self.blocks = nn.ModuleList(
@@ -299,9 +317,10 @@ class BasicLayer(nn.Module):
                         (0, 0, 0) if i % 2 == 0 else shift, mlp_ratio,
                         qkv_bias,
                         drop_path[i] if i < len(drop_path) else 0.0,
-                        generator)
+                        generator, dtype)
             for i in range(depth))
-        self.downsample = PatchMerging(dim, generator) if downsample else None
+        self.downsample = (PatchMerging(dim, generator, dtype) if downsample
+                           else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for block in self.blocks:
@@ -330,10 +349,12 @@ class SwinTransformer3D(nn.Module):
                  window_size: Tuple[int, int, int] = (2, 7, 7),
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  drop_path_rate: float = 0.2,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         ps = tuple(patch_size)
         self.patch_size = ps
+        self.dtype = dtype
         n = len(depths)
         k3 = ps[0] * ps[1] * ps[2]
         self.patch_embed = _init_conv(
@@ -346,10 +367,11 @@ class SwinTransformer3D(nn.Module):
             BasicLayer(int(embed_dim * 2 ** i), depths[i], num_heads[i],
                        window_size, mlp_ratio, qkv_bias,
                        dpr[sum(depths[:i]):sum(depths[:i + 1])],
-                       downsample=i < n - 1, generator=generator)
+                       downsample=i < n - 1, generator=generator,
+                       dtype=dtype)
             for i in range(n))
         self.expands = nn.ModuleList(
-            PatchExpand(int(embed_dim * 2 ** (n - j - 1)), generator)
+            PatchExpand(int(embed_dim * 2 ** (n - j - 1)), generator, dtype)
             for j in range(n - 1))
         # torch's ConvTranspose3d default init takes fan_in from the weight's
         # dim 1 (out channels)
@@ -363,7 +385,8 @@ class SwinTransformer3D(nn.Module):
         ps = self.patch_size
         h = F.pad(x, (0, 0, 0, (-W0) % ps[2], 0, (-H0) % ps[1],
                       0, (-D0) % ps[0]))
-        h = self.patch_embed(h.permute(0, 4, 1, 2, 3)).permute(0, 2, 3, 4, 1)
+        h = conv_in(self.patch_embed, h.permute(0, 4, 1, 2, 3), self.dtype)
+        h = h.float().permute(0, 2, 3, 4, 1)
 
         sizes = []
         for i, layer in enumerate(self.layers):
@@ -374,7 +397,8 @@ class SwinTransformer3D(nn.Module):
             target = sizes[len(self.layers) - j - 2]
             h = expand(h, (target[2], target[3]))
 
-        h = self.patch_unembed(h.permute(0, 4, 1, 2, 3)).permute(0, 2, 3, 4, 1)
+        h = conv_in(self.patch_unembed, h.permute(0, 4, 1, 2, 3), self.dtype)
+        h = h.float().permute(0, 2, 3, 4, 1)
         dd, dh, dw = h.shape[1] - D0, h.shape[2] - H0, h.shape[3] - W0
         return h[:, math.ceil(dd / 2):h.shape[1] - dd // 2,
                  math.ceil(dh / 2):h.shape[2] - dh // 2,
@@ -398,25 +422,28 @@ class SwinNet3D(nn.Module):
                  patch_size: Tuple[int, int, int] = (4, 4, 4),
                  act_type: str = "relu", circular_pad: bool = True,
                  drop_path_rate: float = 0.2,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         in_chans = 2 * num_emaps
         chans = num_features
         self.pad = ((2 * num_swinblocks + 2) * (kernel_size - 1) // 2
                     if circular_pad else 0)
-        self.sfe = ConvBlock(in_chans, chans, kernel_size, "none", generator)
+        self.sfe = ConvBlock(in_chans, chans, kernel_size, "none", generator,
+                             dtype=dtype)
         self.trunks = nn.ModuleList(
             SwinTransformer3D(chans, chans, patch_size, depths, num_heads,
                               window_size, drop_path_rate=drop_path_rate,
-                              generator=generator)
+                              generator=generator, dtype=dtype)
             for _ in range(num_swinblocks))
         self.convs = nn.ModuleList(
-            ConvBlock(chans, chans, kernel_size, act_type, generator)
+            ConvBlock(chans, chans, kernel_size, act_type, generator,
+                      dtype=dtype)
             for _ in range(num_swinblocks))
         self.dfe_conv = ConvBlock(chans, chans, kernel_size, act_type,
-                                  generator)
+                                  generator, dtype=dtype)
         self.out_conv = ConvBlock(chans, in_chans, kernel_size, act_type,
-                                  generator)
+                                  generator, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         e = x.shape[1]

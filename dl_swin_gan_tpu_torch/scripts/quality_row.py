@@ -99,7 +99,9 @@ def main(argv=None):
                         choices=["unrolled", "diffusion", "zerofilled"])
     parser.add_argument("--dtype", default="float32",
                         choices=["float32", "bfloat16"],
-                        help="CONV_BLOCK.DTYPE: resnet.yaml or resnet_bf16.yaml")
+                        help="CONV_BLOCK.DTYPE (bfloat16: resnet_bf16.yaml, "
+                             "dit_bf16.yaml, or the model's YAML with a bf16 "
+                             "trunk)")
     parser.add_argument("--model", default="res",
                         choices=["res", "se", "cbam", "swin", "swingan",
                                  "latte2", "dit"],

@@ -215,6 +215,10 @@ _QUALITY_MODELS = {"res": ("RES", 5, 2, 64, 40, 10, "runs/resq2"),
                    "latte2": ("Latte", 2, 0, 192, 1000, 20, "runs/latteq4"),
                    "dit": ("DiT", 2, 0, 256, 2000, 20, "runs/ditq2")}
 
+# the OUTPUT_DIR of the models whose bfloat16 row has a YAML of its own
+# (`resnet_bf16.yaml`, `dit_bf16.yaml`)
+_BF16_OUTPUT_DIRS = {"res": "runs/resbf16", "dit": "runs/ditbf16"}
+
 # the diffusion models' further columns: (NUM_LAYERS, NUM_HEADS,
 # SHARE_WEIGHTS, EVAL.CKPT_EVERY_N_STEPS) of their YAMLs
 _DIFFUSION_QUALITY_MODELS = {"latte2": (12, 6, True, 64),
@@ -226,8 +230,10 @@ def quality_cfg(dtype: str = "float32", model: str = "res"):
     sets. `model` "res" is `configs/quality/resnet.yaml` (float32) or
     `resnet_bf16.yaml` (bfloat16); "se", "cbam", "swin" and "swingan" are
     `configs/quality/se.yaml`, `cbam.yaml`, `swin.yaml` and `swingan.yaml`
-    (float32 in their YAMLs); "latte2" and "dit" the diffusion rows'
-    `latte2.yaml` and `dit.yaml` (DDPM_X). Like every quality YAML it sets
+    (float32 in their YAMLs; bfloat16 sets CONV_BLOCK.DTYPE, as the bf16
+    Swin row's command line does); "latte2" and "dit" the diffusion rows'
+    `latte2.yaml` and `dit.yaml` (DDPM_X), and "dit" in bfloat16
+    `dit_bf16.yaml`. Like every quality YAML it sets
     DATALOADER.DEVICE_PIPELINE: training batches are built on the device."""
     from dl_swin_gan_tpu_torch.config import get_cfg
 
@@ -287,8 +293,8 @@ def quality_cfg(dtype: str = "float32", model: str = "res"):
     cfg.LOGGER.LOG_METRICS_EVERY_N_STEPS = 32
     cfg.LOGGER.LOG_IMAGES_EVERY_N_STEPS = 0
     cfg.SEED = 1000
-    cfg.OUTPUT_DIR = ("runs/resbf16" if model == "res" and dtype == "bfloat16"
-                      else output_dir)
+    cfg.OUTPUT_DIR = (_BF16_OUTPUT_DIRS.get(model, output_dir)
+                      if dtype == "bfloat16" else output_dir)
     cfg.VERSION = 1
     if model in _DIFFUSION_QUALITY_MODELS:
         _diffusion_fields(cfg, model)

@@ -1,8 +1,8 @@
 """The bfloat16 conv trunk (CONV_BLOCK.DTYPE) of the port against the JAX
 package's, on converted weights: the RES denoiser's forward and parameter
 gradients with real and complex convs, its float32 path, the parameter and
-gradient dtypes, a 3-step trajectory against the JAX Trainer, and the Swin
-trunk, whose bfloat16 form is not ported.
+gradient dtypes, a 3-step trajectory against the JAX Trainer, and the
+bfloat16 Swin trunk's build (its parity: tests/test_torch_swin_bf16.py).
 
 The JAX side of the forward and gradient test runs in a subprocess with
 XLA_FLAGS=--xla_allow_excess_precision=false. XLA's CPU backend otherwise
@@ -176,11 +176,23 @@ def test_bf16_trunk_keeps_float32_params_and_activations():
     assert torch.equal(y, ref)
 
 
-def test_swin_bf16_raises_naming_its_item():
+def test_swin_bf16_builds_with_float32_params():
+    """config_swin.yaml's trunk with CONV_BLOCK.DTYPE bfloat16 builds (it
+    raised before the bf16 window-attention kernels were ported): float32
+    parameters, every ConvBlock, linear and patch conv in bfloat16 (the
+    trunk's parity with the JAX package: tests/test_torch_swin_bf16.py)."""
     cfg = swin_cfg()
     cfg.MODEL.PARAMETERS.CONV_BLOCK.DTYPE = "bfloat16"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        build_denoiser(cfg)
+    net = build_denoiser(cfg)
+    assert all(p.dtype == torch.float32 for p in net.parameters())
+    typed = [type(m).__name__ for m in net.modules() if hasattr(m, "dtype")
+             and m.dtype == torch.bfloat16]
+    # the 4 ConvBlocks' convs, the trunk (its patch convs), 6 blocks x 4
+    # linears; nothing left in float32
+    assert sorted(typed) == ["Conv"] * 4 + ["Linear"] * 24 + [
+        "SwinTransformer3D"]
+    assert all(m.dtype == torch.bfloat16 for m in net.modules()
+               if hasattr(m, "dtype"))
 
 
 def test_unknown_dtype_raises():

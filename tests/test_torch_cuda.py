@@ -224,13 +224,15 @@ def test_window_attention_lse_matches_plain(dev, shape):
     """The row log-sum-exp the backward reads, against the plain scores'; a
     call without it gives the same output bitwise."""
     q, k, v, bias, mask = _attn_inputs(dev, *shape)
-    out, lse = WA.window_attention_fwd(q, k, v, bias, mask, with_lse=True)
+    out, lse, out32 = WA.window_attention_fwd(q, k, v, bias, mask,
+                                              with_lse=True)
+    assert out32 is out
     torch.testing.assert_close(
         lse, torch.logsumexp(_scores(q, k, bias, mask), -1), rtol=1e-5,
         atol=1e-5)
-    again, none = WA.window_attention_fwd(q, k, v, bias, mask,
-                                          with_lse=False)
-    assert none is None and torch.equal(out, again)
+    again, none, none32 = WA.window_attention_fwd(q, k, v, bias, mask,
+                                                  with_lse=False)
+    assert none is None and none32 is None and torch.equal(out, again)
 
 
 def test_window_attention_rejects_what_it_cannot_take(dev):
@@ -289,7 +291,7 @@ def test_window_attention_resolves_neg_views(dev):
     out = WA.window_attention(torch._neg_view(q), k, v, bias, mask)
     torch.testing.assert_close(
         out, WA.window_attention(-q, k, v, bias, mask), rtol=0, atol=0)
-    fwd, lse = WA.window_attention_fwd(q, k, v, bias, mask, with_lse=True)
+    fwd, lse, _ = WA.window_attention_fwd(q, k, v, bias, mask, with_lse=True)
     g = torch.randn_like(q)
     a = WA.window_attention_bwd(q, k, v, bias, mask, torch._neg_view(g),
                                 fwd, lse)
@@ -303,7 +305,7 @@ def _bwd_case(dev, shape, seed=0):
     q, k, v, bias, mask = _attn_inputs(dev, W, H, N, D, nW, seed=seed)
     g = torch.from_numpy(np.random.RandomState(seed + 9).standard_normal(
         q.shape).astype(np.float32)).to(dev)
-    out, lse = WA.window_attention_fwd(q, k, v, bias, mask, with_lse=True)
+    out, lse, _ = WA.window_attention_fwd(q, k, v, bias, mask, with_lse=True)
     return q, k, v, bias, mask, g, out, lse
 
 
@@ -364,6 +366,92 @@ def test_window_attention_autograd_on_card_matches_cpu(dev):
         grads.append([leaf.grad.cpu() for leaf in leaves])
     for a, b in zip(*grads):
         assert _rel(a, b) <= REL_TOL
+
+
+# bfloat16 q, k, v (and g): the kernels widen them to float32 and round
+# only their outputs, as the plain versions do; their float32 values differ
+# by the float32 limit above, so a rounded element may go the other way:
+# one bf16 ulp (of the larger magnitude) plus REL_TOL of the largest, and
+# rel L2 5e-4 over all (a kernel that multiplied in bf16 or rounded p
+# first is 4e-3 away)
+BF16_REL_L2 = 5e-4
+
+
+def _assert_bf16_close(a, b, what):
+    a, b = a.float(), b.float()
+    mag = torch.maximum(a.abs(), b.abs())
+    ulp = torch.exp2(torch.floor(torch.log2(torch.where(
+        mag > 0, mag, torch.ones_like(mag)))) - 7)
+    floor = REL_TOL * b.abs().max()
+    assert ((a - b).abs() <= ulp + floor).all(), what
+    assert ((a - b).norm() / b.norm()).item() <= BF16_REL_L2, what
+
+
+@pytest.mark.parametrize("shape", [
+    (12, 8, 448, 20, 12),       # the full-width Swin block, batch 1, shifted
+    (48, 8, 448, 20, None),     # batch 4, unshifted
+    (10, 4, 384, 24, None),     # SwinDiff's window shrunk in time, D = 24
+    (10, 4, 384, 24, 5),
+    (3, 2, 113, 20, 3),         # ragged rows and keys: 40-byte bf16 rows
+    (3, 2, 65, 20, None),       # one past a tile, N * D * 2 not a multiple
+                                # of 16 bytes
+    (4, 2, 100, 28, 2),
+    (2, 1, 3, 4, 1),            # nearly every row and key past N
+])
+def test_window_attention_bf16_matches_plain(dev, shape):
+    """The bf16 forward and backward kernels against their plain versions:
+    out and dq, dk, dv in bf16, lse and dbias float32; out32 is out before
+    its rounding, and what the backward reads."""
+    q, k, v, bias, mask = _attn_inputs(dev, *shape)
+    q, k, v = (t.bfloat16() for t in (q, k, v))
+    g = torch.from_numpy(np.random.RandomState(9).standard_normal(
+        tuple(q.shape)).astype(np.float32)).to(dev).bfloat16()
+    before = (WA.window_attention.launches, WA.window_attention_bwd.launches)
+    out, lse, out32 = WA.window_attention_fwd(q, k, v, bias, mask)
+    grads = WA.window_attention_bwd(q, k, v, bias, mask, g, out32, lse)
+    torch.cuda.synchronize()
+    assert (WA.window_attention.launches, WA.window_attention_bwd.launches) \
+        == (before[0] + 1, before[1] + 1)
+    assert out.dtype == torch.bfloat16 and out32.dtype == torch.float32
+    assert torch.equal(out, out32.bfloat16())
+    _assert_bf16_close(out, WA.window_attention_plain(q, k, v, bias, mask),
+                       "out")
+    wide = [t.float() for t in (q, k, v)]
+    assert _rel(out32, WA.window_attention_plain(*wide, bias, mask)) <= \
+        REL_TOL
+    torch.testing.assert_close(
+        lse, torch.logsumexp(_scores(*wide[:2], bias, mask), -1), rtol=1e-5,
+        atol=1e-5)
+    plain = WA.window_attention_bwd_plain(q, k, v, bias, mask, g)
+    for name, a, b in zip(("dq", "dk", "dv"), grads, plain):
+        assert a.dtype == torch.bfloat16, name
+        _assert_bf16_close(a, b, name)
+    assert grads[3].dtype == torch.float32
+    assert _rel(grads[3], plain[3]) <= REL_TOL
+    again = WA.window_attention_bwd(q, k, v, bias, mask, g, out32, lse)
+    for a, b in zip(grads, again):
+        assert torch.equal(a, b)
+
+
+def test_window_attention_bf16_autograd_and_refusals(dev):
+    """Through autograd the bf16 kernels give what they give called
+    directly; a mix of dtypes, or a bf16 out handed to the backward,
+    raises."""
+    q, k, v, bias, mask = _attn_inputs(dev, 6, 2, 64, 8, 3)
+    q, k, v = (t.bfloat16() for t in (q, k, v))
+    g = torch.randn(q.shape, device=dev).bfloat16()
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v, bias)]
+    WA.window_attention(*leaves, mask).backward(g)
+    out, lse, out32 = WA.window_attention_fwd(q, k, v, bias, mask)
+    direct = WA.window_attention_bwd(q, k, v, bias, mask, g, out32, lse)
+    for leaf, d in zip(leaves, direct):
+        assert leaf.grad.dtype == d.dtype and torch.equal(leaf.grad, d)
+    with pytest.raises(TypeError):
+        WA.window_attention(q, k.float(), v, bias, mask)
+    with pytest.raises(TypeError):
+        WA.window_attention(q, k, v, bias.bfloat16(), mask)
+    with pytest.raises(TypeError):
+        WA.window_attention_bwd(q, k, v, bias, mask, g, out, lse)
 
 
 def test_swin_train_step_on_card_matches_cpu(dev):

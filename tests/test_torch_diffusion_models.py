@@ -4,8 +4,8 @@ converted by `flax_to_torch` from numpy draws shaped by `jax.eval_shape`
 of the flax init: each backbone's forward, and the solver in its dc, none,
 pgd and hqs modes and with LEARN_SIGMA (shared and per-unroll weights),
 rel L2 1e-4 (sums in other orders); the backbones' builds from a config,
-the refusals that stay (a bf16 DiT or Latte), and remat giving the same
-gradients as the plain backward."""
+the bf16 DiT's and Latte's builds, and remat giving the same gradients as
+the plain backward."""
 
 import jax
 import jax.numpy as jnp
@@ -131,11 +131,24 @@ def test_remat_gradients_equal_plain_backward():
 
 
 @pytest.mark.parametrize("model_type", ["DIT", "LATTE"])
-def test_bf16_dit_and_latte_raise(model_type):
+def test_bf16_dit_and_latte_build(model_type):
+    """A bfloat16 DiT or Latte builds (it raised before this trunk was
+    ported): float32 parameters; the patch embedding, every block's
+    attention and MLP and the final linear in bfloat16, the adaLN
+    modulations and the embedders float32 (the trunks' parity with the JAX
+    package: tests/test_torch_dit_bf16.py)."""
     cfg = toy_cfg(get_cfg, model_type)
     cfg.MODEL.PARAMETERS.CONV_BLOCK.DTYPE = "bfloat16"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        build_model(cfg)
+    net = build_model(cfg).nets[0]
+    core = net.dit if model_type == "DIT" else net.latte
+    assert all(p.dtype == torch.float32 for p in net.parameters())
+    bf, f32 = torch.bfloat16, torch.float32
+    block = core.blocks[-1]
+    assert core.dtype == bf and core.final_layer.linear.dtype == bf
+    assert {block.attn.qkv.dtype, block.attn.proj.dtype, block.mlp.fc1.dtype,
+            block.mlp.fc2.dtype} == {bf}
+    assert {block.adaLN_modulation.dtype, core.t_embedder.fc1.dtype,
+            core.final_layer.adaLN_modulation.dtype} == {f32}
 
 
 def test_bf16_swin_diff_builds_float32_as_jax():

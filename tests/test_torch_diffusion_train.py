@@ -180,6 +180,15 @@ def test_diffusion_quality_cfg_matches_yaml(model, yaml):
     assert set(ours) == set(ref)
 
 
+def test_dit_bf16_quality_cfg_matches_yaml():
+    """quality_cfg("bfloat16", "dit") is configs/quality/dit_bf16.yaml."""
+    ours = quality_cfg("bfloat16", "dit")
+    ref = load_cfg(str(REPO / "configs/quality/dit_bf16.yaml"))
+    for node in ref:
+        assert ours[node] == ref[node], node
+    assert set(ours) == set(ref)
+
+
 def test_train_dit_cli_on_synthetic_data(tmp_path):
     """`scripts.train_dit` with configs/config_latte.yaml cut to toy widths
     on the CPU: trains, checkpoints, serves the checkpoint from H5 through

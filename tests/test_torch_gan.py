@@ -252,6 +252,96 @@ def test_gan_trajectory_matches_jax_trainer():
     assert state.step == 3
 
 
+# the JAX GANTrainer's 3 steps on the bfloat16 generator, in a subprocess
+# with XLA's excess precision off (tests/test_torch_bf16.py says why)
+_GAN_BF16_JAX = """
+import jax, jax.numpy as jnp, numpy as np
+from dl_swin_gan_tpu.config import load_cfg
+from dl_swin_gan_tpu.train import packing
+from dl_swin_gan_tpu.train.gan_trainer import GANTrainer, GANTrainState
+d = dict(np.load({inp!r}))
+def tree(prefix):
+    out = {{}}
+    for key, value in d.items():
+        if key.startswith(prefix + "/"):
+            *parents, leaf = key[len(prefix) + 1:].split("/")
+            node = out
+            for p in parents:
+                node = node.setdefault(p, {{}})
+            node[leaf] = value
+    return out
+cfg = load_cfg({yaml!r}, freeze=False)
+cfg.merge_from_list({toy!r})
+trainer = GANTrainer(cfg)
+trainer.set_steps_per_epoch(3)
+g, dp = tree("g"), tree("d")
+state = GANTrainState(step=jnp.zeros((), jnp.int32), g_params=g,
+                      g_opt=trainer.tx.init(g), d_params=dp,
+                      d_opt=trainer.d_tx.init(dp))
+trainer.train_model = trainer.model       # stochastic depth off
+trainer._build_steps()
+out = {{}}
+for i in range(3):
+    state, metrics = trainer._train_step(state, packing.pack(
+        {{k: v for k, v in tree(f"b{{i}}").items()}}))
+    for key in {keys!r}:
+        out[f"{{i}}/{{key}}"] = np.asarray(metrics[key])
+np.savez({out!r}, **out)
+"""
+
+
+def test_bf16_gan_trajectory_matches_jax_trainer(tmp_path):
+    """The bfloat16 Swin generator (CONV_BLOCK.DTYPE bfloat16; the
+    discriminator stays float32, as the JAX one takes no dtype) through 3
+    GANTrainer steps from the same seeded weights on the same batches,
+    stochastic depth off: each step's discriminator, adversarial and
+    reconstruction losses within rel 1e-2 of the JAX GANTrainer's (the bf16
+    RES trajectory's limit, tests/test_torch_bf16.py; measured 7e-7 to
+    7.5e-4)."""
+    from test_torch_swin_bf16 import run_jax_bf16
+
+    toy = TOY + ["MODEL.PARAMETERS.CONV_BLOCK.DTYPE", "bfloat16"]
+    keys = ("Train/disc_loss", "Train/adv_loss", "Train/complex_l1")
+    cfg = load_cfg(str(SWINGAN), freeze=False)
+    cfg.merge_from_list(toy)
+    jcfg = jax_load_cfg(str(SWINGAN), freeze=False)
+    jcfg.merge_from_list(toy)
+    batches = _batches(cfg)
+    jtrainer = JaxGANTrainer(jcfg)
+    b0 = {k: jnp.asarray(v) for k, v in batches[0].items()}
+    g_params = seeded_params(jtrainer.model, b0["kspace"], b0["maps"],
+                             b0["mask"], x0=b0["init_image"], seed=3)
+    d_params = seeded_params(jtrainer.disc, b0["target"], seed=4)
+    arrays = {}
+    for name, tree in (("g", g_params), ("d", d_params)):
+        for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+            arrays[name + "/" + "/".join(p.key for p in path)] = \
+                np.asarray(leaf)
+    for i, b in enumerate(batches):
+        arrays.update({f"b{i}/{k}": v for k, v in b.items()})
+    np.savez(tmp_path / "in.npz", **arrays)
+    run_jax_bf16(_GAN_BF16_JAX.format(
+        inp=str(tmp_path / "in.npz"), yaml=str(SWINGAN), toy=toy,
+        keys=keys, out=str(tmp_path / "jax.npz")))
+    theirs = np.load(tmp_path / "jax.npz")
+
+    trainer = GANTrainer(cfg, device="cpu")
+    trainer.set_steps_per_epoch(len(batches))
+    state = trainer.init_state(state_dict=flax_to_torch(g_params),
+                               disc_state_dict=disc_flax_to_torch(d_params))
+    for m in state.model.modules():
+        if isinstance(m, DropPath):
+            m.rate = 0.0
+    assert state.model.nets[0].trunks[0].dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in state.disc.parameters())
+    for i, b in enumerate(batches):
+        ours = trainer.train_step(state, b)
+        for key in keys:
+            assert float(ours[key]) == pytest.approx(
+                float(theirs[f"{i}/{key}"]), rel=1e-2), (i, key)
+    assert state.step == 3
+
+
 @pytest.fixture(scope="module")
 def gan_data(tmp_path_factory):
     """2 training files and 1 validation file of one 8x40x40 slice each."""

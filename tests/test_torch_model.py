@@ -153,17 +153,26 @@ def test_init_params_seeded_torch_default():
 
 @pytest.mark.parametrize("change", [
     ("MODEL.META_ARCHITECTURE", "dslr-pgd"),   # the other DSLR modes build
-    # bf16 builds for RES, SE and CBAM; the bf16 Swin trunk is not ported
-    ("MODEL.MODEL_TYPE", "SWIN", "MODEL.PARAMETERS.CONV_BLOCK.DTYPE",
-     "bfloat16"),
-    ("MODEL.MODEL_TYPE", "SWIN", "MODEL.PARAMETERS.CONV_BLOCK.DTYPE",
-     "bfloat16", "MODEL.META_ARCHITECTURE", "modl"),
 ])
 def test_unported_options_raise(change):
     cfg = _tiny(get_cfg())
     cfg.merge_from_list(list(change))
     with pytest.raises(NotImplementedError, match="not ported"):
         build_model(cfg)
+
+
+@pytest.mark.parametrize("meta", ["dlespirit", "modl"])
+def test_bf16_swin_solver_builds(meta):
+    """The bf16 Swin trunk under pgd and hqs (it raised before its kernels
+    were ported): every unroll's trunk computes in bfloat16, the
+    parameters stay float32."""
+    cfg = _tiny(get_cfg())
+    cfg.merge_from_list(["MODEL.MODEL_TYPE", "SWIN",
+                         "MODEL.PARAMETERS.CONV_BLOCK.DTYPE", "bfloat16",
+                         "MODEL.META_ARCHITECTURE", meta])
+    model = build_model(cfg)
+    assert all(net.trunks[0].dtype == torch.bfloat16 for net in model.nets)
+    assert all(p.dtype == torch.float32 for p in model.parameters())
 
 
 @pytest.mark.parametrize("change,dc_mode", [

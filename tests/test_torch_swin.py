@@ -263,13 +263,29 @@ def test_build_denoiser_builds_swinnet():
 
 @pytest.mark.parametrize("change,match", [
     (("MODEL.PARAMETERS.CONV_BLOCK.COMPLEX", True), "real/imag"),
-    (("MODEL.PARAMETERS.CONV_BLOCK.DTYPE", "bfloat16"), "Queue 1 item 13"),
 ])
 def test_swin_unsupported_options_raise(change, match):
     cfg = _toy(swin_cfg())
     cfg.merge_from_list(list(change))
     with pytest.raises(NotImplementedError, match=match):
         build_denoiser(cfg)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_build_denoiser_passes_the_dtype_to_every_swin_layer(dtype):
+    """CONV_BLOCK.DTYPE reaches the ConvBlocks, the trunk's patch convs and
+    every block's attention and MLP linears; the parameters stay float32
+    (a bfloat16 Swin raised before its kernels were ported)."""
+    cfg = _toy(swin_cfg())
+    cfg.MODEL.PARAMETERS.CONV_BLOCK.DTYPE = dtype
+    net = build_denoiser(cfg)
+    want = getattr(torch, dtype)
+    block = net.trunks[0].layers[0].blocks[3]
+    assert {net.sfe.conv.dtype, net.convs[0].conv.dtype,
+            net.dfe_conv.conv.dtype, net.out_conv.conv.dtype,
+            net.trunks[0].dtype, block.attn.qkv.dtype, block.attn.proj.dtype,
+            block.mlp.fc1.dtype, block.mlp.fc2.dtype} == {want}
+    assert all(p.dtype == torch.float32 for p in net.parameters())
 
 
 def test_init_params_seeded_swin():

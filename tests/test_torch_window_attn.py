@@ -1,8 +1,8 @@
 """The window-attention kernels' plain PyTorch versions, forward and
 backward, against the JAX package's Pallas kernels (`_pallas_attention` and
 `_pallas_attention_bwd`, run in interpret mode as tests/test_kernels.py
-runs them) and its XLA reference (`_attention_xla`), and the wrappers' CPU
-route, autograd included."""
+runs them) in float32 and bfloat16, and its XLA reference
+(`_attention_xla`), and the wrappers' CPU route, autograd included."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +20,17 @@ torch.set_num_threads(1)
 # of the output's largest entry. 1e-5 catches any change of formula, such
 # as a missing scale, bias or mask row, which moves the output by ~1e-1.
 REL_TOL = 1e-5
+# bfloat16 q, k, v (and g): both sides widen them to float32, compute in
+# float32 and round only the outputs, so the rounded outputs agree but
+# where the two float32 values straddle a rounding boundary: there by one
+# bf16 ulp. Compared in float32: every element within one ulp of the
+# Pallas kernel's (of the larger magnitude of the two) plus 1e-6 of the
+# largest element (the float32 sums' own spread, which exceeds a tiny
+# element's ulp: measured up to 5e-8), and rel L2 1e-4 over all (measured
+# 1e-9 to 6e-5; a kernel that multiplied in bf16 or rounded p first, as
+# `_attention_xla` does, is 4e-3 to 5e-3 away).
+BF16_REL_L2 = 1e-4
+BF16_FLOOR = 1e-6
 
 
 @pytest.fixture
@@ -45,6 +56,28 @@ def _rel(a, b):
     return float(np.abs(a - b).max() / np.abs(b).max())
 
 
+def _f32(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else
+                      jnp.asarray(x, jnp.float32))
+
+
+def _assert_bf16_close(a, b, what):
+    """a and b (bfloat16) within one bf16 ulp (plus BF16_FLOOR of the
+    largest) of each other elementwise, and within BF16_REL_L2 over all."""
+    a, b = _f32(a), _f32(b)
+    mag = np.maximum(np.abs(a), np.abs(b))
+    ulp = np.exp2(np.floor(np.log2(np.where(mag > 0, mag, 1.0))) - 7)
+    floor = BF16_FLOOR * np.abs(b).max()
+    assert (np.abs(a - b) <= ulp + floor).all(), what
+    assert np.linalg.norm(a - b) <= BF16_REL_L2 * np.linalg.norm(b), what
+
+
+def _bf16(*arrays):
+    """Each array rounded to bfloat16 (None stays None)."""
+    return [None if a is None else np.asarray(
+        jnp.asarray(a, jnp.bfloat16)) for a in arrays]
+
+
 def _torch(*arrays):
     return [None if a is None else torch.from_numpy(a) for a in arrays]
 
@@ -62,9 +95,25 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("case", CASES)
+def _torch_bf16(*arrays):
+    """numpy bfloat16 (ml_dtypes) arrays as torch bfloat16 tensors."""
+    return [None if a is None else torch.from_numpy(
+        a.view(np.uint16).astype(np.int16)).view(torch.bfloat16)
+        for a in arrays]
+
+
+@pytest.mark.parametrize("case", [*CASES, *(f"{c}-bf16" for c in CASES)])
 def test_plain_matches_pallas_interpret(interpret_mode, case):
-    q, k, v, bias, mask = _data(*CASES[case])
+    bf16 = case.endswith("-bf16")
+    q, k, v, bias, mask = _data(*CASES[case.removesuffix("-bf16")])
+    if bf16:   # q, k, v in bfloat16; the bias and mask stay float32
+        q, k, v = _bf16(q, k, v)
+        ref = JWA._pallas_attention(*_jax(q, k, v, bias, mask))
+        out = WA.window_attention_plain(*_torch_bf16(q, k, v),
+                                        *_torch(bias, mask))
+        assert out.dtype == torch.bfloat16 and ref.dtype == jnp.bfloat16
+        _assert_bf16_close(out, ref, case)
+        return
     ref = np.asarray(JWA._pallas_attention(*_jax(q, k, v, bias, mask)))
     out = WA.window_attention_plain(*_torch(q, k, v, bias, mask)).numpy()
     assert out.shape == ref.shape and out.dtype == np.float32
@@ -138,9 +187,25 @@ def _grads(case, seed):
     return q, k, v, bias, mask, g
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", [*CASES, *(f"{c}-bf16" for c in CASES)])
 def test_bwd_plain_matches_pallas_interpret(interpret_mode, case):
-    q, k, v, bias, mask, g = _grads(case, seed=4)
+    """float32, and bfloat16 q, k, v and g: dq, dk and dv come back in
+    bfloat16 (within one ulp, as the forward), dbias in float32 (to the
+    float32 limit: both sum the same float32 ds)."""
+    bf16 = case.endswith("-bf16")
+    q, k, v, bias, mask, g = _grads(case.removesuffix("-bf16"), seed=4)
+    if bf16:
+        q, k, v, g = _bf16(q, k, v, g)
+        ref = JWA._pallas_attention_bwd(*_jax(q, k, v, bias, mask, g))
+        qt, kt, vt, gt = _torch_bf16(q, k, v, g)
+        out = WA.window_attention_bwd_plain(qt, kt, vt, *_torch(bias, mask),
+                                            gt)
+        for name, a, b in zip(("dq", "dk", "dv"), out, ref):
+            assert a.dtype == torch.bfloat16 and b.dtype == jnp.bfloat16
+            _assert_bf16_close(a, b, f"{case} {name}")
+        assert out[3].dtype == torch.float32
+        assert _rel(out[3].numpy(), np.asarray(ref[3])) <= BWD_TOL
+        return
     ref = JWA._pallas_attention_bwd(*_jax(q, k, v, bias, mask, g))
     out = WA.window_attention_bwd_plain(*_torch(q, k, v, bias, mask, g))
     for name, a, b in zip(("dq", "dk", "dv", "dbias"), out, ref):
