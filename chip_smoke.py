@@ -17,7 +17,8 @@ then exits non-zero and prints no result:
               the main paths' shapes (batch 1 and 4, and 16 for the SENSE
               normal op: the headline train step's; window attention, forward
               and backward, with and without the shift mask; the block-LLR
-              normal op, 'pre' and 'post', one and two systems), with its
+              normal op, 'pre' and 'post', one and two systems, and at the
+              quality set's served slice, 18x156x96), with its
               time, the plain version's, the PyTorch library call's, and its
               bound (at the 3xTF32 tensor-core rate, with the fp32-FMA
               figure beside it; their device times by launch from
@@ -60,7 +61,23 @@ then exits non-zero and prints no result:
               val_step at 2 unrolls held against the port's CPU path; one
               val_step of the dslr-cg-jacobi mode (6 CG steps): 35 launches
               of both factor systems (S=2)
-  8. headline the RES main path closed: the port bench's train step
+  8. dslr_serve DSLR serving, dslr-pgd and the RNN temporal nets at
+              config_dslr.yaml's widths: 3 slices of exam 000 of the
+              quality set (18x156x96, 8 coils, 2 maps) served at 12x by
+              LRReconstructor on cuda, one slice per call, with cg-v1 (110
+              'pre' block-LLR launches a slice) and with dslr-pgd (5, one a
+              unroll), and nothing else launched; ms per slice (median of
+              the 3, after a warm-up), one slice's device time by group,
+              slice 0 held against the port's CPU path; the cg-v1 slices
+              also written by reconstruct_exam (the H5 front end's body)
+              and the CFL read back. dslr-pgd through DSLRTrainer: 1 warm-up and 4 timed
+              steps, 5 'pre' and 4 'post' launches per step (the first
+              unroll's L0 R0^H sees no parameter), one step at 2 unrolls
+              against the CPU. An UnrolledLR with use_rnn_temporal (no
+              config reaches it) at 2 unrolls: 1 warm-up and RNN_STEPS
+              timed steps, one step against the CPU (cuDNN's LSTM with TF32
+              off)
+  9. headline the RES main path closed: the port bench's train step
               (dl_swin_gan_tpu_torch.bench, Trainer.train_step on a resident
               batch) at batch 16 with remat in bfloat16 and float32 and at
               batch 1 in bfloat16, 1 warm-up and 3 timed steps each, 9
@@ -70,18 +87,18 @@ then exits non-zero and prints no result:
               slices served with the bfloat16 trunk and scored by the
               port's evaluator (SSIM, PSNR) against their 1x adjoint; a CFL
               round trip through reconstruct_cfl against Reconstructor
-  9. se       configs/config_se.yaml (5 unrolls x 1 resblock x 384
+ 10. se       configs/config_se.yaml (5 unrolls x 1 resblock x 384
               features, SE gate of hidden width 16) served like main (5
               SENSE-normal launches per batch), the CPU comparison at 1
               unroll; 1 warm-up and 3 timed Trainer steps at its readout
               crop of 48 (9 SENSE-normal launches per step), one step at 1
               unroll held against the port's CPU step; the CBAM trunk served
               at configs/quality/cbam.yaml's widths (1 x 96 features)
- 10. modl     the example config with META_ARCHITECTURE modl (the hqs rule,
+ 11. modl     the example config with META_ARCHITECTURE modl (the hqs rule,
               10 CG steps per unroll) served like main: 5 x (1 + 10) = 55
               SENSE-normal launches per batch, and the SENSE kernel's share
               of a slice's device time (printed for every served path)
- 11. gan      configs/config_swingan.yaml through GANTrainer: the Swin
+ 12. gan      configs/config_swingan.yaml through GANTrainer: the Swin
               generator (remat, stochastic depth) and the PatchGAN
               discriminator, 1 warm-up and 3 timed steps at batch 1 (60
               window-attention, 30 backward and 9 SENSE-normal launches per
@@ -90,7 +107,7 @@ then exits non-zero and prints no result:
               with the discriminator as its own; val_step and the GAN
               checkpoint served through Reconstructor; one step at 1 unroll,
               stochastic depth off, held against the port's CPU step
- 12. pipeline the device-resident input pipeline (data/device_pipeline.py)
+ 13. pipeline the device-resident input pipeline (data/device_pipeline.py)
               at the quality set's geometry (18x156x96 slices, 8 coils, 2
               maps, readout cropped to 64) and configs/quality/se.yaml's
               widths: (a) one seeded build on the card against the host
@@ -102,7 +119,7 @@ then exits non-zero and prints no result:
               DataLoader and the pipeline, with the float32 trunk and a
               bfloat16 one: steps/s, the device's busy share, 9
               SENSE-normal launches per step asserted
- 13. diffusion the DDPM_X diffusion paths (no SENSE-normal or LLR launch:
+ 14. diffusion the DDPM_X diffusion paths (no SENSE-normal or LLR launch:
               their DC step calls the SENSE forward and adjoint): (a) Latte
               at configs/quality/latte2.yaml's full widths (2 shared
               unrolls, 12 layers, 192 hidden, 6 heads, patch 4; seeded
@@ -134,19 +151,19 @@ then exits non-zero and prints no result:
               and shifted) through the forward and backward kernels
               against their plain versions, added to the kernels line as
               the "swindiff train" variants
- 14. swin_bf16 config_swin.yaml with CONV_BLOCK.DTYPE bfloat16 (full
+ 15. swin_bf16 config_swin.yaml with CONV_BLOCK.DTYPE bfloat16 (full
               width): served at batch 1 and 4 like swin (30 window-attention
               launches per batch, bf16 q, k, v); 1 warm-up and
               SWIN_BF16_TRAIN_STEPS timed Trainer steps at batch 1 (60 / 30
               / 9 launches per step, asserted), one profiled; one step at 1
               unroll on SWIN_BF16_CPU_FRAMES frames against the CPU path
- 15. diffusion_bf16 configs/quality/dit_bf16.yaml: 1 warm-up and
+ 16. diffusion_bf16 configs/quality/dit_bf16.yaml: 1 warm-up and
               DIFF_BF16_STEPS timed DiffusionTrainer steps through the
               device pipeline, and a DIFF_SHORT_STEPS sampling run (slice 0
               at 2 steps against the CPU path); Latte at latte2.yaml's
               widths in bfloat16: DIFF_BF16_STEPS timed train steps, one held
               against the CPU path
- 16. result   one JSON line of kernels (the bf16 window-attention variants
+ 17. result   one JSON line of kernels (the bf16 window-attention variants
               under window_attention and window_attention_bwd), then the
               last line {"ok": true, "device": {...}}
 
@@ -177,12 +194,13 @@ from dl_swin_gan_tpu_torch.data.device_pipeline import (
 )
 from dl_swin_gan_tpu_torch.data.host_ops import fftmod
 from dl_swin_gan_tpu_torch.data.synthetic import (
-    make_cine_example, quality_split,
+    QUALITY_SET, make_cine_example, quality_split,
 )
 from dl_swin_gan_tpu_torch.infer.evaluate import evaluate_volumes
 from dl_swin_gan_tpu_torch.infer.reconstruct import (
-    DiffusionReconstructor, Reconstructor, accel_transform, batched,
-    load_checkpoint_params, reconstruct_cfl, reconstruct_examples,
+    DiffusionReconstructor, LRReconstructor, Reconstructor, accel_transform,
+    batched, load_checkpoint_params, reconstruct_cfl, reconstruct_exam,
+    reconstruct_examples,
 )
 from dl_swin_gan_tpu_torch.infer.transforms import (
     PARITY_SEED, InferenceTransform, ResampleTransform,
@@ -193,17 +211,20 @@ from dl_swin_gan_tpu_torch.kernels import sense_normal as SN
 from dl_swin_gan_tpu_torch.kernels import window_attn as WA
 from dl_swin_gan_tpu_torch.models import swin as swin_module
 from dl_swin_gan_tpu_torch.models.swin import compute_shift_mask
-from dl_swin_gan_tpu_torch.ops.llr import BlockOp, compose, decompose
+from dl_swin_gan_tpu_torch.ops.llr import (
+    BlockOp, compose, decompose, decompose_init,
+)
 from dl_swin_gan_tpu_torch.ops.masks import VDktMaskFunc
 from dl_swin_gan_tpu_torch.ops.sense import _adjoint_impl, _forward_impl
 from dl_swin_gan_tpu_torch.models.swin import DropPath
+from dl_swin_gan_tpu_torch.solvers.dslr import build_dslr_solver
 from dl_swin_gan_tpu_torch.train import (
     CheckpointManager, DiffusionTrainer, DSLRTrainer, GANTrainer, Trainer,
 )
 from dl_swin_gan_tpu_torch.utils.device import use_ieee_fp32
 from dl_swin_gan_tpu_torch.utils.headline import (
-    dslr_cfg, headline_cfg, headline_shape, quality_cfg, se_cfg, swin_cfg,
-    swingan_cfg,
+    dslr_cfg, dslr_pgd_cfg, headline_cfg, headline_shape, quality_cfg,
+    se_cfg, swin_cfg, swingan_cfg,
 )
 
 ACCEL = 12
@@ -236,6 +257,12 @@ RUNS = Path(__file__).resolve().parent / "runs" / "chip_smoke"
 # jacobi mode's CG steps (configs/quality/dslr_fast.yaml)
 DSLR_CUT_UNROLLS = 2
 JACOBI_CG_STEPS = 6
+# the quality set's served slice (T, Y, X, C, E): the block-LLR kernel's
+# serving geometry; the DSLR slices served (timed) per mode; the timed
+# train steps of the RNN temporal nets
+SERVE_SHAPE = tuple(QUALITY_SET[k] for k in "TYXCE")
+SERVE_SLICES = 3
+RNN_STEPS = 3
 # the headline phase: the bench's train step at (batch, remat, trunk dtype),
 # one warm-up and HEADLINE_STEPS timed steps each
 HEADLINE_POINTS = ((bench.HEADLINE_BATCH, True, "bfloat16"),
@@ -979,19 +1006,23 @@ def _llr_work(S, op, C, w2):
     return dft, other, nbytes
 
 
-def llr_inputs():
-    """The block-LLR kernel's setting at the DSLR training point: (op, maps,
-    w2, c64, plain, library); c64(*shape) draws seeded complex64 on the
-    card, plain(blk, d_side) is the plain version and library(blk, d_side)
-    the same function by PyTorch calls (BlockOp combine, the SENSE forward
-    and adjoint on cuFFT, BlockOp extract)."""
-    cfg = dslr_cfg()
-    T, Y, X, C, E = headline_shape()
+def llr_inputs(serving=False):
+    """The block-LLR kernel's setting at the DSLR training point (20x180x64,
+    a training mask), or with `serving` at the quality set's served slice
+    (18x156x96, its 8 coils and 2 maps, the 12x mask at the parity seed):
+    (op, maps, w2, c64, plain, library); c64(*shape) draws seeded complex64
+    on the card, plain(blk, d_side) is the plain version and
+    library(blk, d_side) the same function by PyTorch calls (BlockOp
+    combine, the SENSE forward and adjoint on cuFFT, BlockOp extract)."""
+    cfg = quality_cfg(model="dslr") if serving else dslr_cfg()
+    T, Y, X, C, E = SERVE_SHAPE if serving else headline_shape()
     p = cfg.MODEL.PARAMETERS
     op = BlockOp(p.DSLR.BLOCK_SIZE, (1, E, T, Y, X), device="cuda")
     u = cfg.AUG_TRAIN.UNDERSAMPLE
-    mask = VDktMaskFunc(u.ACCELERATIONS, sim_partial_kx=u.PARTIAL_KX,
-                        sim_partial_ky=u.PARTIAL_KY)((1, 1, T, Y, X), SEED)
+    accels, seed = ((ACCEL, ACCEL), PARITY_SEED) if serving else (
+        u.ACCELERATIONS, SEED)
+    mask = VDktMaskFunc(accels, sim_partial_kx=u.PARTIAL_KX,
+                        sim_partial_ky=u.PARTIAL_KY)((1, 1, T, Y, X), seed)
     m5 = torch.from_numpy(np.ascontiguousarray(mask, np.float32)).cuda()
     w2 = (m5[0, 0] * m5[0, 0]).contiguous()
     rng = np.random.RandomState(SEED + 3)
@@ -1026,17 +1057,26 @@ def llr_inputs():
 def kernels_llr_normal():
     """llr_normal kernel vs its plain version vs the operator chain on cuFFT
     at the DSLR training point's shapes: 'pre' and 'post', one system and
-    two (the jacobi mode), the training mask; two calls must be bitwise
-    equal."""
-    op, maps, w2, c64, plain, library = llr_inputs()
+    two (the jacobi mode), the training mask; and at the served quality
+    slice (18x156x96, the 12x mask): 'pre' and 'post', one system. Two
+    calls must be bitwise equal."""
+    results = {}
+    for serving in (False, True):
+        results.update(_kernels_llr_at(serving))
+    return results
+
+
+def _kernels_llr_at(serving):
+    op, maps, w2, c64, plain, library = llr_inputs(serving)
     T, Y, X = w2.shape
     C = maps.shape[1]
     blocks = SN.blocks_per_sm(Y, X, LN._library())
     print(f"kernel llr_normal: coil_normal_kernel blocks per SM at {Y}x{X}: "
           f"{blocks}")
-    check(blocks >= 2, f"llr coil pass fits {blocks} block(s) per SM")
+    check(blocks >= (1 if serving else 2),
+          f"llr coil pass fits {blocks} block(s) per SM at {Y}x{X}")
     results = {}
-    for S in (1, 2):
+    for S in ((1,) if serving else (1, 2)):
         blk = c64(S, op.num_blocks, op.ne * op.block_size ** 2, T)
         for d_side in ("pre", "post"):
             out = LN.llr_normal(blk, maps, w2, op, d_side)
@@ -1048,7 +1088,7 @@ def kernels_llr_normal():
             max_abs = (out - ref).abs().max().item()
             rel = max_abs / scale
             lib_rel = (lib - ref).abs().max().item() / scale
-            tag = f"{d_side} S={S}"
+            tag = (f"serve {Y}x{X} " if serving else "") + f"{d_side} S={S}"
             check(torch.isfinite(torch.view_as_real(out)).all().item(),
                   f"llr_normal output not finite, {tag}")
             check(torch.equal(out, again),
@@ -1065,7 +1105,7 @@ def kernels_llr_normal():
             launches = coil_launches(
                 lambda: LN.llr_normal(blk, maps, w2, op, d_side))
             bound = _coil_bound(*_llr_work(S, op, C, w2))
-            results[d_side, S] = dict(
+            results[tag] = dict(
                 max_abs_err=max_abs, rel_err=rel, bitwise_equal_calls=True,
                 ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 device_ms_by_launch=launches, blocks_per_sm=blocks, **bound)
@@ -1392,6 +1432,15 @@ def _dslr_launches(cfg):
             "llr_normal_post": (p.NUM_UNROLLS - 1) * per_unroll}
 
 
+def _dslr_pgd_launches(cfg):
+    """Block-LLR normal launches of one dslr-pgd train step, from the code:
+    one operator application per unroll; the first unroll's input L0 R0^H
+    sees no parameter, so every later application runs its adjoint once in
+    the backward."""
+    n = cfg.MODEL.PARAMETERS.NUM_UNROLLS
+    return {"llr_normal_pre": n, "llr_normal_post": n - 1}
+
+
 def _dslr_compare_cpu(batch):
     """One train step and one val_step at DSLR_CUT_UNROLLS unrolls, full
     width, on the card and on the port's CPU path: the same weights and
@@ -1494,6 +1543,134 @@ def phase_dslr():
     _dslr_compare_cpu(batches[0])
     for name, n in _dslr_jacobi(batches[0]).items():
         counts[name]["jacobi val_step"] = n
+    shutil.rmtree(RUNS, ignore_errors=True)
+    return counts
+
+
+class _RNNTrainer(DSLRTrainer):
+    """DSLRTrainer of an `UnrolledLR` with the RNN temporal nets, which no
+    config reaches (as in the JAX package)."""
+
+    def build_model(self, generator):
+        return build_dslr_solver(self.cfg, generator, use_rnn_temporal=True)
+
+
+def _serve_dslr(tag, cfg, exam, expected, out_dir=None):
+    """The first SERVE_SLICES slices of an exam of the quality set served by
+    LRReconstructor on the card (no device given) at ACCEL, one slice per
+    call after a warm-up: launches per slice checked against `expected`, ms
+    per slice (the median of those calls), one slice's device time by
+    group, slice 0 held against the port's CPU path on the same weights.
+    With `out_dir` the slices are also written through `reconstruct_exam`
+    (the H5 front end's body) and the CFL read back. Returns ({counter:
+    launches for the slices}, ms per slice)."""
+    cfg.freeze()
+    name, kspace, maps, _ = exam
+    kspace, maps = kspace[:SERVE_SLICES], maps[:SERVE_SLICES]
+    transform = accel_transform(cfg, ACCEL)
+    batches = list(batched([transform(kspace[s], maps[s])
+                            for s in range(len(kspace))], 1))
+    params = init_params(cfg, SEED)
+    recon = LRReconstructor(cfg, params)
+    check(recon.device.type == "cuda", f"{tag}: LRReconstructor on "
+          f"{recon.device}")
+    recon(batches[0])                             # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    outs, times = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        outs.append(recon(b))                     # returns host arrays
+        times.append(time.perf_counter() - t0)
+    counts = read_counts()
+    for name_, n in counts.items():
+        check(n == expected.get(name_, 0) * len(batches),
+              f"{tag}: {n} {name_} launches for {len(batches)} slices, "
+              f"expected {expected.get(name_, 0)} per slice and nothing "
+              "else")
+    out = np.concatenate(outs)
+    check(out.shape == (len(kspace), *batches[0]["init_image"].shape[1:])
+          and np.isfinite(out).all(), f"{tag}: output {out.shape}")
+    ms = float(np.median(times)) * 1e3
+    T, Y, X = batches[0]["init_image"].shape[2:]
+    print(f"{tag}: {ms:.2f} ms per slice (median of {len(times)} slices of "
+          f"{T}x{Y}x{X}, C={kspace.shape[1]}: "
+          + ", ".join(f"{t * 1e3:.2f}" for t in times)
+          + "), launches per slice "
+          + ", ".join(f"{n // len(batches)} {k}" for k, n in counts.items()
+                      if n))
+    profile_device(f"{tag}: one slice", lambda: recon(batches[0]))
+    p = cfg.MODEL.PARAMETERS
+    t0 = time.perf_counter()
+    decompose_init(batches[0]["init_image"], p.DSLR.BLOCK_SIZE,
+                   p.DSLR.NUM_BASIS, overlapping=p.DSLR.OVERLAPPING)
+    print(f"{tag}: the host's block SVD of one slice (decompose_init, "
+          f"numpy) {(time.perf_counter() - t0) * 1e3:.2f} ms")
+    t0 = time.perf_counter()
+    cpu = LRReconstructor(cfg, params, device="cpu")(batches[0])
+    rel = np.linalg.norm(out[:1] - cpu) / np.linalg.norm(cpu)
+    print(f"{tag}: slice 0 vs the port's CPU path "
+          f"({time.perf_counter() - t0:.1f} s on the CPU): rel L2 {rel:.3e}")
+    check(rel <= CPU_REL_L2_TOL, f"{tag}: GPU vs CPU rel L2 {rel:.3e}")
+    if out_dir is not None:
+        path = reconstruct_exam(name, kspace, maps, str(out_dir), cfg, recon,
+                                ACCEL)
+        back = cfl.read(path, order="F")
+        want = np.transpose(out, (4, 3, 0, 1, 2))[..., None, None, None]
+        check(back.shape == want.shape, f"{tag}: CFL {back.shape} read "
+              f"back, the served slices in scanner order {want.shape}")
+        rel_cfl = np.linalg.norm(back - want) / np.linalg.norm(want)
+        print(f"{tag}: {path} written by reconstruct_exam and read back: "
+              f"{list(back.shape)}, rel L2 {rel_cfl:.3e} against the served "
+              "slices")
+        check(rel_cfl <= CFL_REL_L2_TOL, f"{tag}: CFL rel L2 {rel_cfl:.3e}")
+    return counts, ms
+
+
+def phase_dslr_serve():
+    """DSLR serving at the quality set's served slice (cg-v1 and pgd),
+    dslr-pgd training, and the RNN temporal nets' train step, at
+    config_dslr.yaml's widths."""
+    counts = {name: {} for name in COUNTERS}
+    exam = quality_split("test", 1)[0]
+    shutil.rmtree(RUNS, ignore_errors=True)
+    for tag, cfg, expected, out_dir in (
+            ("dslr serve cg-v1", dslr_cfg(str(RUNS)), _dslr_launches(
+                dslr_cfg())["llr_normal_pre"], RUNS / "serve"),
+            ("dslr serve pgd", dslr_pgd_cfg(str(RUNS)), _dslr_pgd_launches(
+                dslr_pgd_cfg())["llr_normal_pre"], None)):
+        served, _ = _serve_dslr(tag, cfg, exam,
+                                {"llr_normal_pre": expected}, out_dir)
+        for name, n in served.items():
+            counts[name][f"{tag.split()[-1]} served slices"] = n
+
+    # dslr-pgd training through DSLRTrainer, then one step against the CPU
+    cfg = dslr_pgd_cfg(str(RUNS))
+    trainer = DSLRTrainer(cfg)
+    check(trainer.device.type == "cuda", f"DSLRTrainer on {trainer.device}")
+    batches = _train_batches("dslr pgd", cfg, trainer, TRAIN_STEPS + 1)
+    state = trainer.init_state(state_dict=init_params(cfg, SEED))
+    steps = _timed_steps("dslr pgd", trainer, state, batches,
+                         _dslr_pgd_launches(cfg), ("Train/complex_l1",))[0]
+    for name, c in steps.items():
+        counts[name]["pgd train steps"] = c["steps"]
+    cut = _cut(cfg, DSLR_CUT_UNROLLS)
+    _cpu_step_check("dslr pgd", cut, init_params(cut, SEED), batches[0],
+                    DSLRTrainer)
+
+    # the RNN temporal nets (cg-v1), built directly, cut to
+    # DSLR_CUT_UNROLLS unrolls: timed steps, one step against the CPU
+    cut = _cut(dslr_cfg(str(RUNS)), DSLR_CUT_UNROLLS)
+    trainer = _RNNTrainer(cut)
+    params = trainer.build_model(
+        torch.Generator().manual_seed(SEED)).state_dict()
+    state = trainer.init_state(state_dict=params)
+    steps = _timed_steps("dslr rnn", trainer, state, batches[:RNN_STEPS + 1],
+                         _dslr_launches(cut), ("Train/complex_l1",))[0]
+    for name, c in steps.items():
+        counts[name]["rnn train steps"] = c["steps"]
+    _cpu_step_check("dslr rnn", cut, params, batches[0], _RNNTrainer)
+
     shutil.rmtree(RUNS, ignore_errors=True)
     return counts
 
@@ -2494,7 +2671,8 @@ def main():
     kres = timed(phase_kernels)
     counts = {name: timed(phase) for name, phase in (
         ("main", phase_main), ("swin", phase_swin), ("train", phase_train),
-        ("dslr", phase_dslr), ("headline", phase_headline),
+        ("dslr", phase_dslr), ("dslr_serve", phase_dslr_serve),
+        ("headline", phase_headline),
         ("se", phase_se), ("modl", phase_modl), ("gan", phase_gan),
         ("pipeline", phase_pipeline))}
     counts["diffusion"], attention = timed(phase_diffusion)
@@ -2540,8 +2718,7 @@ def main():
         _entry("llr_normal",
                "dl_swin_gan_tpu_torch/kernels/csrc/llr_normal.cu",
                "dl_swin_gan_tpu/kernels/llr_normal.py:282",
-               {f"{side} S={S}": r
-                for (side, S), r in kres["llr_normal"].items()},
+               kres["llr_normal"],
                llr_by_path()),
     ]
     print(json.dumps({"kernels": kernels}))

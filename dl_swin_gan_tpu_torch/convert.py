@@ -32,7 +32,16 @@ The tree of a DSLR `UnrolledLR`:
 
     ResNet2D_{i}/...        -> spatial.{i}...     (the 2D basis nets)
     ResNet1D_{i}/...        -> temporal.{i}...    (the 1D basis nets)
+    RNN_{i}/...             -> temporal.{i}...    (use_rnn_temporal)
     lambda_l, lambda_r [1]  -> lambda_l, lambda_r (the modslr modes)
+
+An RNN (`models/rnn.py`, bidirectional) holds per layer l the forward cell
+`LSTMCell_{2l}` and the backward cell `LSTMCell_{2l+1}`, each with input
+kernels `ii, if, ig, io` [in, H] (no bias) and recurrent Denses `hi, hf,
+hg, ho` {kernel [H, H], bias [H]}, then `Dense_0`. They map to torch's
+`lstm.weight_ih_l{l}[_reverse]` (the four kernels transposed and stacked
+in the gate order i, f, g, o), `weight_hh_l{l}[_reverse]`, `bias_hh_l{l}`
+(the recurrent biases) and a zero `bias_ih_l{l}`, and `dense`.
 
 The tree of a SWIN solver, with S swinblocks:
 
@@ -79,8 +88,9 @@ Dense kernels [in, out] become Linear weights [out, in]; a LayerNorm's
 `scale` becomes its `weight`; the bias table is copied as it is. A key with
 no counterpart raises KeyError.
 
-`torch_to_flax` inverts `flax_to_torch` for the RES, SE and CBAM solvers,
-so the JAX package can serve the port's trained weights.
+`torch_to_flax` inverts `flax_to_torch` for the RES, SE and CBAM solvers
+and the DSLR solver (ResNet or RNN temporal nets), so the JAX package can
+serve the port's trained weights.
 """
 
 from typing import Dict, Mapping
@@ -377,12 +387,42 @@ def _swin_diff(tree: Mapping, prefix: str):
     return out
 
 
+_GATES = ("i", "f", "g", "o")      # torch's LSTM gate order
+
+
+def _rnn(tree: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    """A bidirectional RNN's flax tree -> the torch RNN at `prefix`."""
+    cells = sorted((n for n in tree if n.startswith("LSTMCell_")),
+                   key=_index)
+    if set(tree) != set(cells) | {"Dense_0"} or len(cells) % 2:
+        raise KeyError(f"{prefix}: RNN tree {sorted(tree)}")
+    out = _dense(tree["Dense_0"], f"{prefix}.dense")
+    for name in cells:
+        k = _index(name)
+        cell = _leaf(tree[name], f"{prefix}.{name}",
+                     [f"i{g}" for g in _GATES] + [f"h{g}" for g in _GATES])
+        suffix = f"l{k // 2}" + ("_reverse" if k % 2 else "")
+        lstm = f"{prefix}.lstm"
+        out[f"{lstm}.weight_ih_{suffix}"] = _array(np.concatenate(
+            [np.asarray(_leaf(cell[f"i{g}"], lstm, ("kernel",))["kernel"]).T
+             for g in _GATES]))
+        hs = [_leaf(cell[f"h{g}"], lstm, ("kernel", "bias")) for g in _GATES]
+        out[f"{lstm}.weight_hh_{suffix}"] = _array(np.concatenate(
+            [np.asarray(h["kernel"]).T for h in hs]))
+        out[f"{lstm}.bias_hh_{suffix}"] = _array(np.concatenate(
+            [np.asarray(h["bias"]) for h in hs]))
+        out[f"{lstm}.bias_ih_{suffix}"] = torch.zeros_like(
+            out[f"{lstm}.bias_hh_{suffix}"])
+    return out
+
+
 # flax submodule name prefix -> (converter, torch module list)
 _DENOISERS = {"ResNet3D_": (_resnet, "nets"), "SEResNet3D_": (_resnet, "nets"),
               "CBAMResNet3D_": (_resnet, "nets"),
               "SwinNet3D_": (_swinnet, "nets"),
               "ResNet2D_": (_resnet, "spatial"),
-              "ResNet1D_": (_resnet, "temporal")}
+              "ResNet1D_": (_resnet, "temporal"),
+              "RNN_": (_rnn, "temporal")}
 # the diffusion solver's nets: numbered by their rank in index order
 _DIFFUSION = {"DiTResNet_": _dit_resnet, "LatteNet_": _latte_net,
               "SwinDiffNet_": _swin_diff}
@@ -462,43 +502,104 @@ def _flax_dense(state: Mapping, prefix: str) -> dict:
             "bias": _np(state[f"{prefix}.bias"])}
 
 
+def _flax_resnet(state: Mapping, p: str, consumed) -> dict:
+    """The torch ResNet at `p` -> its flax tree (ConvBlock_0 / _1 and the
+    GatedResBlocks with their gates)."""
+    net = {"ConvBlock_0": _flax_conv_block(state, f"{p}.head"),
+           "ConvBlock_1": _flax_conv_block(state, f"{p}.tail")}
+    consumed(f"{p}.head")
+    consumed(f"{p}.tail")
+    blocks = sorted({int(k[len(p):].split(".")[2]) for k in state
+                     if k.startswith(f"{p}.blocks.")})
+    for j in blocks:
+        b = f"{p}.blocks.{j}"
+        block = {f"ConvBlock_{c}": _flax_conv_block(state, f"{b}.conv{c}")
+                 for c in (0, 1)}
+        consumed(f"{b}.conv0")
+        consumed(f"{b}.conv1")
+        if f"{b}.channel_gate.fc1.weight" in state:
+            block["ChannelGate_0"] = {
+                "Dense_0": _flax_dense(state, f"{b}.channel_gate.fc1"),
+                "Dense_1": _flax_dense(state, f"{b}.channel_gate.fc2")}
+            consumed(f"{b}.channel_gate")
+        if any(k.startswith(f"{b}.spatial_gate.") for k in state):
+            block["SpatialGate_0"] = _flax_conv(
+                state, f"{b}.spatial_gate.conv")
+            consumed(f"{b}.spatial_gate")
+        net[f"GatedResBlock_{j}"] = block
+    return net
+
+
+def _flax_rnn(state: Mapping, p: str, used: set) -> dict:
+    """The torch RNN at `p` -> its flax tree (the inverse of `_rnn`; an
+    input-side bias is added to the recurrent one, which is exact for the
+    zero bias_ih the port draws and converts); the keys read go to
+    `used`."""
+    tree = {"Dense_0": _flax_dense(state, f"{p}.dense")}
+    used.update((f"{p}.dense.weight", f"{p}.dense.bias"))
+    lstm = f"{p}.lstm"
+    head = f"{lstm}.weight_ih_l"
+    layers = sorted({int(k[len(head):].split("_")[0]) for k in state
+                     if k.startswith(head)})
+    for layer in layers:
+        for rev, suffix in enumerate((f"l{layer}", f"l{layer}_reverse")):
+            keys = [f"{lstm}.{w}_{suffix}" for w in
+                    ("weight_ih", "weight_hh", "bias_hh", "bias_ih")]
+            w_ih, w_hh, b_hh, b_ih = (_np(state[k]) for k in keys)
+            used.update(keys)
+            H = w_hh.shape[1]
+            cell = {}
+            for g, gate in enumerate(_GATES):
+                rows = slice(g * H, (g + 1) * H)
+                cell[f"i{gate}"] = {"kernel": w_ih[rows].T.copy()}
+                cell[f"h{gate}"] = {"kernel": w_hh[rows].T.copy(),
+                                    "bias": (b_hh + b_ih)[rows].copy()}
+            tree[f"LSTMCell_{2 * layer + rev}"] = cell
+    return tree
+
+
+def rnn_torch_to_flax(state: Mapping[str, torch.Tensor]) -> dict:
+    """A torch `RNN`'s state_dict (bidirectional) -> the flax RNN's
+    params."""
+    wrapped = {f"rnn.{k}": v for k, v in state.items()}
+    return _flax_rnn(wrapped, "rnn", set())
+
+
+def rnn_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The flax RNN's params -> a torch `RNN`'s state_dict."""
+    return {k[len("rnn."):]: v for k, v in _rnn(params, "rnn").items()}
+
+
 def torch_to_flax(state: Mapping[str, torch.Tensor],
                   model_type: str) -> dict:
     """The inverse of `flax_to_torch` for an `UnrolledSolver` with a RES,
-    SE or CBAM trunk (MODEL_TYPE `model_type`): the port's state_dict ->
-    the JAX package's param tree. Every key of `state` must be consumed;
-    one with no flax counterpart raises KeyError."""
-    root = _RESNET_ROOTS[model_type.upper()]
+    SE or CBAM trunk (MODEL_TYPE `model_type`), or for a DSLR `UnrolledLR`
+    (its `spatial` and `temporal` nets; model_type is then not read): the
+    port's state_dict -> the JAX package's param tree. Every key of
+    `state` must be consumed; one with no flax counterpart raises
+    KeyError."""
     tree, used = {}, set()
     consumed = lambda prefix: used.update(   # noqa: E731
         k for k in state if k.startswith(prefix + "."))
-    nets = sorted({int(k.split(".")[1]) for k in state
-                   if k.startswith("nets.")})
-    for i in nets:
-        p = f"nets.{i}"
-        net = {"ConvBlock_0": _flax_conv_block(state, f"{p}.head"),
-               "ConvBlock_1": _flax_conv_block(state, f"{p}.tail")}
-        consumed(f"{p}.head")
-        consumed(f"{p}.tail")
-        blocks = sorted({int(k.split(".")[3]) for k in state
-                         if k.startswith(f"{p}.blocks.")})
-        for j in blocks:
-            b = f"{p}.blocks.{j}"
-            block = {f"ConvBlock_{c}": _flax_conv_block(state, f"{b}.conv{c}")
-                     for c in (0, 1)}
-            consumed(f"{b}.conv0")
-            consumed(f"{b}.conv1")
-            if f"{b}.channel_gate.fc1.weight" in state:
-                block["ChannelGate_0"] = {
-                    "Dense_0": _flax_dense(state, f"{b}.channel_gate.fc1"),
-                    "Dense_1": _flax_dense(state, f"{b}.channel_gate.fc2")}
-                consumed(f"{b}.channel_gate")
-            if any(k.startswith(f"{b}.spatial_gate.") for k in state):
-                block["SpatialGate_0"] = _flax_conv(
-                    state, f"{b}.spatial_gate.conv")
-                consumed(f"{b}.spatial_gate")
-            net[f"GatedResBlock_{j}"] = block
-        tree[f"{root}{i}"] = net
+
+    def indices(module):
+        return sorted({int(k.split(".")[1]) for k in state
+                       if k.startswith(module + ".")})
+
+    if any(k.startswith("spatial.") for k in state):
+        for i in indices("spatial"):
+            tree[f"ResNet2D_{i}"] = _flax_resnet(state, f"spatial.{i}",
+                                                 consumed)
+        for i in indices("temporal"):
+            p = f"temporal.{i}"
+            if f"{p}.dense.weight" in state:
+                tree[f"RNN_{i}"] = _flax_rnn(state, p, used)
+            else:
+                tree[f"ResNet1D_{i}"] = _flax_resnet(state, p, consumed)
+    else:
+        root = _RESNET_ROOTS[model_type.upper()]
+        for i in indices("nets"):
+            tree[f"{root}{i}"] = _flax_resnet(state, f"nets.{i}", consumed)
     for name in _SCALARS:
         if name in state:
             tree[name] = _np(state[name]).reshape(1)

@@ -19,8 +19,11 @@ the physics runs on the device instead:
 
 The host draws follow `CinePreprocess._augment` and `subsample` call for
 call, so seeded (validation) masks, crops and flips are bit-identical to the
-host path and to the JAX pipeline. Torch moves complex tensors as they are,
-so there is no packing step.
+host path and to the JAX pipeline. Training draws are unseeded, as in the
+JAX package, unless a `draw_seed` N is given: then the k-th draw of the
+pipeline (its crop, flips and VDkt mask) is seeded from (N, k), so a run
+can be repeated (`scripts/quality_row.py --draw-seed`). Torch moves
+complex tensors as they are, so there is no packing step.
 """
 
 import glob
@@ -78,10 +81,13 @@ class DevicePipeline:
     there."""
 
     def __init__(self, cfg, use_seed: bool = False, diffusion: bool = False,
-                 lr_decom: bool = False, device=None):
+                 lr_decom: bool = False, device=None,
+                 draw_seed: Optional[int] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.use_seed = use_seed
+        self.draw_seed = draw_seed
+        self.draws = 0
         self.diffusion = diffusion
         self.lr_decom = lr_decom
         self.rng = np.random.RandomState()
@@ -108,6 +114,9 @@ class DevicePipeline:
         """Crop starts, flips and the VDkt mask of one step; raw_shape is
         the raw (uncropped) k-space's [C, T, Y, X]."""
         seed = None if not self.use_seed else tuple(map(ord, fname))
+        if seed is None and self.draw_seed is not None:
+            seed = (self.draw_seed, self.draws)
+            self.draws += 1
         self.rng.seed(seed)
         _, T, Y, X = raw_shape
 
@@ -214,9 +223,10 @@ class DevicePipelineLoader:
 
     def __init__(self, root_directory: Optional[str], cfg, seed: int,
                  lr_decom: bool = False, sample_rate: float = 1.0,
-                 files=None, device=None, diffusion: bool = False):
+                 files=None, device=None, diffusion: bool = False,
+                 draw_seed: Optional[int] = None):
         self.pipe = DevicePipeline(cfg, lr_decom=lr_decom, device=device,
-                                   diffusion=diffusion)
+                                   diffusion=diffusion, draw_seed=draw_seed)
         self.seed = seed
         self._epoch = 0
         self._raw: List[Dict[str, torch.Tensor]] = []

@@ -16,6 +16,8 @@ bit-identical in both packages:
      L_init/R_init from a truncated SVD of the init image's blocks
 """
 
+from typing import Optional
+
 import numpy as np
 
 from dl_swin_gan_tpu_torch.data import host_ops as H
@@ -33,9 +35,14 @@ class CinePreprocess:
     """
 
     def __init__(self, config, aug_node=None, lr_decom: bool = False,
-                 use_seed: bool = False):
+                 use_seed: bool = False, draw_seed: Optional[int] = None):
         self.config = config
         self.use_seed = use_seed
+        # unseeded training draws, as in the JAX package, unless a draw
+        # seed N is given: then the k-th call's crop, flips and mask are
+        # seeded from (N, k) (one producer thread calls in order)
+        self.draw_seed = draw_seed
+        self.draws = 0
         self.rng = np.random.RandomState()
         aug = aug_node if aug_node is not None else config.AUG_TRAIN
         self.aug = aug
@@ -97,6 +104,9 @@ class CinePreprocess:
     # -- main ----------------------------------------------------------------
     def __call__(self, kspace, maps, target, fname: str) -> dict:
         seed = None if not self.use_seed else tuple(map(ord, fname))
+        if seed is None and self.draw_seed is not None:
+            seed = (self.draw_seed, self.draws)
+            self.draws += 1
 
         kspace = np.asarray(kspace)[None]   # [1, C, T, Y, X]
         maps = np.asarray(maps)[None]       # [1, E, C, 1, Y, X]

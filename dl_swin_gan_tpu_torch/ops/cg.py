@@ -7,9 +7,9 @@ iteration, as the reference backpropagates through its unrolled CG. The
 scalars alpha and beta stay 0-d tensors on the device: nothing in the loop
 waits for the host.
 
-`power_method` (the step sizes of `dslr-pgd`) is not ported: the JAX
-package draws its start vector from `jax.random.PRNGKey(0)`, which the port
-cannot reproduce (ROADMAP.md Queue 1 item 11).
+`power_method` gives `dslr-pgd` its step sizes. Its start vector is the
+caller's: the solver passes JAX's `uniform(PRNGKey(0), (b, n, 1))`, drawn
+bit for bit by `ops/threefry.py`.
 """
 
 from typing import Callable
@@ -69,3 +69,19 @@ def paired_conjugate_gradient(A2: Callable, x0a: torch.Tensor,
         pb = (rsb_new / rsb) * pb + rb
         rsa, rsb = rsa_new, rsb_new
     return xa, xb
+
+
+def power_method(A: torch.Tensor, num_iter: int, v0: torch.Tensor,
+                 eps: float = 1e-6) -> torch.Tensor:
+    """Largest singular value of each matrix in a batch A [B, m, n], from
+    the start vectors v0 [B, n, 1]: `num_iter` steps of v <- A^H A v,
+    ev = ||v|| per matrix, v <- v / (ev + eps). Returns ev [B] (zeros when
+    num_iter is 0). Differentiable, as the JAX package's fori_loop is under
+    jax.grad."""
+    AhA = torch.einsum("bmn,bmk->bnk", A.conj(), A)
+    v, ev = v0, torch.zeros(A.shape[0], 1, 1, device=A.device)
+    for _ in range(num_iter):
+        v = torch.einsum("bnk,bkl->bnl", AhA, v)
+        ev = torch.sqrt(torch.sum(v.abs() ** 2, dim=1, keepdim=True))
+        v = v / (ev + eps)
+    return ev.reshape(A.shape[0])

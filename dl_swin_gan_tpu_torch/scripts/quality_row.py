@@ -3,18 +3,24 @@ re-undersampling at the parity seed, SSIM/RMSE/PSNR against the
 fully-sampled adjoint) over the held-out exams of the quality set.
 
 Counterpart of `scripts/quality_row.py` beside the JAX package (kinds
-`unrolled`, `diffusion` and `zerofilled`). It takes the quality set's test split in
-memory (`data.synthetic.quality_split`, the files
+`unrolled`, `diffusion`, `dslr` and `zerofilled`). It takes the quality
+set's test split in memory (`data.synthetic.quality_split`, the files
 `datasets/make_quality_set.sh` writes), so it needs neither h5py nor
 pyyaml: the config is `utils.headline.quality_cfg(--dtype, --model)`
 (`configs/quality/resnet.yaml` or `resnet_bf16.yaml`; `se.yaml`,
 `cbam.yaml`, `swin.yaml` or `swingan.yaml` with --model se, cbam, swin or
 swingan; `latte2.yaml` or `dit.yaml` with --kind diffusion and --model
-latte2 or dit) with KEY VALUE overrides. Training batches are built on the
-device (DATALOADER.DEVICE_PIPELINE, as the YAMLs set it); swingan trains
-through GANTrainer, the diffusion rows through DiffusionTrainer, and those
-are scored by conditional sampling (`--sample-steps`, 100 by default, from
-the raw weights unless --use-ema). Under --out it writes `<exam>_1accel.im` and
+latte2 or dit; `dslr.yaml`, or `dslr_fast.yaml` with --model dslr_fast,
+with --kind dslr) with KEY VALUE overrides. Training batches are built on
+the device (DATALOADER.DEVICE_PIPELINE, as the YAMLs set it); swingan
+trains through GANTrainer, the diffusion rows through DiffusionTrainer, and
+those are scored by conditional sampling (`--sample-steps`, 100 by default,
+from the raw weights unless --use-ema); the DSLR rows train through
+DSLRTrainer (L0 and R0 from the block SVD on the device) and are scored by
+LRReconstructor (`scripts/reconstruct_lr.py`'s steps). `--draw-seed N`
+seeds the training loader's crops, flips and masks from (N, k) for its
+k-th example, so that a row can be repeated; without it they are unseeded,
+as in the JAX package. Under --out it writes `<exam>_1accel.im` and
 `<exam>_<R>accel.im` CFLs and `eval_<R>accel.csv` (scripts/evaluate.py).
 
     # train the row's network first (the config's 40 epochs on the train
@@ -32,6 +38,10 @@ the raw weights unless --use-ema). Under --out it writes `<exam>_1accel.im` and
     python -m dl_swin_gan_tpu_torch.scripts.quality_row --kind diffusion \\
         --model latte2 --train --max-epochs 250 --batch-size 4 \\
         --out runs/torch_quality/latte2
+    # the DSLR row: 157 epochs of the 32 training slices, the JAX row's 5k
+    # steps
+    python -m dl_swin_gan_tpu_torch.scripts.quality_row --kind dslr \
+        --train --max-epochs 157 --out runs/torch_quality/dslr
     # score a checkpoint of the port's trainer
     python -m dl_swin_gan_tpu_torch.scripts.quality_row --kind unrolled \\
         --ckpt runs/x/checkpoints --out runs/x/recon
@@ -48,8 +58,7 @@ import time
 
 from dl_swin_gan_tpu_torch.data.synthetic import quality_split
 from dl_swin_gan_tpu_torch.infer.reconstruct import (
-    accel_tag, accel_transform, load_checkpoint_params, make_reconstructor,
-    reconstruct_examples, write_image_cfl,
+    accel_tag, load_checkpoint_params, make_reconstructor, reconstruct_exam,
 )
 from dl_swin_gan_tpu_torch.scripts.evaluate import main as evaluate_main
 from dl_swin_gan_tpu_torch.utils.device import resolve_device
@@ -73,7 +82,7 @@ def train(cfg, args, device):
     """Fit cfg on the in-memory train and validate splits; returns the
     checkpoint directory and the final step."""
     from dl_swin_gan_tpu_torch.train import (
-        DiffusionTrainer, GANTrainer, Trainer,
+        DiffusionTrainer, DSLRTrainer, GANTrainer, Trainer,
     )
 
     cut = _cut(args)
@@ -82,12 +91,13 @@ def train(cfg, args, device):
     val_files = quality_split("validate", args.files, **cut)
     logger.info("quality set: %d train and %d validate files in %.1f s",
                 len(train_files), len(val_files), time.perf_counter() - t0)
+    kw = dict(device=device, draw_seed=args.draw_seed)
     if args.kind == "diffusion":
-        trainer = DiffusionTrainer(cfg, device=device,
-                                   sample_steps=args.sample_steps)
+        trainer = DiffusionTrainer(cfg, sample_steps=args.sample_steps, **kw)
+    elif args.kind == "dslr":
+        trainer = DSLRTrainer(cfg, **kw)
     else:
-        trainer = (GANTrainer if args.model == "swingan" else Trainer)(
-            cfg, device=device)
+        trainer = (GANTrainer if args.model == "swingan" else Trainer)(cfg, **kw)
     state = trainer.fit(max_epochs=args.max_epochs, train_data=train_files,
                         val_data=val_files)
     return os.path.join(cfg.OUTPUT_DIR, "checkpoints"), state.step
@@ -96,18 +106,21 @@ def train(cfg, args, device):
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--kind", required=True,
-                        choices=["unrolled", "diffusion", "zerofilled"])
+                        choices=["unrolled", "diffusion", "dslr",
+                                 "zerofilled"])
     parser.add_argument("--dtype", default="float32",
                         choices=["float32", "bfloat16"],
                         help="CONV_BLOCK.DTYPE (bfloat16: resnet_bf16.yaml, "
                              "dit_bf16.yaml, or the model's YAML with a bf16 "
                              "trunk)")
-    parser.add_argument("--model", default="res",
+    parser.add_argument("--model", default=None,
                         choices=["res", "se", "cbam", "swin", "swingan",
-                                 "latte2", "dit"],
-                        help="the network: resnet.yaml, se.yaml, cbam.yaml, "
-                             "swin.yaml or swingan.yaml; latte2.yaml or "
-                             "dit.yaml (--kind diffusion)")
+                                 "latte2", "dit", "dslr", "dslr_fast"],
+                        help="the network: resnet.yaml (the default), "
+                             "se.yaml, cbam.yaml, swin.yaml or swingan.yaml; "
+                             "latte2.yaml or dit.yaml (--kind diffusion); "
+                             "dslr.yaml (the default of --kind dslr) or "
+                             "dslr_fast.yaml")
     parser.add_argument("--train", action="store_true",
                         help="train the network first (kind unrolled)")
     parser.add_argument("--ckpt", default=None,
@@ -123,6 +136,9 @@ def main(argv=None):
                         help="score the checkpoint's EMA weights")
     parser.add_argument("--max-epochs", type=int, default=None,
                         help="training epochs (default OPTIMIZER.MAX_EPOCHS)")
+    parser.add_argument("--draw-seed", type=int, default=None,
+                        help="seed the training draws (crops, flips, masks) "
+                             "from (N, k); unseeded when not given")
     parser.add_argument("--device", default=None,
                         help="torch device; the GPU when not given")
     parser.add_argument("--files", type=int, default=None,
@@ -133,9 +149,11 @@ def main(argv=None):
                         help="T,Y,X,C of each slice (default 18,156,96,8)")
     parser.add_argument("opts", nargs="*", help="KEY VALUE config overrides")
     args = parser.parse_args(argv)
-    diffusion_model = args.model in ("latte2", "dit")
-    if args.kind != "zerofilled" and \
-            (args.kind == "diffusion") != diffusion_model:
+    if args.model is None:
+        args.model = "dslr" if args.kind == "dslr" else "res"
+    family = {"latte2": "diffusion", "dit": "diffusion", "dslr": "dslr",
+              "dslr_fast": "dslr"}.get(args.model, "unrolled")
+    if args.kind != "zerofilled" and args.kind != family:
         parser.error(f"--kind {args.kind} does not go with --model "
                      f"{args.model}")
     if args.kind != "zerofilled" and not (args.ckpt or args.train):
@@ -147,7 +165,7 @@ def main(argv=None):
     out = args.out or os.path.join(
         "runs", "torch_quality",
         args.kind + ("" if args.kind == "zerofilled" else
-                     "_" + args.dtype if args.model == "res" else
+                     "_" + args.dtype if args.model in ("res", "dslr") else
                      f"_{args.model}_{args.dtype}"))
     cfg = quality_cfg(args.dtype, args.model)
     cfg.OUTPUT_DIR = os.path.join(out, "train")
@@ -170,15 +188,11 @@ def main(argv=None):
     exams = quality_split("test", args.files, **_cut(args))
     logger.info("quality set: %d test files in %.1f s", len(exams),
                 time.perf_counter() - t0)
-    reference, resample = accel_transform(cfg, 1), accel_transform(cfg, accel)
     for name, kspace, maps, _ in exams:
         # the fully-sampled adjoint reference, then the row at R
-        for a, transform, rc in ((1, reference, None), (accel, resample, recon)):
-            examples = [transform(kspace[s], maps[s])
-                        for s in range(len(kspace))]
-            images = reconstruct_examples(examples, rc, args.batch_size)
-            write_image_cfl(os.path.join(out, f"{name}_{accel_tag(a)}accel.im"),
-                            images)
+        for a, rc in ((1, None), (accel, recon)):
+            reconstruct_exam(name, kspace, maps, out, cfg, rc, a,
+                             args.batch_size)
         logger.info("%s: %d slices written at 1x and %sx", name, len(kspace),
                     tag)
     return evaluate_main(["--recon-directory", out, "--acceleration",

@@ -4,6 +4,10 @@
 Counterpart of `solvers/dslr.py` in the JAX package (the reference's
 `dl_cs/models/dslr.py`). Modes:
 
+  dslr-pgd        gradient steps on L and R, step sizes -0.9 / the largest
+                  singular value of the other factor (10 power-method
+                  steps from JAX's uniform(PRNGKey(0)) start vector, drawn
+                  by `ops/threefry.py`), then the CNN updates
   dslr-cg-v1      CG on each factor's normal equations, L and R data
                   consistency both before the CNN updates
   dslr-cg-v2      interleaved: L-DC, L-CNN, R-DC, R-CNN (the real CGv2; the
@@ -16,30 +20,42 @@ Counterpart of `solvers/dslr.py` in the JAX package (the reference's
   modslr-v2       carries (L, zL, R, zR), lambdas 1e2 * clamp(lam, 0), and
                   composes the image from (zL, zR)
 
-`dslr-pgd` raises: its step sizes come from a power method whose start
-vector the JAX package draws from `jax.random.PRNGKey(0)`, which the port
-cannot reproduce (ROADMAP.md Queue 1 item 11).
-
 Shapes: L [N, e*b^2, r], R [N, t, r]. The spatial CNN is a 2D ResNet on
 [N, r*e, b, b] (channels (r, e), r-major), the temporal CNN a 1D ResNet on
-[N, r, t]. Every application of block_op(A.normal(compose(.))) goes
-through the block-LLR normal kernel (`kernels/llr_normal.py`): on a CUDA
-device there is no other route.
+[N, r, t], or with `use_rnn_temporal` a bidirectional LSTM over t on
+[N, t, r] (`models/rnn.py`, hidden width NUM_FEATURES). No config sets
+`use_rnn_temporal`: as in the JAX package, `build_dslr_solver` leaves it
+off and only a directly built `UnrolledLR` reaches it. Every application
+of block_op(A.normal(compose(.))) goes through the block-LLR normal kernel
+(`kernels/llr_normal.py`): on a CUDA device there is no other route.
 """
 
+import functools
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from dl_swin_gan_tpu_torch.kernels.llr_normal import make_fused_block_normal
 from dl_swin_gan_tpu_torch.models.resnet import ResNet1D, ResNet2D
+from dl_swin_gan_tpu_torch.models.rnn import RNN
+from dl_swin_gan_tpu_torch.ops import threefry
 from dl_swin_gan_tpu_torch.ops.cg import (
-    conjugate_gradient, paired_conjugate_gradient,
+    conjugate_gradient, paired_conjugate_gradient, power_method,
 )
 from dl_swin_gan_tpu_torch.ops.llr import BlockOp, btranspose, compose
 from dl_swin_gan_tpu_torch.ops.sense import SenseOp
+
+
+@functools.lru_cache(maxsize=8)
+def _pm_start(n: int, r: int) -> np.ndarray:
+    """The power method's start vectors [n, r, 1]: float32
+    `jax.random.uniform(jax.random.PRNGKey(0), (n, r, 1))`, the JAX
+    package's fixed key."""
+    return threefry.uniform(0, (n, r, 1))
+
 
 DSLR_MODES = ("dslr-pgd", "dslr-cg-v1", "dslr-cg-v2", "dslr-cg-jacobi",
               "modslr-v1", "modslr-v2")
@@ -60,13 +76,9 @@ class UnrolledLR(nn.Module):
                  block_size: int = 16, use_complex_layers: bool = True,
                  circular_pad: bool = True, share_weights: bool = False,
                  fix_step_size: bool = False, num_cg_steps: int = 10,
-                 remat: bool = False,
+                 remat: bool = False, use_rnn_temporal: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if mode == "dslr-pgd":
-            raise NotImplementedError(
-                "META_ARCHITECTURE dslr-pgd is not ported to the torch package "
-                "yet: ROADMAP.md Queue 1 item 11 (power_method's start vector)")
         if mode not in DSLR_MODES:
             raise ValueError(f"Unknown DSLR mode: {mode}")
         self.mode = mode
@@ -85,9 +97,15 @@ class UnrolledLR(nn.Module):
         self.spatial = nn.ModuleList(
             ResNet2D(num_emaps=num_basis * num_emaps, circular_pad=False,
                      **common) for _ in range(n_nets))
-        self.temporal = nn.ModuleList(
-            ResNet1D(num_emaps=num_basis, circular_pad=circular_pad, **common)
-            for _ in range(n_nets))
+        if use_rnn_temporal:
+            self.temporal = nn.ModuleList(
+                RNN(num_basis, hidden_size=num_features, generator=generator)
+                for _ in range(n_nets))
+        else:
+            self.temporal = nn.ModuleList(
+                ResNet1D(num_emaps=num_basis, circular_pad=circular_pad,
+                         **common) for _ in range(n_nets))
+        self.use_rnn_temporal = use_rnn_temporal
         if mode.startswith("modslr"):
             # v1 uses the lambdas as they are, from (1.0, 2.0); v2 starts both
             # at 5e-3 and applies 1e2 * clamp(lambda, 0), a learning-rate trick
@@ -109,9 +127,22 @@ class UnrolledLR(nn.Module):
         return h.reshape(n, r, eb2).transpose(1, 2)
 
     def _cnn_R(self, i: int, R: torch.Tensor) -> torch.Tensor:
-        h = self._run(self.temporal[0 if self.share_weights else i],
-                      R.transpose(1, 2))                    # [N, r, t]
-        return h.transpose(1, 2)
+        net = self.temporal[0 if self.share_weights else i]
+        if self.use_rnn_temporal:
+            return self._run(net, R)                        # over t
+        return self._run(net, R.transpose(1, 2)).transpose(1, 2)  # [N, r, t]
+
+    @staticmethod
+    def _step_sizes(L: torch.Tensor, R: torch.Tensor, alpha: float = 0.9):
+        """pgd's steps for L and R: -alpha over the largest singular value
+        of R and of L, 10 power-method steps each from one start vector,
+        JAX's uniform(PRNGKey(0), (N, r, 1)) (both factors have r
+        columns)."""
+        v0 = torch.from_numpy(_pm_start(R.shape[0], R.shape[2])).to(
+            device=R.device, dtype=R.dtype)
+        eL = power_method(R, 10, v0)
+        eR = power_method(L, 10, v0)
+        return -alpha / eL.max(), -alpha / eR.max()
 
     # -- the alternating minimisation ----------------------------------------
     def forward(self, y, maps, mask, L0, R0, block_op: BlockOp):
@@ -127,6 +158,20 @@ class UnrolledLR(nn.Module):
             return btranspose(fused(L_fixed @ btranspose(R))) @ L_fixed
 
         L, R = L0, R0
+        if self.mode == "dslr-pgd":
+            for i in range(self.num_unrolls):
+                # extract is linear: block_op(N(compose) - ATy) is
+                # fused(L R^H) - block_op(ATy)
+                grad_x = fused(L @ btranspose(R)) - ATy_b
+                grad_L = grad_x @ R
+                grad_R = btranspose(grad_x) @ L
+                sL, sR = self._step_sizes(L, R)
+                L = L + sL * grad_L
+                R = R + sR * grad_R
+                L = self._cnn_L(i, L)
+                R = self._cnn_R(i, R)
+            return compose(L, R, block_op)
+
         if self.mode in ("dslr-cg-v1", "dslr-cg-v2"):
             for i in range(self.num_unrolls):
                 L = conjugate_gradient(lambda v: normal_L(v, R), L,
@@ -192,10 +237,12 @@ class UnrolledLR(nn.Module):
         return compose(zL, zR, block_op)
 
 
-def build_dslr_solver(cfg, generator: Optional[torch.Generator] = None
-                      ) -> UnrolledLR:
+def build_dslr_solver(cfg, generator: Optional[torch.Generator] = None,
+                      use_rnn_temporal: bool = False) -> UnrolledLR:
     """The DSLR solver META_ARCHITECTURE names; `generator` seeds its
-    weights (torch-default init)."""
+    weights (torch-default init). No config key sets `use_rnn_temporal`,
+    as in the JAX package; only a caller that asks for it gets the RNN
+    temporal nets."""
     p = cfg.MODEL.PARAMETERS
     meta = cfg.MODEL.META_ARCHITECTURE.lower()
     if meta not in DSLR_MODES:
@@ -215,5 +262,6 @@ def build_dslr_solver(cfg, generator: Optional[torch.Generator] = None
         fix_step_size=p.FIX_STEP_SIZE,
         num_cg_steps=p.DSLR.NUM_CG_STEPS,
         remat=p.GRAD_CHECKPOINT,
+        use_rnn_temporal=use_rnn_temporal,
         generator=generator,
     )

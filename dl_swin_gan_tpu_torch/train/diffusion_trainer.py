@@ -57,9 +57,9 @@ class DiffusionTrainer(Trainer):
                   "target")
 
     def __init__(self, cfg, device=None, ema_decay: float = 0.9999,
-                 sample_steps: int = 100):
+                 sample_steps: int = 100, draw_seed: Optional[int] = None):
         super().__init__(cfg, device=device, use_ema=True,
-                         ema_decay=ema_decay)
+                         ema_decay=ema_decay, draw_seed=draw_seed)
         p = cfg.MODEL.PARAMETERS
         self.meta = cfg.MODEL.META_ARCHITECTURE.lower()
         predict_xstart = self.meta != "ddpm_e"

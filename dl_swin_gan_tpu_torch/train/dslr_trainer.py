@@ -35,9 +35,9 @@ class DSLRTrainer(Trainer):
         # L_init/R_init from the truncated block SVD on the device
         return {"lr_decom": True}
 
-    def make_preprocess(self, aug_node=None, use_seed=False):
+    def make_preprocess(self, aug_node=None, use_seed=False, draw_seed=None):
         return CinePreprocess(self.cfg, aug_node=aug_node, use_seed=use_seed,
-                              lr_decom=True)
+                              lr_decom=True, draw_seed=draw_seed)
 
     def _apply(self, model, b):
         target = b["target"]

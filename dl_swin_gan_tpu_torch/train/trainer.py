@@ -88,7 +88,7 @@ class Trainer:
     batch_keys = ("kspace", "maps", "mask", "init_image", "scale", "target")
 
     def __init__(self, cfg, device=None, use_ema: bool = False,
-                 ema_decay: float = 0.9999):
+                 ema_decay: float = 0.9999, draw_seed: Optional[int] = None):
         if str(cfg.MODEL.STRATEGY).lower() == "fsdp":
             raise NotImplementedError(
                 "MODEL.STRATEGY fsdp is not ported to the torch package yet: "
@@ -99,6 +99,10 @@ class Trainer:
             use_ieee_fp32()
         self.use_ema = use_ema
         self.ema_decay = ema_decay
+        # seeds the training loader's host draws (crops, flips, masks) from
+        # (draw_seed, k) for its k-th example when set; None keeps them
+        # unseeded, as in the JAX package (a harness hook, not a config key)
+        self.draw_seed = draw_seed
         self.loss_name = cfg.MODEL.RECON_LOSS.NAME
         self.perceptual = None
         if "vggloss" in self.loss_name:
@@ -118,8 +122,9 @@ class Trainer:
         self.steps_per_epoch = max(1, n)
         self.lr_schedule = make_lr_schedule(self.cfg, self.steps_per_epoch)
 
-    def make_preprocess(self, aug_node=None, use_seed=False):
-        return CinePreprocess(self.cfg, aug_node=aug_node, use_seed=use_seed)
+    def make_preprocess(self, aug_node=None, use_seed=False, draw_seed=None):
+        return CinePreprocess(self.cfg, aug_node=aug_node, use_seed=use_seed,
+                              draw_seed=draw_seed)
 
     def build_model(self, generator: torch.Generator) -> torch.nn.Module:
         """The solver the trainer trains, its weights drawn from
@@ -319,10 +324,11 @@ class Trainer:
             return DevicePipelineLoader(
                 train_dir, cfg, seed=cfg.SEED, sample_rate=dl.SUBSAMPLE,
                 files=train_data, device=self.device,
-                **self._device_pipeline_kwargs())
+                draw_seed=self.draw_seed, **self._device_pipeline_kwargs())
         return DataLoader(
             self._dataset(train_dir, train_data,
-                          self.make_preprocess(use_seed=False),
+                          self.make_preprocess(use_seed=False,
+                                               draw_seed=self.draw_seed),
                           sample_rate=dl.SUBSAMPLE),
             batch_size=dl.TRAIN_BATCH_SIZE, num_workers=dl.NUM_WORKERS,
             prefetch=dl.PREFETCH, shuffle=True, seed=cfg.SEED)

@@ -24,13 +24,17 @@ PatchGAN discriminator (64 features, 3 strided layers, its own Adam at 2e-4)
 and an adversarial weight of 0.01; `chip_smoke.py` trains it through
 GANTrainer.
 
+`dslr_pgd_cfg`: config_dslr.yaml with META_ARCHITECTURE dslr-pgd (no
+YAML); `chip_smoke.py` serves and trains it.
+
 `configs/quality/resnet.yaml` and `resnet_bf16.yaml`: the example config's
 network (f32, or with a bfloat16 conv trunk) trained on the synthetic quality
 set (18x156x96 slices, `data/synthetic.quality_split`) for 40 epochs and
 scored at 12x; `configs/quality/se.yaml` and `cbam.yaml` the gated trunks
 (1 resblock x 96 features), `swin.yaml` the unrolled Swin (3 unrolls x 1
 swinblock x 96 features) and `swingan.yaml` the same generator with a
-32-feature PatchGAN discriminator, on the same set; `scripts/quality_row.py`
+32-feature PatchGAN discriminator, `dslr.yaml` and `dslr_fast.yaml`
+config_dslr.yaml's DSLR network, on the same set; `scripts/quality_row.py`
 trains and scores them.
 """
 
@@ -205,6 +209,15 @@ def dslr_cfg(output_dir: str = "runs/dslr"):
     return cfg
 
 
+def dslr_pgd_cfg(output_dir: str = "runs/dslr_pgd"):
+    """config_dslr.yaml's network and data with META_ARCHITECTURE dslr-pgd
+    (no YAML has it: the pgd rule's one operator application per unroll in
+    place of two 10-step CG solves)."""
+    cfg = dslr_cfg(output_dir)
+    cfg.MODEL.META_ARCHITECTURE = "dslr-pgd"
+    return cfg
+
+
 # quality_cfg's model -> (MODEL_TYPE, NUM_UNROLLS, NUM_RESBLOCKS,
 # NUM_FEATURES, MAX_EPOCHS, EVAL.RUN_EVERY_N_EPOCHS, OUTPUT_DIR) of its YAML
 _QUALITY_MODELS = {"res": ("RES", 5, 2, 64, 40, 10, "runs/resq2"),
@@ -214,6 +227,11 @@ _QUALITY_MODELS = {"res": ("RES", 5, 2, 64, 40, 10, "runs/resq2"),
                    "swingan": ("SWIN", 3, 2, 96, 40, 10, "runs/sganq3"),
                    "latte2": ("Latte", 2, 0, 192, 1000, 20, "runs/latteq4"),
                    "dit": ("DiT", 2, 0, 256, 2000, 20, "runs/ditq2")}
+
+# the DSLR rows' model -> (META_ARCHITECTURE, DSLR.NUM_CG_STEPS, OUTPUT_DIR)
+# of `configs/quality/dslr.yaml` and `dslr_fast.yaml`
+_DSLR_QUALITY_MODELS = {"dslr": ("dslr-cg-v1", 10, "runs/dslrq2"),
+                        "dslr_fast": ("dslr-cg-jacobi", 6, "runs/dslrfast")}
 
 # the OUTPUT_DIR of the models whose bfloat16 row has a YAML of its own
 # (`resnet_bf16.yaml`, `dit_bf16.yaml`)
@@ -233,12 +251,18 @@ def quality_cfg(dtype: str = "float32", model: str = "res"):
     (float32 in their YAMLs; bfloat16 sets CONV_BLOCK.DTYPE, as the bf16
     Swin row's command line does); "latte2" and "dit" the diffusion rows'
     `latte2.yaml` and `dit.yaml` (DDPM_X), and "dit" in bfloat16
-    `dit_bf16.yaml`. Like every quality YAML it sets
+    `dit_bf16.yaml`; "dslr" and "dslr_fast" the DSLR rows' `dslr.yaml`
+    (dslr-cg-v1) and `dslr_fast.yaml` (dslr-cg-jacobi, 6 CG steps),
+    float32 only. Like every quality YAML it sets
     DATALOADER.DEVICE_PIPELINE: training batches are built on the device."""
     from dl_swin_gan_tpu_torch.config import get_cfg
 
     if dtype not in ("float32", "bfloat16"):
         raise ValueError(f"quality_cfg: dtype {dtype!r}")
+    if model in _DSLR_QUALITY_MODELS:
+        if dtype != "float32":
+            raise ValueError(f"quality_cfg: {model} has no {dtype} row")
+        return _dslr_quality_cfg(model)
     if model not in _QUALITY_MODELS:
         raise ValueError(f"quality_cfg: model {model!r}")
     (model_type, unrolls, nres, features, epochs, every,
@@ -324,3 +348,30 @@ def _diffusion_fields(cfg, model: str) -> None:
     cfg.EVAL.CKPT_EVERY_N_STEPS = ckpt_every
     cfg.LOGGER.LOG_METRICS_EVERY_N_STEPS = 50
     cfg.LOGGER.LOG_PREDICTION_EVERY_N_STEPS = 0
+
+
+def _dslr_quality_cfg(model: str):
+    """`configs/quality/dslr.yaml` or `dslr_fast.yaml`: config_dslr.yaml's
+    network on the quality set, Adam at 2e-4, 600 epochs, validation every
+    25, a checkpoint every 8 steps."""
+    meta, cg_steps, output_dir = _DSLR_QUALITY_MODELS[model]
+    cfg = dslr_cfg(output_dir)
+    cfg.MODEL.META_ARCHITECTURE = meta
+    cfg.MODEL.PARAMETERS.DSLR.NUM_CG_STEPS = cg_steps
+    cfg.DATASET.TRAIN = ("runs/quality/data/train",)
+    cfg.DATASET.VAL = ("runs/quality/data/validate",)
+    cfg.DATALOADER.NUM_WORKERS = 8
+    cfg.DATALOADER.DEVICE_PIPELINE = True
+    aug = cfg.AUG_VAL
+    aug.CROP_READOUT = 64
+    aug.UNDERSAMPLE.NAME = "VDktMaskFunc"
+    aug.UNDERSAMPLE.ACCELERATIONS = (10, 15)
+    aug.UNDERSAMPLE.PARTIAL_KX = 0.25
+    aug.UNDERSAMPLE.PARTIAL_KY = 0.0
+    cfg.OPTIMIZER.MAX_EPOCHS = 600
+    cfg.OPTIMIZER.ADAM.LR = 0.0002
+    cfg.EVAL.RUN_EVERY_N_EPOCHS = 25
+    cfg.EVAL.CKPT_EVERY_N_STEPS = 8
+    cfg.LOGGER.LOG_METRICS_EVERY_N_STEPS = 32
+    cfg.LOGGER.LOG_IMAGES_EVERY_N_STEPS = 0
+    return cfg

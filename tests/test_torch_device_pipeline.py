@@ -277,3 +277,44 @@ def test_gan_fit_with_device_pipeline(tmp_path):
     assert len(losses) == 6 and losses[-1] < losses[0]
     for key in ("Train/disc_loss", "Train/adv_loss"):
         assert np.isfinite(_losses(tmp_path, key)).all()
+
+
+def _epoch(loader, keys=("mask", "kspace", "target")):
+    return [{k: b[k].numpy() if isinstance(b[k], torch.Tensor)
+             else np.asarray(b[k]) for k in keys} for b in loader]
+
+
+def _same(a, b):
+    return all(np.array_equal(x[k], y[k]) for x, y in zip(a, b) for k in x)
+
+
+def test_draw_seed_repeats_the_training_draws():
+    """Two loaders with one draw seed give identical batches over two
+    epochs (masks, crops, flips), on the device pipeline and through the
+    host preprocess; another seed gives other masks; without one the
+    draws stay unseeded."""
+    cfg = _cfg(get_cfg)
+    files = list(synthetic_files(2, slices=2, seed=0, **SHAPE))
+
+    def device(seed):
+        loader = DevicePipelineLoader(None, cfg, seed=7, files=files,
+                                      device="cpu", draw_seed=seed)
+        return _epoch(loader) + _epoch(loader)
+
+    def host(seed):
+        pre = CinePreprocess(cfg, draw_seed=seed)
+        return [pre(k[s], m[s], t[s], name) for _ in range(2)
+                for name, k, m, t in files for s in range(len(k))]
+
+    for run in (device, host):
+        a, b, c = run(5), run(5), run(6)
+        assert _same(a, b), run.__name__
+        assert not all(np.array_equal(x["mask"], y["mask"])
+                       for x, y in zip(a, c)), run.__name__
+        # the k-th draw: the two epochs of one loader differ
+        assert not all(np.array_equal(x["mask"], y["mask"]) for x, y in
+                       zip(a[:len(a) // 2], a[len(a) // 2:])), run.__name__
+    unseeded = [DevicePipelineLoader(None, cfg, seed=7, files=files,
+                                     device="cpu") for _ in range(2)]
+    assert unseeded[0].pipe.draw_seed is None
+    assert not _same(*(_epoch(u) for u in unseeded))   # the same order

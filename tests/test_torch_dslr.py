@@ -1,6 +1,7 @@
 """The torch port's DSLR solver (`UnrolledLR`) against the JAX package on
-converted weights, in each ported mode: outputs and the gradients of every
-parameter; the seeded init and the config."""
+converted weights, in each mode and with the RNN temporal nets: outputs and
+the gradients of every parameter; the seeded init and the config. The
+solver's flags are in `test_torch_dslr_flags.py`."""
 
 from pathlib import Path
 
@@ -17,14 +18,13 @@ from dl_swin_gan_tpu_torch.config import load_cfg
 from dl_swin_gan_tpu_torch.convert import flax_to_torch, init_params
 from dl_swin_gan_tpu_torch.ops.llr import BlockOp
 from dl_swin_gan_tpu_torch.solvers import build_model
-from dl_swin_gan_tpu_torch.solvers.dslr import UnrolledLR
+from dl_swin_gan_tpu_torch.solvers.dslr import UnrolledLR, build_dslr_solver
 from dl_swin_gan_tpu_torch.utils.headline import dslr_cfg
+from tests.test_torch_gates import seeded_params
 
 torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
-
-
 
 def _c64(rng, *shape):
     return (rng.standard_normal(shape)
@@ -54,26 +54,39 @@ def dslr_problem():
     return (y * mask, maps, mask, np.array(L0), np.array(R0))
 
 
-_MODES = ("dslr-cg-v1", "dslr-cg-v2", "dslr-cg-jacobi", "modslr-v1",
-          "modslr-v2")
+_MODES = ("dslr-pgd", "dslr-cg-v1", "dslr-cg-v2", "dslr-cg-jacobi",
+          "modslr-v1", "modslr-v2")
 
 
-def _solver_kw(mode):
-    return dict(mode=mode, num_unrolls=2, num_resblocks=1, num_features=8,
-                num_emaps=_E, num_basis=_R, block_size=_B, num_cg_steps=3)
+def _solver_kw(mode, **flags):
+    return {**dict(mode=mode, num_unrolls=2, num_resblocks=1,
+                   num_features=8, num_emaps=_E, num_basis=_R, block_size=_B,
+                   num_cg_steps=3), **flags}
 
 
-@pytest.mark.parametrize("mode", _MODES)
-def test_unrolled_lr_matches_jax(dslr_problem, mode):
-    """2 unrolls, 3 CG steps, converted weights: output to rel L2 1e-4,
-    the gradients of a loss in every parameter to rel L2 1e-3 (the CG
-    chains amplify float32 rounding)."""
-    y, maps, mask, L0, R0 = dslr_problem
+def _jax_params(jmodel, mode, *args, block_op):
+    """The JAX solver's weights drawn with numpy in the shapes of its init
+    (`test_torch_gates.seeded_params`: tracing the init is far cheaper on
+    the CPU than compiling it), the modslr lambdas at the JAX init's
+    values (1.0 and 2.0 in modslr-v1, 5e-3 in modslr-v2), since a drawn
+    penalty may be negative."""
+    params = dict(seeded_params(jmodel, *args, block_op=block_op))
+    for name, v in zip(("lambda_l", "lambda_r"),
+                       (1.0, 2.0) if mode == "modslr-v1" else (5e-3, 5e-3)):
+        if name in params:
+            params[name] = np.full((1,), v, np.float32)
+    return params
+
+
+def _check_against_jax(problem, mode, **flags):
+    """The solver on converted weights against the JAX package's: output to
+    rel L2 1e-4, the gradients of a loss in every parameter to rel L2 1e-3
+    (the CG chains and pgd's power method amplify float32 rounding)."""
+    y, maps, mask, L0, R0 = problem
     target = _c64(np.random.RandomState(1), 1, _E, _T, _Y, _X)
     jop = JaxBlockOp(_B, (1, _E, _T, _Y, _X))
-    jmodel = JaxUnrolledLR(**_solver_kw(mode))
-    params = jax.jit(lambda k: jmodel.init(k, y, maps, mask, L0, R0, jop))(
-        jax.random.PRNGKey(0))["params"]
+    jmodel = JaxUnrolledLR(**_solver_kw(mode, **flags))
+    params = _jax_params(jmodel, mode, y, maps, mask, L0, R0, block_op=jop)
 
     def jloss(p):
         out = jmodel.apply({"params": p}, y, maps, mask, L0, R0, jop)
@@ -81,22 +94,51 @@ def test_unrolled_lr_matches_jax(dslr_problem, mode):
 
     (_, ref), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
         params)
-    model = UnrolledLR(**_solver_kw(mode))
+    model = UnrolledLR(**_solver_kw(mode, **flags))
     model.load_state_dict(flax_to_torch(params))
     out = model(*(torch.from_numpy(a) for a in (y, maps, mask, L0, R0)),
                 BlockOp(_B, (1, _E, _T, _Y, _X)))
     assert _rel(out.detach().numpy(), np.asarray(ref)) <= 1e-4
     torch.mean(torch.abs(out - torch.from_numpy(target))).backward()
     want = flax_to_torch(jax.tree_util.tree_map(np.asarray, jgrads))
-    grads = {n: p.grad for n, p in model.named_parameters()}
-    assert set(grads) == set(want)
+    grads = {n: p.grad for n, p in model.named_parameters()
+             if p.grad is not None}
+    # every trained parameter has a gradient (the RNN's input-side biases
+    # are not trained; fix_step_size freezes the lambdas)
+    assert set(grads) == {n for n, p in model.named_parameters()
+                          if p.requires_grad and not (
+                              flags.get("fix_step_size")
+                              and n.startswith("lambda"))}
+    assert set(grads) <= set(want)
     for name, g in grads.items():
         assert _rel(g.numpy(), want[name].numpy()) <= 1e-3, name
 
 
-def test_dslr_pgd_raises():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        UnrolledLR(**_solver_kw("dslr-pgd"))
+@pytest.mark.parametrize("mode", _MODES)
+def test_unrolled_lr_matches_jax(dslr_problem, mode):
+    """2 unrolls, 3 CG steps (pgd: 2 gradient steps), converted weights."""
+    _check_against_jax(dslr_problem, mode)
+
+
+@pytest.mark.parametrize("mode", ("dslr-cg-v1", "dslr-pgd"))
+def test_rnn_temporal_matches_jax(dslr_problem, mode):
+    """use_rnn_temporal: the bidirectional 3-layer LSTM over t in place of
+    the 1D ResNet, converted from the JAX package's RNN_{i} trees; one
+    unroll (compiling the JAX LSTM's gradient dominates the case)."""
+    _check_against_jax(dslr_problem, mode, use_rnn_temporal=True,
+                       num_unrolls=1)
+
+
+def test_build_dslr_solver_builds_pgd():
+    """META_ARCHITECTURE dslr-pgd builds the pgd solver from a config, with
+    the 1D ResNet temporal nets (no config reaches use_rnn_temporal)."""
+    cfg = dslr_cfg()
+    cfg.MODEL.META_ARCHITECTURE = "dslr-pgd"
+    cfg.MODEL.PARAMETERS.NUM_UNROLLS = 2
+    model = build_dslr_solver(cfg, torch.Generator().manual_seed(0))
+    assert model.mode == "dslr-pgd" and not model.use_rnn_temporal
+    assert len(model.temporal) == 2
+    assert init_params(cfg, 0).keys() == model.state_dict().keys()
 
 
 def test_fix_step_size_stops_the_lambda_gradients(dslr_problem):

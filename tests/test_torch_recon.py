@@ -110,6 +110,13 @@ def _port_files():
         REPO / "compare_attn_fwd.py", REPO / "compare_coil_normal.py"]
 
 
+# the DSLR serving, pgd and RNN modules, named so that the walk must reach
+# them
+_DSLR_MODULES = ("dl_swin_gan_tpu_torch.ops.threefry",
+                 "dl_swin_gan_tpu_torch.models.rnn",
+                 "dl_swin_gan_tpu_torch.scripts.reconstruct_lr")
+
+
 def test_port_imports_no_jax_subprocess():
     """Importing every port module, chip_smoke and the compare scripts pulls in
     no jax, flax or JAX-package module (run with the repo alone on the path,
@@ -123,8 +130,10 @@ def test_port_imports_no_jax_subprocess():
         "compare_coil_normal\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'dl_swin_gan_tpu')]\n"
+        "bad += [m for m in NEW if m not in sys.modules]\n"
         "print(len([m for m in sys.modules if m.startswith(p.__name__)]))\n"
-        "sys.exit(1 if bad else 0)\n")
+        "sys.exit(1 if bad else 0)\n").replace(
+        "NEW", repr(_DSLR_MODULES))
     env = {k: v for k, v in os.environ.items() if not k.startswith("PYTHON")}
     env["PYTHONPATH"] = str(REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
