@@ -163,7 +163,28 @@ then exits non-zero and prints no result:
               at 2 steps against the CPU path); Latte at latte2.yaml's
               widths in bfloat16: DIFF_BF16_STEPS timed train steps, one held
               against the CPU path
- 17. result   one JSON line of kernels (the bf16 window-attention variants
+ 17. multigpu the mesh (parallel/mesh.py) on every card of the machine, one
+              NCCL rank a card (spawned after the build; with one card,
+              rank 0 runs in this process, as a spawn would add its
+              start-up to the phase): (a) the example
+              config at full width, one slice a rank, under HSDP (data =
+              world) and under MODEL.STRATEGY fsdp, each step's loss and
+              gradients against the unwrapped Trainer step on this
+              process's card (1e-4 / 1e-3 rel L2), ms per step wrapped and
+              unwrapped, 9 SENSE-normal launches per step asserted; (b)
+              the bf16 Swin step with the tensor-parallel plan at model =
+              world (60 / 30 / 9 launches per step) against the unwrapped
+              one (the bf16 trunk's limits); (c) a data-parallel
+              Reconstructor at B=4 against the plain one (1e-5); (d)
+              window_attention_sharded at the Swin block's shapes, with
+              the shift mask and without, against the unsharded kernel on
+              the rank's windows; (e) the rank body of
+              entry.dryrun_multichip(world, "nccl") on the same ranks, its
+              launches counted; (f) two gloo ranks with CUDA tensors on
+              card 0, HSDP over data=2, one slice each, against the
+              unwrapped step at B=2. On a one-card machine the NCCL rank
+              count is 1, so (f) is the multi-rank check there
+ 18. result   one JSON line of kernels (the bf16 window-attention variants
               under window_attention and window_attention_bwd), then the
               last line {"ok": true, "device": {...}}
 
@@ -220,6 +241,11 @@ from dl_swin_gan_tpu_torch.models.swin import DropPath
 from dl_swin_gan_tpu_torch.solvers.dslr import build_dslr_solver
 from dl_swin_gan_tpu_torch.train import (
     CheckpointManager, DiffusionTrainer, DSLRTrainer, GANTrainer, Trainer,
+)
+from dl_swin_gan_tpu_torch.entry import dryrun_rank
+from dl_swin_gan_tpu_torch.parallel.launch import run_ranks
+from dl_swin_gan_tpu_torch.parallel.mesh import (
+    full_tensor, make_mesh, unpermute_qkv,
 )
 from dl_swin_gan_tpu_torch.utils.device import use_ieee_fp32
 from dl_swin_gan_tpu_torch.utils.headline import (
@@ -344,6 +370,13 @@ BF16_KERNEL_REL_L2 = 5e-4
 # 6x the larger gradient
 BF16_TRUNK_LOSS_REL_TOL = BF16_LOSS_REL_TOL
 BF16_TRUNK_GRAD_REL_L2_TOL = 1e-2
+# the multigpu phase: wrapped (FSDP2, DTensor) steps against the unwrapped
+# step on the same card and batch, held to the train step's limits
+# (TRAIN_*; the bf16 Swin step to the bf16 trunk's)
+MG_STEPS = 2
+MG_GLOO_UNROLLS = 2   # the depth of the gloo ranks' steps (the phase's time)
+MG_RECON_REL_TOL = 1e-5
+MG_ATTENTION_ABS_TOL = 1e-6   # the same kernel on the same windows
 # published H100 SXM peaks (NVIDIA data sheet) for the bound
 FP32_FLOPS = 67e12        # float32 outside the tensor cores
 TF32_FLOPS = 495e12       # dense TF32 on the tensor cores; 3xTF32 runs at 1/3
@@ -2631,6 +2664,347 @@ def phase_diffusion_bf16():
     return counts
 
 
+def _mg_batch(cfg, n, seed=SEED):
+    """n full-width slices through the config's preprocess, stacked: a
+    global batch of n."""
+    T, Y, X, C, E = headline_shape()
+    raw_x = RAW_X if cfg.AUG_TRAIN.CROP_READOUT else X
+    pre = CinePreprocess(cfg, use_seed=True)
+    examples = [pre(*make_cine_example(T=T, Y=Y, X=raw_x, C=C, E=E,
+                                       seed=seed + s), f"multigpu_{s}")
+                for s in range(n)]
+    return {k: np.stack([ex[k] for ex in examples]) for k in examples[0]}
+
+
+def _mg_steps(trainer, params, batch, expected, key="Train/complex_l1",
+              profile=None):
+    """One step from `params` (its loss and its gradients gathered whole,
+    flat on the CPU, in the unsplit qkv order), then MG_STEPS timed steps
+    on the same batch with their launches checked against `expected` per
+    step; with a `profile` label, one more step profiled on rank 0 (the
+    other ranks run it plainly). Returns (loss, gradient, median ms per
+    step, {counter: launches}, the names of the modules under the
+    tensor-parallel plan, the profile's (groups, busy ms) or None)."""
+    state = trainer.init_state(state_dict=params)
+    loss = float(trainer.train_step(state, batch)[key])
+    grads = unpermute_qkv(state.model, _whole_grads(state.model))
+    torch.cuda.synchronize()
+    zero_counts()
+    times = []
+    for _ in range(MG_STEPS):
+        t0 = time.perf_counter()
+        trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = read_counts()
+    for name, n in counts.items():
+        check(n == expected.get(name, 0) * MG_STEPS,
+              f"multigpu: {n} {name} launches in {MG_STEPS} steps, expected "
+              f"{expected.get(name, 0)} per step")
+    prof = None
+    if profile is not None:
+        def step():
+            trainer.train_step(state, batch)
+        if (not torch.distributed.is_initialized()
+                or torch.distributed.get_rank() == 0):
+            prof = profile_device(profile, step)
+        else:
+            step()
+    flat = torch.cat([grads[n].flatten() for n in sorted(grads)])
+    return (loss, flat, float(np.median(times)) * 1e3, counts,
+            getattr(state.model, "tp_modules", []), prof)
+
+
+def _whole_grads(model):
+    """Every parameter's gradient whole, float32 on the CPU. A DTensor's
+    local shards are exchanged as objects, through the CPU (DTensor's own
+    gather, all_gather_into_tensor, crashed under gloo on CUDA tensors),
+    and joined along the mesh axis that splits them (one in these
+    meshes)."""
+    from torch.distributed.tensor import DTensor
+
+    grads = {n: p.grad for n, p in model.named_parameters()
+             if p.grad is not None}
+    local = {n: (g.to_local() if isinstance(g, DTensor) else g
+                 ).detach().float().cpu() for n, g in grads.items()}
+    if not torch.distributed.is_initialized():
+        return local
+    parts = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(parts, local)
+    out = {}
+    for n, g in grads.items():
+        split = [(i, pl.dim) for i, pl in enumerate(getattr(g, "placements",
+                                                            ()))
+                 if pl.is_shard() and g.device_mesh.size(i) > 1]
+        if not split:
+            out[n] = local[n]
+            continue
+        check(len(split) == 1, f"multigpu: {n} split over {split}")
+        (axis, dim), = split
+        ranks = g.device_mesh.mesh
+        for i, c in enumerate(g.device_mesh.get_coordinate()):
+            if i != axis:
+                ranks = ranks.select(0 if i < axis else 1, c)
+        out[n] = torch.cat([parts[int(r)][n] for r in ranks], dim)
+    return out
+
+
+def _mg_example_cfg(strategy="standard", unrolls=None):
+    cfg = headline_cfg(output_dir=str(RUNS))
+    cfg.MODEL.STRATEGY = strategy
+    if unrolls:
+        cfg.MODEL.PARAMETERS.NUM_UNROLLS = unrolls
+    return cfg
+
+
+def _mg_swin_cfg():
+    """The bf16 Swin at config_swin's widths, its depth cut to
+    MG_GLOO_UNROLLS."""
+    cfg = swin_cfg(output_dir=str(RUNS))
+    cfg.MODEL.PARAMETERS.CONV_BLOCK.DTYPE = "bfloat16"
+    cfg.MODEL.PARAMETERS.NUM_UNROLLS = MG_GLOO_UNROLLS
+    return cfg
+
+
+def _mg_sense(cfg):
+    """SENSE launches per train step of an unrolled config."""
+    return {"sense_normal": 2 * cfg.MODEL.PARAMETERS.NUM_UNROLLS - 1}
+
+
+def _mg_attention_inputs(W):
+    """q, k, v and bias of W windows, and the shift mask, at config_swin's
+    block shapes (12 windows a frame batch)."""
+    N = SWIN_WINDOW[0] * SWIN_WINDOW[1] * SWIN_WINDOW[2]
+    mask = torch.from_numpy(compute_shift_mask(
+        *SWIN_GRID, SWIN_WINDOW, SWIN_SHIFT)).cuda()
+    rng = np.random.RandomState(SEED + 5)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (W, SWIN_HEADS, N, SWIN_HEAD_DIM)).astype(np.float32)).cuda()
+        for _ in range(3))
+    bias = torch.from_numpy(0.5 * rng.standard_normal(
+        (SWIN_HEADS, N, N)).astype(np.float32)).cuda()
+    return q, k, v, bias, mask
+
+
+def _nccl_rank(rank, device, world, params, batch, examples):
+    """One NCCL rank a card (every rank runs it; rank 0's results are
+    returned): (a) the example config under HSDP and under STRATEGY fsdp,
+    one slice a rank; (c) data-parallel serving at B=4 against the plain
+    Reconstructor; (e) the dry run's rank body (`entry.dryrun_multichip`
+    spawns its ranks with the same `run_ranks` and runs `dryrun_rank` on
+    them; here it runs on these ranks, which saves a second spawn). The
+    weights, the global batch and the served examples come from the
+    caller. Seconds of each part in "seconds"."""
+    use_ieee_fp32()
+    t0 = time.perf_counter()
+    out, launches, seconds = {}, {name: {} for name in COUNTERS}, {}
+    cfg = _mg_example_cfg()
+    hsdp = Trainer(cfg, device=device, mesh=make_mesh(data=world))
+    fsdp = Trainer(_mg_example_cfg("fsdp"), device=device)
+    check(tuple(fsdp.mesh.shape) == (1, world, 1),
+          f"multigpu: STRATEGY fsdp mesh {tuple(fsdp.mesh.shape)}")
+    for tag, trainer in (("hsdp", hsdp), ("fsdp", fsdp)):
+        out[tag] = _mg_steps(trainer, params, batch, _mg_sense(cfg))
+        for name, n in out[tag][3].items():
+            launches[name][f"{tag} train steps"] = n
+    del hsdp, fsdp
+    seconds["a"], t0 = time.perf_counter() - t0, time.perf_counter()
+
+    plain = Reconstructor(cfg, params, device=device)(examples)
+    zero_counts()
+    t1 = time.perf_counter()
+    dp = Reconstructor(cfg, params, device=device,
+                       mesh=make_mesh())(examples)
+    out["recon_ms"] = (time.perf_counter() - t1) * 1e3
+    for name, n in read_counts().items():
+        launches[name]["data-parallel serve B=4"] = n
+    out["recon"] = (float(np.linalg.norm(dp - plain) / np.linalg.norm(plain)),
+                    dp.shape)
+    seconds["c"], t0 = time.perf_counter() - t0, time.perf_counter()
+
+    zero_counts()
+    out["dryrun"] = dryrun_rank(rank, device, world)
+    for name, n in read_counts().items():
+        launches[name]["dry run steps"] = n
+    seconds["e"] = time.perf_counter() - t0
+    out["launches"], out["seconds"] = launches, seconds
+    return out if rank == 0 else None
+
+
+def _gloo_rank(rank, device, go, example, swin):
+    """Two gloo ranks with CUDA tensors sharing card 0 (gloo takes CUDA
+    tensors for all-reduce, the one collective that data parallelism over
+    `data`, the tensor-parallel plan and the sharded attention need; its
+    reduce-scatter on them crashed the process in a development run, so
+    fsdp > 1 needs NCCL and a card a rank). `example` and `swin` are the
+    (weights, global batch) of the example config and the bf16 Swin, both
+    cut to MG_GLOO_UNROLLS unrolls. (f) the example config under HSDP over
+    data=2; (b) the bf16 Swin step under the tensor-parallel plan
+    at model=2 (H/2 heads a rank, qkv reordered, the bias table's columns
+    of the rank's heads), one step profiled on rank 0; (d)
+    `window_attention_sharded` at n=2 against the unsharded kernel on the
+    rank's windows, the shift mask shared (24 windows) and sliced per
+    window (12), and no mask. The rank waits for `go` (set once the card
+    is free) before it starts. Rank 0's results, seconds of each part in
+    "seconds"."""
+    card = torch.device("cuda", 0)
+    torch.cuda.set_device(card)
+    use_ieee_fp32()
+    cfg, scfg = _mg_example_cfg(unrolls=MG_GLOO_UNROLLS), _mg_swin_cfg()
+    out, launches, seconds = {}, {name: {} for name in COUNTERS}, {}
+    go.wait()
+    t0 = time.perf_counter()
+
+    trainer = Trainer(cfg, device=card,
+                      mesh=make_mesh(data=2, device_type="cuda"))
+    out["gloo"] = _mg_steps(trainer, *example, _mg_sense(cfg))
+    del trainer
+    seconds["f"], t0 = time.perf_counter() - t0, time.perf_counter()
+
+    trainer = Trainer(scfg, device=card,
+                      mesh=make_mesh(1, 1, 2, device_type="cuda"))
+    out["tp"] = _mg_steps(trainer, *swin, _train_launches(scfg),
+                          profile="multigpu bf16 Swin, tensor-parallel "
+                                  "model=2 (rank 0)")
+    del trainer
+    seconds["b"], t0 = time.perf_counter() - t0, time.perf_counter()
+
+    wmesh = make_mesh(data=2, device_type="cuda")
+    out["attention"] = {}
+    for W, masked in ((24, True), (12, True), (24, False)):
+        q, k, v, bias, mask = _mg_attention_inputs(W)
+        mk = mask if masked else None
+        zero_counts()
+        local = WA.window_attention_sharded(q, k, v, bias, mk, wmesh)
+        n = read_counts()["window_attention"]
+        m = W // 2
+        whole = WA.window_attention(q, k, v, bias, mk)[rank * m:(rank + 1) * m]
+        torch.cuda.synchronize()
+        tag = (f"W={W} " + ("mask shared" if masked and m % mask.shape[0] == 0
+                            else "mask sliced" if masked else "no mask"))
+        out["attention"][tag] = (float((local - whole).abs().max()), n)
+        launches["window_attention"][f"sharded n=2 {tag}"] = n
+    seconds["d"] = time.perf_counter() - t0
+    for tag in ("gloo", "tp"):
+        for name, n in out[tag][3].items():
+            launches[name][{"gloo": "gloo 2-rank HSDP train steps",
+                            "tp": "gloo 2-rank TP train steps"}[tag]] = n
+    out["launches"], out["seconds"] = launches, seconds
+    return out if rank == 0 else None
+
+
+def phase_multigpu():
+    """The mesh on the card. The unwrapped references first, in this
+    process before it joins a process group (a Trainer on a process group
+    takes the mesh of its config); then world = every card NCCL ranks, one
+    card each, rank 0 in this process and the others spawned (the kernels
+    are built, by phase_build, before any rank starts); then two spawned
+    gloo ranks sharing card 0, for what needs more ranks than the machine
+    has cards: they are spawned first with their inputs, and start up
+    while this process has the card, then wait for it. Each wrapped step
+    is held against the unwrapped Trainer step on card 0, from the same
+    weights and global batch."""
+    world = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    cfg, cut, scfg = (_mg_example_cfg(), _mg_example_cfg(
+        unrolls=MG_GLOO_UNROLLS), _mg_swin_cfg())
+    params, batch = init_params(cfg, SEED), _mg_batch(cfg, world)
+    example = (init_params(cut, SEED), _mg_batch(cfg, 2))
+    swin = (init_params(scfg, SEED), _mg_batch(scfg, 1))
+    examples = _mg_batch(cfg, 4, seed=SEED + 10)
+    go = torch.multiprocessing.get_context("spawn").Event()
+    with ThreadPoolExecutor(1) as pool:
+        gloo = pool.submit(run_ranks, _gloo_rank, 2, "gloo", go, example,
+                           swin, threads=None)
+        try:
+            refs = {"nccl": _mg_steps(Trainer(cfg, device="cuda"), params,
+                                      batch, _mg_sense(cfg)),
+                    "gloo": _mg_steps(Trainer(cut, device="cuda"), *example,
+                                      _mg_sense(cut)),
+                    "tp": _mg_steps(Trainer(scfg, device="cuda"), *swin,
+                                    _train_launches(scfg),
+                                    profile="multigpu bf16 Swin, unwrapped")}
+            t1 = time.perf_counter()
+            res = run_ranks(_nccl_rank, world, "nccl", world, params, batch,
+                            examples, threads=None, rank0_here=True)[0]
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        finally:
+            go.set()
+        t2 = time.perf_counter()
+        gloo = gloo.result()[0]
+    t3 = time.perf_counter()
+    print(f"multigpu: the inputs and the unwrapped references {t1 - t0:.1f} "
+          f"s; {world} NCCL "
+          f"rank(s), one card each, rank 0 in this process, {t2 - t1:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in res["seconds"].items())
+          + f"); 2 spawned gloo ranks on card 0, {t3 - t2:.1f} s after "
+          "the card was theirs ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in gloo["seconds"].items())
+          + ")")
+    launches = res["launches"]
+    for name, by_path in gloo["launches"].items():
+        launches[name].update(by_path)
+    f32 = (TRAIN_LOSS_REL_TOL, TRAIN_GRAD_REL_L2_TOL)
+    bf16 = (BF16_TRUNK_LOSS_REL_TOL, BF16_TRUNK_GRAD_REL_L2_TOL)
+    for tag, r, ref, tol, what in (
+            ("hsdp", res, refs["nccl"], f32,
+             f"example config, HSDP over data={world} (NCCL)"),
+            ("fsdp", res, refs["nccl"], f32,
+             f"example config, STRATEGY fsdp (fsdp={world}, NCCL)"),
+            ("gloo", gloo, refs["gloo"], f32,
+             f"example config at {MG_GLOO_UNROLLS} unrolls, HSDP over data=2: "
+             "2 gloo ranks sharing card 0 (against the unwrapped B=2 step)"),
+            ("tp", gloo, refs["tp"], bf16,
+             f"bf16 Swin at {MG_GLOO_UNROLLS} unrolls, tensor-parallel "
+             "model=2: 2 gloo ranks sharing card 0")):
+        loss, grad, ms, counts = r[tag][:4]
+        rel_loss = abs(loss - ref[0]) / abs(ref[0])
+        rel_grad = float((grad - ref[1]).norm() / ref[1].norm())
+        print(f"multigpu {tag}: {what}: {ms:.2f} ms per step wrapped vs "
+              f"{ref[2]:.2f} unwrapped (median of {MG_STEPS}); loss "
+              f"{loss:.6f} vs {ref[0]:.6f} (rel {rel_loss:.3e}), gradient rel "
+              f"L2 {rel_grad:.3e}; launches per step "
+              + ", ".join(f"{n // MG_STEPS} {k}" for k, n in counts.items()
+                          if n))
+        check(rel_loss <= tol[0], f"multigpu {tag}: loss rel {rel_loss:.3e}")
+        check(rel_grad <= tol[1], f"multigpu {tag}: gradient rel L2 "
+              f"{rel_grad:.3e}")
+    tp_modules = len(gloo["tp"][4])
+    check(tp_modules == 12 * scfg.MODEL.PARAMETERS.NUM_UNROLLS,
+          f"multigpu tp: {tp_modules} modules under the plan, expected 6 "
+          "attentions and 6 MLPs a trunk")
+    check(gloo["tp"][3]["window_attention"] > 0
+          and gloo["tp"][3]["window_attention_bwd"] > 0,
+          "multigpu tp: the attention kernels did not run on the local heads")
+    rel, shape = res["recon"]
+    print(f"multigpu recon: data-parallel Reconstructor at B=4 over "
+          f"{world} NCCL rank(s) vs the plain one: rel L2 {rel:.3e}, "
+          f"{res['recon_ms']:.1f} ms, output {shape}")
+    check(rel <= MG_RECON_REL_TOL and shape[0] == 4,
+          f"multigpu recon rel L2 {rel:.3e}")
+    for tag, (err, n) in gloo["attention"].items():
+        print(f"multigpu attention: window_attention_sharded n=2, {tag}, "
+              f"vs the unsharded kernel on rank 0's windows: max abs err "
+              f"{err:.3e}, {n} launch")
+        check(err <= MG_ATTENTION_ABS_TOL and n == 1,
+              f"multigpu attention {tag}: err {err:.3e}, {n} launches")
+    check(len(gloo["attention"]) == 3, "multigpu attention: a mask branch "
+          f"missing from {list(gloo['attention'])}")
+    losses = res["dryrun"]
+    dry = {n: c["dry run steps"] for n, c in launches.items()}
+    print("multigpu dryrun: " + ", ".join(f"{k} {v:.4f}"
+                                          for k, v in losses.items())
+          + "; launches " + ", ".join(f"{n} {k}" for k, n in dry.items()))
+    check(len(losses) >= 4 and all(np.isfinite(v) for v in losses.values()),
+          f"dryrun {losses}")
+    check(dry["sense_normal"] > 0 and dry["llr_normal_pre"] > 0,
+          f"dryrun launches {dry}: the unrolled and DSLR steps launch the "
+          "SENSE and LLR kernels")
+    shutil.rmtree(RUNS, ignore_errors=True)
+    return launches
+
+
 def _entry(name, source, replaces, res, launches):
     """One kernel's item of the `kernels` line: the numbers of its headline
     variant, then every variant it was measured at."""
@@ -2678,6 +3052,7 @@ def main():
     counts["diffusion"], attention = timed(phase_diffusion)
     counts["swin_bf16"] = timed(phase_swin_bf16)
     counts["diffusion_bf16"] = timed(phase_diffusion_bf16)
+    counts["multigpu"] = timed(phase_multigpu)
 
     def by_path(name):
         return {path: c[name] for path, c in counts.items()}

@@ -19,6 +19,8 @@ from typing import Callable, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from dl_swin_gan_tpu_torch.parallel.mesh import RankBatch
+
 
 class Hdf5Dataset:
     """One .h5 per patient: kspace [slices,C,T,Y,X], maps [slices,E,C,1,Y,X],
@@ -82,11 +84,24 @@ class DataLoader:
     the (numpy/h5py, GIL-releasing) preprocess ahead of the consumer,
     `prefetch` batches deep. `num_workers` is kept for the JAX package's
     signature and config key; there is one producer.
+
+    `shard` (index, count): a data-parallel rank's loader. The batches are
+    the global ones, in the same order, and this rank collates its
+    contiguous slice of each (a `RankBatch`); a transform with a
+    `draw_seed` draws each example from its global position (the k of
+    (draw_seed, k)), so the ranks' slices make up the one-rank batch bit
+    for bit.
     """
 
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = True,
                  num_workers: int = 4, prefetch: int = 2,
-                 seed: Optional[int] = None, drop_last: bool = True):
+                 seed: Optional[int] = None, drop_last: bool = True,
+                 shard: Tuple[int, int] = (0, 1)):
+        if batch_size % shard[1]:
+            raise ValueError(f"batch {batch_size} does not split over "
+                             f"{shard[1]} ranks")
+        self.shard = shard
+        self._drawn = 0     # examples of the batches yielded so far
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -114,6 +129,20 @@ class DataLoader:
             out = [b for b in out if len(b) == self.batch_size]
         return out
 
+    def _rank_slice(self, batch_idx: List[int]) -> List[int]:
+        """This rank's part of a global batch; with a seeded transform, its
+        draw counter moved to the slice's first global position."""
+        first = self._drawn
+        self._drawn += len(batch_idx)
+        index, count = self.shard
+        if count == 1:
+            return batch_idx
+        m = len(batch_idx) // count
+        transform = getattr(self.dataset, "transform", None)
+        if getattr(transform, "draw_seed", None) is not None:
+            transform.draws = first + index * m
+        return batch_idx[index * m:(index + 1) * m]
+
     def __iter__(self) -> Iterator[dict]:
         batches = self._batches()
         self._epoch += 1
@@ -121,9 +150,10 @@ class DataLoader:
         stop = threading.Event()
 
         def collate(batch_idx):
-            examples = [self.dataset[i] for i in batch_idx]
-            return {k: np.stack([ex[k] for ex in examples])
-                    for k in examples[0]}
+            examples = [self.dataset[i] for i in self._rank_slice(batch_idx)]
+            out = {k: np.stack([ex[k] for ex in examples])
+                   for k in examples[0]}
+            return RankBatch(out) if self.shard[1] > 1 else out
 
         error = []
 

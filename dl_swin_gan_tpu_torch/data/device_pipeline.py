@@ -13,8 +13,8 @@ the physics runs on the device instead:
     95th-percentile normalisation, the sliding-window init and, for DSLR,
     the truncated block SVD run on the device, in the JAX package's order;
   - for diffusion (DDPM_X) the host also draws the 90/10 split of the
-    acquired lines (`submask_np`, from its own RandomState(SEED + 99)) right
-    after the mask, and the batch carries `mask_r` and `mask_p` and no raw
+    acquired lines (`submask_np`, from its own RandomState(SEED + 99), or
+    from the example's key under a `draw_seed`) right after the mask, and the batch carries `mask_r` and `mask_p` and no raw
     k-space, which the diffusion paths never read.
 
 The host draws follow `CinePreprocess._augment` and `subsample` call for
@@ -35,11 +35,12 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from dl_swin_gan_tpu_torch.data.host_ops import submask_np
+from dl_swin_gan_tpu_torch.data.host_ops import keyed_submask_rng, submask_np
 from dl_swin_gan_tpu_torch.ops import masks as ss
 from dl_swin_gan_tpu_torch.ops.fft import fftc, ifftc
 from dl_swin_gan_tpu_torch.ops.llr import BlockOp, decompose
 from dl_swin_gan_tpu_torch.ops.sense import sense_adjoint
+from dl_swin_gan_tpu_torch.parallel.mesh import RankBatch
 from dl_swin_gan_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -114,7 +115,8 @@ class DevicePipeline:
         """Crop starts, flips and the VDkt mask of one step; raw_shape is
         the raw (uncropped) k-space's [C, T, Y, X]."""
         seed = None if not self.use_seed else tuple(map(ord, fname))
-        if seed is None and self.draw_seed is not None:
+        keyed = seed is None and self.draw_seed is not None
+        if keyed:
             seed = (self.draw_seed, self.draws)
             self.draws += 1
         self.rng.seed(seed)
@@ -140,8 +142,9 @@ class DevicePipeline:
         out = dict(xs=np.int32(xs), ys=np.int32(ys), flips=flips, mask=mask)
         if self.diffusion and \
                 self.cfg.MODEL.META_ARCHITECTURE.lower() == "ddpm_x":
-            mask_r, mask_p = submask_np(mask.astype(np.float32), 0.9,
-                                        self.submask_rng)
+            mask_r, mask_p = submask_np(
+                mask.astype(np.float32), 0.9,
+                keyed_submask_rng(seed) if keyed else self.submask_rng)
             out["mask_r"] = mask_r.astype(np.uint8)
             out["mask_p"] = mask_p.astype(np.uint8)
         return out
@@ -219,14 +222,26 @@ class DevicePipelineLoader:
     The examples come from the .h5 files of `root_directory`, or from
     `files`, records held in memory as `data.synthetic.quality_split` makes
     them: (name, kspace [S,C,T,Y,X], maps [S,E,C,1,Y,X], target).
+
+    `shard` (index, count): a data-parallel rank's loader. A global batch
+    is `count` consecutive examples of the epoch's order, and this rank
+    builds the index-th (a `RankBatch` of one); with a `draw_seed` its
+    draws are keyed by that example's global position, as in the
+    one-rank run.
     """
 
     def __init__(self, root_directory: Optional[str], cfg, seed: int,
                  lr_decom: bool = False, sample_rate: float = 1.0,
                  files=None, device=None, diffusion: bool = False,
-                 draw_seed: Optional[int] = None):
+                 draw_seed: Optional[int] = None,
+                 shard: Tuple[int, int] = (0, 1)):
         self.pipe = DevicePipeline(cfg, lr_decom=lr_decom, device=device,
                                    diffusion=diffusion, draw_seed=draw_seed)
+        self.shard = shard
+        if shard[1] > 1:    # unseeded DDPM_X splits: a stream of the rank's
+            self.pipe.submask_rng = np.random.RandomState(
+                [cfg.SEED + 99, shard[0]])
+        self._drawn = 0
         self.seed = seed
         self._epoch = 0
         self._raw: List[Dict[str, torch.Tensor]] = []
@@ -260,12 +275,18 @@ class DevicePipelineLoader:
                     yield filename, f["kspace"][s], f["maps"][s]
 
     def __len__(self) -> int:
-        return len(self._raw)
+        return len(self._raw) // self.shard[1]
 
     def __iter__(self):
         idx = list(range(len(self._raw)))
         random.Random(self.seed + self._epoch).shuffle(idx)
         self._epoch += 1
-        for i in idx:
+        index, count = self.shard
+        for j in range(len(self)):
+            i = idx[j * count + index]
+            if count > 1:
+                self.pipe.draws = self._drawn + index
+            self._drawn += count
             params = self.pipe.draw_params(self._names[i], self._shapes[i])
-            yield self.pipe.build(self._raw[i], params)
+            batch = self.pipe.build(self._raw[i], params)
+            yield RankBatch(batch) if count > 1 else batch

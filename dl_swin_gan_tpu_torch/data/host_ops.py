@@ -73,6 +73,14 @@ def center_crop(data: np.ndarray, shapes, axes) -> np.ndarray:
     return data[tuple(slicer)]
 
 
+def keyed_submask_rng(seed: tuple) -> np.random.RandomState:
+    """The stream of the DDPM_X split of an example whose draws are seeded
+    from `seed` = (draw_seed, k): a key of its own, so that the split, like
+    the example's other draws, is fixed by its global position k, whichever
+    rank draws it."""
+    return np.random.RandomState(tuple(seed) + (99,))
+
+
 def submask_np(mask: np.ndarray, factor: float,
                rng: np.random.RandomState):
     """The DDPM_X split of the acquired lines, per frame: `factor` of the

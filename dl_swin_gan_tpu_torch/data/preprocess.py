@@ -35,13 +35,17 @@ class CinePreprocess:
     """
 
     def __init__(self, config, aug_node=None, lr_decom: bool = False,
-                 use_seed: bool = False, draw_seed: Optional[int] = None):
+                 use_seed: bool = False, draw_seed: Optional[int] = None,
+                 submask: bool = False):
         self.config = config
         self.use_seed = use_seed
         # unseeded training draws, as in the JAX package, unless a draw
         # seed N is given: then the k-th call's crop, flips and mask are
-        # seeded from (N, k) (one producer thread calls in order)
+        # seeded from (N, k) (one producer thread calls in order), and with
+        # `submask` (DDPM_X) its 90/10 split of the acquired lines too;
+        # otherwise the diffusion trainer draws that split per batch
         self.draw_seed = draw_seed
+        self.submask = submask
         self.draws = 0
         self.rng = np.random.RandomState()
         aug = aug_node if aug_node is not None else config.AUG_TRAIN
@@ -104,7 +108,8 @@ class CinePreprocess:
     # -- main ----------------------------------------------------------------
     def __call__(self, kspace, maps, target, fname: str) -> dict:
         seed = None if not self.use_seed else tuple(map(ord, fname))
-        if seed is None and self.draw_seed is not None:
+        keyed = seed is None and self.draw_seed is not None
+        if keyed:
             seed = (self.draw_seed, self.draws)
             self.draws += 1
 
@@ -143,6 +148,10 @@ class CinePreprocess:
             scale=np.float32(scale),
             target=np.ascontiguousarray(target[0]).astype(np.complex64),
         )
+        if self.submask and keyed:
+            mask_r, mask_p = H.submask_np(mask.astype(np.float32), 0.9,
+                                          H.keyed_submask_rng(seed))
+            out["mask_r"], out["mask_p"] = mask_r[0], mask_p[0]
         if self.lr_decom:
             out["L_init"], out["R_init"] = decompose_init(
                 init_image, self.block_size, self.num_basis,

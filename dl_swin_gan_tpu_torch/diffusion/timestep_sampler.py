@@ -11,6 +11,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from dl_swin_gan_tpu_torch.parallel.mesh import all_gather_batch
+
 
 class UniformSampler:
     def __init__(self, diffusion):
@@ -63,9 +65,14 @@ class LossSecondMomentResampler:
                               generator=generator)
         return t, 1.0 / (self.num_timesteps * p[t])
 
-    def update_with_losses(self, state, ts, losses):
+    def update_with_losses(self, state, ts, losses, group=None):
         """Each per-example loss into its timestep's ring buffer: appended
-        while the buffer fills, the oldest dropped once it is full."""
+        while the buffer fills, the oldest dropped once it is full. With a
+        process `group` every rank's (t, loss) pairs go in, in rank order,
+        so each rank keeps the same history (the JAX package's psum, the
+        reference's all_gather)."""
+        if group is not None:
+            ts, losses = (all_gather_batch(x, group) for x in (ts, losses))
         history, counts = state[0].clone(), state[1].clone()
         for t, loss in zip(ts.tolist(), losses.tolist()):
             c = int(counts[t])

@@ -341,6 +341,37 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return window_attention_fwd(q, k, v, bias, mask, with_lse=False)[0]
 
 
+def window_attention_sharded(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, bias: torch.Tensor,
+                             mask: Optional[torch.Tensor], mesh,
+                             axis: str = "data") -> torch.Tensor:
+    """Context-parallel window attention (the JAX package's
+    `window_attention_sharded`, a shard_map there): the window axis of the
+    global q, k and v [W, H, N, D] is split over the ranks of a mesh axis
+    (`parallel/mesh.py make_mesh`), and this rank runs `window_attention`,
+    the hand kernel, on its W/n contiguous windows and returns their
+    output [W/n, H, N, D]. Windows attend independently, so nothing is
+    exchanged; the shift happens outside. W % n != 0 raises.
+
+    The shift mask [nW, N, N] is periodic over the windows: when each
+    rank's first window is a multiple of nW ((W/n) % nW == 0) every rank
+    takes it whole; otherwise each rank takes the rows of its own windows
+    ([W/n, N, N]; the JAX package tiles the mask over W there)."""
+    from dl_swin_gan_tpu_torch.parallel.mesh import axis_size
+
+    W = q.shape[0]
+    n = axis_size(mesh, axis)
+    if W % n:
+        raise ValueError(f"window count {W} not divisible by {axis}={n}")
+    m = W // n
+    start = mesh.get_local_rank(axis) * m
+    local = [t[start:start + m] for t in (q, k, v)]
+    if mask is not None and m % mask.shape[0]:
+        rows = torch.arange(start, start + m, device=mask.device)
+        mask = mask[rows % mask.shape[0]]
+    return window_attention(*local, bias, mask)
+
+
 # kernel launches so far in this process; chip_smoke.py zeroes and reads them
 window_attention.launches = 0
 window_attention_bwd.launches = 0

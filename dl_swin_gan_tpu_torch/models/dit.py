@@ -221,6 +221,19 @@ class TimestepEmbedder(nn.Module):
         return self.fc2(F.silu(self.fc1(h)))
 
 
+def rank_rand(shape, generator: torch.Generator,
+              shard=(0, 1)) -> torch.Tensor:
+    """U(0, 1) draws of `shape` from `generator` on its device; with
+    `shard` (index, count), a data-parallel rank's slice of the draws of
+    the global batch (count times the leading dim), so that the ranks
+    together draw what one process would."""
+    index, count = shard
+    b = shape[0]
+    draw = torch.rand((b * count,) + tuple(shape[1:]), generator=generator,
+                      device=generator.device)
+    return draw[index * b:(index + 1) * b]
+
+
 class LabelEmbedder(nn.Module):
     """Class-label embedding with classifier-free-guidance dropout: in
     training mode each label is replaced by the null class `num_classes`
@@ -240,6 +253,7 @@ class LabelEmbedder(nn.Module):
             self.embedding_table.weight.normal_(0.0, 0.02,
                                                 generator=generator)
         self.generator = None
+        self.shard = (0, 1)     # set with the generator
 
     def forward(self, labels: torch.Tensor,
                 force_drop_ids: Optional[torch.Tensor] = None):
@@ -249,8 +263,7 @@ class LabelEmbedder(nn.Module):
             if self.generator is None:
                 raise RuntimeError("LabelEmbedder in training mode needs a "
                                    "generator")
-            draw = torch.rand(labels.shape, generator=self.generator,
-                              device=self.generator.device)
+            draw = rank_rand(labels.shape, self.generator, self.shard)
             drop = (draw < self.dropout_prob).to(labels.device)
         else:
             drop = None
@@ -335,20 +348,22 @@ class Attention(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
+        # this rank's heads: all of them, or H / tp under tensor parallelism
+        # (parallel/mesh.py apply_tp)
         self.num_heads = num_heads
+        self.head_dim = dim // num_heads
         self.qkv = dense(dim, 3 * dim, "lecun", generator, dtype)
         self.proj = dense(dim, dim, "lecun", generator, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        B, N, C = x.shape
-        h = self.num_heads
-        head = C // h
+        B, N, _ = x.shape
+        h, head = self.num_heads, self.head_dim
         qkv = self.qkv(x).reshape(B, N, 3, h, head).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0] * head ** -0.5, qkv[1], qkv[2]
         attn = torch.softmax(torch.matmul(q, k.transpose(-1, -2)).float(),
                              dim=-1)
         out = torch.matmul(attn.to(v.dtype), v)
-        return self.proj(out.transpose(1, 2).reshape(B, N, C))
+        return self.proj(out.transpose(1, 2).reshape(B, N, h * head))
 
 
 def modulate(x, shift, scale):

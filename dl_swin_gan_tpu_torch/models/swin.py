@@ -47,11 +47,12 @@ from torch import nn
 
 from dl_swin_gan_tpu_torch.kernels.window_attn import window_attention
 from dl_swin_gan_tpu_torch.models.dit import (
-    LabelEmbedder, Mlp, conv_in, linear,
+    LabelEmbedder, Mlp, conv_in, linear, rank_rand,
 )
 from dl_swin_gan_tpu_torch.models.layers import (
     ConvBlock, circular_pad_time, crop_time,
 )
+from dl_swin_gan_tpu_torch.parallel.mesh import head_columns
 
 
 def LayerNorm(dim: int) -> nn.LayerNorm:
@@ -157,6 +158,7 @@ class DropPath(nn.Module):
         super().__init__()
         self.rate = float(rate)
         self.generator = generator
+        self.shard = (0, 1)     # set with the generator
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
@@ -165,19 +167,21 @@ class DropPath(nn.Module):
             raise RuntimeError("DropPath in training mode needs a generator")
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        draw = torch.rand(shape, generator=self.generator,
-                          device=self.generator.device)
+        draw = rank_rand(shape, self.generator, self.shard)
         return torch.where((draw < keep).to(x.device), x / keep,
                            torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def set_dropout_generator(module: nn.Module,
-                          generator: Optional[torch.Generator]) -> None:
+                          generator: Optional[torch.Generator],
+                          shard=(0, 1)) -> None:
     """Give every DropPath and LabelEmbedder under `module` the generator
-    its draws come from."""
+    its draws come from, and the data-parallel rank's (index, count) of
+    the batch (`models.dit.rank_rand`)."""
     for m in module.modules():
         if isinstance(m, (DropPath, LabelEmbedder)):
             m.generator = generator
+            m.shard = shard
 
 
 class WindowAttention3D(nn.Module):
@@ -189,7 +193,12 @@ class WindowAttention3D(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.window_size = tuple(window_size)
+        # this rank's heads: all of them, or H / tp under tensor parallelism
+        # (parallel/mesh.py apply_tp, which also sets head_range: the
+        # table's columns this rank reads)
         self.num_heads = num_heads
+        self.head_dim = dim // num_heads
+        self.head_range = None
         ws = self.window_size
         table_len = (2 * ws[0] - 1) * (2 * ws[1] - 1) * (2 * ws[2] - 1)
         self.relative_position_bias_table = nn.Parameter(
@@ -203,15 +212,17 @@ class WindowAttention3D(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        Bn, N, C = x.shape
-        h = self.num_heads
-        qkv = self.qkv(x).reshape(Bn, N, 3, h, C // h)
+        Bn, N, _ = x.shape
+        h, hd = self.num_heads, self.head_dim
+        qkv = self.qkv(x).reshape(Bn, N, 3, h, hd)
         qkv = qkv.permute(2, 0, 3, 1, 4).contiguous()   # [3, Bn, h, N, hd]
         index = _bias_index(self.window_size, N, x.device)
-        bias = self.relative_position_bias_table[index].reshape(N, N, h)
+        table = head_columns(self.relative_position_bias_table,
+                             self.head_range)
+        bias = table[index].reshape(N, N, h)
         bias = bias.permute(2, 0, 1).contiguous()       # [h, N, N]
         out = window_attention(qkv[0], qkv[1], qkv[2], bias, mask)
-        return self.proj(out.transpose(1, 2).reshape(Bn, N, C))
+        return self.proj(out.transpose(1, 2).reshape(Bn, N, h * hd))
 
 
 class SwinBlock3D(nn.Module):

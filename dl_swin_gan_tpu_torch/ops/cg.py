@@ -10,35 +10,50 @@ waits for the host.
 `power_method` gives `dslr-pgd` its step sizes. Its start vector is the
 caller's: the solver passes JAX's `uniform(PRNGKey(0), (b, n, 1))`, drawn
 bit for bit by `ops/threefry.py`.
+
+The inner products sum over the whole batch, as the JAX package's do. When
+the batch is split over data-parallel ranks, XLA makes that sum global;
+here `conjugate_gradient(group=)` all-reduces each inner product over the
+ranks that hold the batch's slices, so the step sizes are the
+single-device ones.
 """
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 
-def zdot(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
-    """Complex inner product <x1, x2> = sum(conj(x1) * x2), a 0-d tensor."""
-    return torch.sum(x1.conj() * x2)
+def zdot(x1: torch.Tensor, x2: torch.Tensor, group=None) -> torch.Tensor:
+    """Complex inner product <x1, x2> = sum(conj(x1) * x2), a 0-d tensor;
+    summed over the ranks of `group` too when one is given (the complex
+    value all-reduced as two reals, with autograd through the sum)."""
+    out = torch.sum(x1.conj() * x2)
+    if group is None:
+        return out
+    from dl_swin_gan_tpu_torch.parallel.mesh import all_reduce_sum
+
+    return all_reduce_sum(out, group)
 
 
-def zdot_single(x: torch.Tensor) -> torch.Tensor:
+def zdot_single(x: torch.Tensor, group=None) -> torch.Tensor:
     """The real <x, x>."""
-    return zdot(x, x).real
+    return zdot(x, x, group).real
 
 
 def conjugate_gradient(A: Callable, x0: torch.Tensor, y: torch.Tensor,
-                       num_iter: int) -> torch.Tensor:
+                       num_iter: int, group: Optional[object] = None
+                       ) -> torch.Tensor:
     """Solve A x = y for a Hermitian positive (normal-equation) operator A
-    with `num_iter` iterations from x0."""
+    with `num_iter` iterations from x0; the inner products summed over the
+    ranks of `group` when one is given."""
     r = y - A(x0)
-    x, p, rsold = x0, r, zdot_single(r)
+    x, p, rsold = x0, r, zdot_single(r, group)
     for _ in range(num_iter):
         Ap = A(p)
-        alpha = rsold / zdot(p, Ap)
+        alpha = rsold / zdot(p, Ap, group)
         x = x + alpha * p
         r = r - alpha * Ap
-        rsnew = zdot_single(r)
+        rsnew = zdot_single(r, group)
         p = (rsnew / rsold) * p + r
         rsold = rsnew
     return x

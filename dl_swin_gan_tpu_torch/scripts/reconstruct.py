@@ -2,12 +2,15 @@
 maps in, an image CFL out.
 
 Counterpart of `scripts/reconstruct.py` beside the JAX package, with its
-arguments less `--data-parallel` (one GPU: multi-GPU is ROADMAP.md Queue 1
-item 12), plus `--device`. It runs on the GPU unless `--device cpu` is
-given. The YAML needs pyyaml.
+arguments plus `--device`. It runs on the GPU unless `--device cpu` is
+given. `--data-parallel` serves each batch over the ranks torchrun starts
+(NCCL, one GPU a rank; gloo with `--device cpu`), and rank 0 writes. The
+YAML needs pyyaml.
 
     python -m dl_swin_gan_tpu_torch.scripts.reconstruct --config-file cfg.yaml \\
         --ckpt runs/x/checkpoints --kspace ks --maps mps --output im.dl
+    torchrun --nproc-per-node 4 -m dl_swin_gan_tpu_torch.scripts.reconstruct \\
+        --data-parallel --batch-size 4 --config-file cfg.yaml ...
 """
 
 import argparse
@@ -15,6 +18,7 @@ import logging
 
 from dl_swin_gan_tpu_torch.config import load_cfg
 from dl_swin_gan_tpu_torch.infer import load_checkpoint_params, reconstruct_cfl
+from dl_swin_gan_tpu_torch.parallel.mesh import init_torchrun, make_mesh
 
 
 def main(argv=None):
@@ -29,6 +33,8 @@ def main(argv=None):
     parser.add_argument("--output", required=True,
                         help="output image CFL (no ext)")
     parser.add_argument("--batch-size", type=int, default=1)
+    parser.add_argument("--data-parallel", action="store_true",
+                        help="shard each batch over the torchrun ranks")
     parser.add_argument("--device", default=None,
                         help="torch device; the GPU when not given")
     parser.add_argument("opts", nargs="*", help="KEY VALUE config overrides")
@@ -38,9 +44,14 @@ def main(argv=None):
     if args.opts:
         cfg.merge_from_list(args.opts)
     cfg.freeze()
+    device, mesh = args.device, None
+    if args.data_parallel:
+        device = init_torchrun(args.device)
+        mesh = make_mesh()
     params = load_checkpoint_params(args.ckpt)
     out = reconstruct_cfl(args.kspace, args.maps, args.output, cfg, params,
-                          batch_size=args.batch_size, device=args.device)
+                          batch_size=args.batch_size, device=device,
+                          mesh=mesh)
     print(out)
     return out
 

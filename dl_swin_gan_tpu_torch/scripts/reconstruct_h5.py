@@ -4,10 +4,11 @@ Latte and SwinDiff, by conditional diffusion sampling; acceleration 1 writes
 the fully-sampled adjoint reference.
 
 Counterpart of `scripts/reconstruct_h5.py` beside the JAX package, with its
-arguments less `--data-parallel` (ROADMAP.md Queue 1 item 12), plus
-`--device`. `--model` overrides MODEL.MODEL_TYPE and `--sample-steps` sets
-the diffusion sampling steps. It runs on the GPU unless `--device cpu` is
-given. It needs pyyaml and h5py.
+arguments plus `--device`. `--model` overrides MODEL.MODEL_TYPE and
+`--sample-steps` sets the diffusion sampling steps. It runs on the GPU
+unless `--device cpu` is given. `--data-parallel` serves each batch over
+the ranks torchrun starts (NCCL, one GPU a rank; gloo with `--device
+cpu`), and rank 0 writes. It needs pyyaml and h5py.
 
     python -m dl_swin_gan_tpu_torch.scripts.reconstruct_h5 \\
         --config-file cfg.yaml --ckpt runs/x/checkpoints --file data.h5 \\
@@ -21,6 +22,7 @@ from dl_swin_gan_tpu_torch.config import load_cfg
 from dl_swin_gan_tpu_torch.infer import (
     load_checkpoint_params, reconstruct_h5_file,
 )
+from dl_swin_gan_tpu_torch.parallel.mesh import init_torchrun, make_mesh
 
 
 def main(argv=None):
@@ -32,6 +34,8 @@ def main(argv=None):
     parser.add_argument("--out-directory", required=True)
     parser.add_argument("--acceleration", type=float, default=1)
     parser.add_argument("--batch-size", type=int, default=1)
+    parser.add_argument("--data-parallel", action="store_true",
+                        help="shard each batch over the torchrun ranks")
     parser.add_argument("--model", default=None,
                         help="MODEL.MODEL_TYPE override (e.g. DiT, Latte)")
     parser.add_argument("--sample-steps", type=int, default=100,
@@ -50,12 +54,16 @@ def main(argv=None):
         cfg.merge_from_list(args.opts)
     cfg.freeze()
 
+    device, mesh = args.device, None
+    if args.data_parallel:
+        device = init_torchrun(args.device)
+        mesh = make_mesh()
     params = (load_checkpoint_params(args.ckpt, use_ema=args.use_ema)
               if args.acceleration > 1 else None)
     out = reconstruct_h5_file(args.file, args.out_directory, cfg, params,
                               acceleration=args.acceleration,
-                              batch_size=args.batch_size, device=args.device,
-                              sample_steps=args.sample_steps)
+                              batch_size=args.batch_size, device=device,
+                              sample_steps=args.sample_steps, mesh=mesh)
     print(out)
     return out
 

@@ -53,6 +53,9 @@ class DiffusionUnrolled(nn.Module):
         self.learn_sigma = learn_sigma
         self.num_cg_steps = num_cg_steps
         self.remat = remat
+        # the ranks of a data-parallel batch's other slices: the hqs CG's
+        # inner products sum over them (set by the trainer)
+        self.batch_group = None
         n_nets = 1 if share_weights else num_unrolls
         nets = [make_denoiser(learn_sigma and not share_weights
                               and i == n_nets - 1) for i in range(n_nets)]
@@ -104,7 +107,7 @@ class DiffusionUnrolled(nn.Module):
             for i in range(self.num_unrolls):
                 z = self._denoise(i, x, t, c)
                 x = conjugate_gradient(normal, x, x0 + mu * z,
-                                       self.num_cg_steps)
+                                       self.num_cg_steps, self.batch_group)
         return x
 
 

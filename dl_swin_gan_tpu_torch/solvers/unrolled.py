@@ -83,6 +83,9 @@ class UnrolledSolver(nn.Module):
         self.fix_step_size = fix_step_size
         self.num_cg_steps = num_cg_steps
         self.remat = remat
+        # the ranks that hold the other slices of a data-parallel batch: the
+        # hqs CG's inner products sum over them (set by the trainer)
+        self.batch_group = None
         n_nets = 1 if share_weights else num_unrolls
         self.nets = nn.ModuleList(make_denoiser() for _ in range(n_nets))
         # the rule's scalar, as the JAX solver creates it: only pgd and hqs
@@ -119,7 +122,7 @@ class UnrolledSolver(nn.Module):
             for i in range(self.num_unrolls):
                 z = self._denoise(i, x)
                 x = conjugate_gradient(normal, x, ATy + mu * z,
-                                       self.num_cg_steps)
+                                       self.num_cg_steps, self.batch_group)
         elif self.dc_mode == "dc":
             unacquired = SenseOp(maps, 1.0 - mask)
             full = SenseOp(maps, None)

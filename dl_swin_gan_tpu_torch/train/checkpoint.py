@@ -8,6 +8,11 @@ the monitor) or (the latest step). A metric-less save ranks with the worst
 value for the mode (+inf for min, -inf for max), so a periodic save never
 outranks a validated one. A metric-bearing save replaces a metric-less one
 at the same step; a metric-less re-save of a step is a no-op.
+
+Under a mesh every rank calls `save` (a sharded state is gathered whole
+onto rank 0, `train_state.TrainState.state_dict`), rank 0 writes, and every
+rank reads on `restore`: the file is the single-device format, so a
+checkpoint restores on any number of ranks.
 """
 
 import json
@@ -16,6 +21,9 @@ import os
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
+
+from dl_swin_gan_tpu_torch.parallel.mesh import is_rank0
 
 _INDEX = "index.json"
 
@@ -71,15 +79,20 @@ class CheckpointManager:
         step = int(step)
         if step in self._index and metrics is None:
             return
+        # a sharded state gathers on every rank and lands on rank 0, which
+        # alone writes; every rank keeps the same index
         payload = state.state_dict() if hasattr(state, "state_dict") else state
-        _atomic_write(_step_file(self.directory, step),
-                      lambda tmp: torch.save(payload, tmp))
+        writer = is_rank0()
+        if writer:
+            _atomic_write(_step_file(self.directory, step),
+                          lambda tmp: torch.save(payload, tmp))
         self._index[step] = {k: float(v) for k, v in (metrics or {}).items()}
         keep = set(self._ranked()[:self.max_to_keep])
         if self.keep_latest:
             keep.add(max(self._index))
         for old in [s for s in self._index if s not in keep]:
-            os.remove(_step_file(self.directory, old))
+            if writer:
+                os.remove(_step_file(self.directory, old))
             del self._index[old]
         index = {str(s): m for s, m in sorted(self._index.items())}
 
@@ -87,7 +100,10 @@ class CheckpointManager:
             with open(tmp, "w") as f:
                 json.dump(index, f)
 
-        _atomic_write(os.path.join(self.directory, _INDEX), write_index)
+        if writer:
+            _atomic_write(os.path.join(self.directory, _INDEX), write_index)
+        if dist.is_initialized():
+            dist.barrier()
 
     def latest_step(self) -> Optional[int]:
         return max(self._index) if self._index else None

@@ -7,8 +7,14 @@ later trainer families cannot drift apart. Run it as
     python -m dl_swin_gan_tpu_torch.train --config-file configs/config_swin.yaml \\
         [--synthetic-data] [--resume] [--max-epochs N] [--device cpu] [KEY VALUE ...]
 
-It trains on the GPU unless `--device cpu` is given. The YAML needs pyyaml
-and the datasets h5py.
+It trains on the GPU unless `--device cpu` is given. Under torchrun,
+
+    torchrun --nproc-per-node N -m dl_swin_gan_tpu_torch.train ...
+
+each rank joins the process group from the environment (NCCL on
+cuda:LOCAL_RANK; gloo with `--device cpu`) and the trainer trains over the
+mesh PARALLEL.* and MODEL.STRATEGY describe (`train/trainer.py`). The YAML
+needs pyyaml and the datasets h5py.
 """
 
 import argparse
@@ -17,8 +23,12 @@ import random
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dl_swin_gan_tpu_torch.config import load_cfg
+from dl_swin_gan_tpu_torch.parallel.mesh import (
+    init_torchrun, is_rank0, launched_by_torchrun,
+)
 
 
 def _ensure_synthetic(directory: str, **kwargs) -> None:
@@ -59,19 +69,29 @@ def run_training(make_trainer, description: str, argv=None):
     random.seed(cfg.SEED)
     np.random.seed(cfg.SEED)
     torch.manual_seed(cfg.SEED)
+    device = args.device
+    if launched_by_torchrun():
+        device = init_torchrun(args.device)
 
     train_dir = cfg.DATASET.TRAIN[0] if cfg.DATASET.TRAIN else None
     val_dir = cfg.DATASET.VAL[0] if cfg.DATASET.VAL else None
     if args.synthetic_data:
         train_dir = os.path.join(cfg.OUTPUT_DIR, "data", "train")
         val_dir = os.path.join(cfg.OUTPUT_DIR, "data", "val")
-        _ensure_synthetic(train_dir, num_files=4, slices=2, seed=cfg.SEED)
-        _ensure_synthetic(val_dir, num_files=1, slices=2,
-                          seed=cfg.SEED + 10_000)
+        if is_rank0():
+            _ensure_synthetic(train_dir, num_files=4, slices=2, seed=cfg.SEED)
+            _ensure_synthetic(val_dir, num_files=1, slices=2,
+                              seed=cfg.SEED + 10_000)
+        if dist.is_initialized():
+            dist.barrier()
         cfg.DATASET.TRAIN = (train_dir,)
         cfg.DATASET.VAL = (val_dir,)
     cfg.freeze()
 
-    trainer = make_trainer(cfg, args.device)
-    return trainer.fit(train_dir, val_dir, max_epochs=args.max_epochs,
-                       resume=args.resume)
+    trainer = make_trainer(cfg, device)
+    try:
+        return trainer.fit(train_dir, val_dir, max_epochs=args.max_epochs,
+                           resume=args.resume)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

@@ -25,7 +25,15 @@ before its training step moved to the target). With
 EVAL.RECON_SSIM_EVERY_N_EPOCHS it also samples the first validation batch
 from the raw and the EMA weights and scores the SSIM against the target.
 LOGGER.LOG_PREDICTION_EVERY_N_STEPS is not read: the port's trainers write
-no images (ROADMAP.md Queue 1 item 12).
+no images yet (ROADMAP.md Queue 1 item 12b).
+
+Under a mesh t and the noise are drawn for the global batch from the
+step's generator and each rank takes its slice, so the ranks draw
+different t and together the one-rank step's; a global host batch gets
+its 90/10 submasks drawn before it is split. A draw-seeded host loader
+draws each example's split in its transform, keyed by the example's global
+position, so a rank's slice carries the one-rank split; an unseeded one's
+rank slice draws it from a stream of its own, seeded by the rank.
 """
 
 import copy
@@ -36,15 +44,22 @@ import numpy as np
 import torch
 
 from dl_swin_gan_tpu_torch.data.host_ops import submask_np
+from dl_swin_gan_tpu_torch.data.preprocess import CinePreprocess
 from dl_swin_gan_tpu_torch.diffusion import create_diffusion
 from dl_swin_gan_tpu_torch.diffusion.gaussian import Randn, generator_randn
+from dl_swin_gan_tpu_torch.parallel.mesh import (
+    RankBatch, batch_shard, global_mean, shard_batch,
+    shard_batch_or_replicate, unpermute_qkv,
+)
 from dl_swin_gan_tpu_torch.solvers.diffusion_unrolled import (
     build_diffusion_solver, model_kwargs,
 )
 from dl_swin_gan_tpu_torch.train.trainer import (
     MetricsWriter, Trainer, dropout_seed,
 )
-from dl_swin_gan_tpu_torch.train.train_state import TrainState, ema_update
+from dl_swin_gan_tpu_torch.train.train_state import (
+    TrainState, ema_update, full_ema, is_sharded,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -57,9 +72,10 @@ class DiffusionTrainer(Trainer):
                   "target")
 
     def __init__(self, cfg, device=None, ema_decay: float = 0.9999,
-                 sample_steps: int = 100, draw_seed: Optional[int] = None):
+                 sample_steps: int = 100, draw_seed: Optional[int] = None,
+                 mesh=None):
         super().__init__(cfg, device=device, use_ema=True,
-                         ema_decay=ema_decay, draw_seed=draw_seed)
+                         ema_decay=ema_decay, draw_seed=draw_seed, mesh=mesh)
         p = cfg.MODEL.PARAMETERS
         self.meta = cfg.MODEL.META_ARCHITECTURE.lower()
         predict_xstart = self.meta != "ddpm_e"
@@ -73,6 +89,10 @@ class DiffusionTrainer(Trainer):
             diffusion_steps=sample_steps, learn_sigma=p.LEARN_SIGMA,
             predict_xstart=predict_xstart)
         self.submask_rng = np.random.RandomState(cfg.SEED + 99)
+        # an unseeded host loader's rank slice (a RankBatch): a stream of
+        # the rank's (a draw-seeded loader draws the split per example)
+        self.rank_submask_rng = np.random.RandomState(
+            [cfg.SEED + 99, batch_shard(self.mesh)[0]])
         self.draw_generator = torch.Generator(device=self.device)
         self._ema_model = None
 
@@ -82,6 +102,11 @@ class DiffusionTrainer(Trainer):
 
     def _device_pipeline_kwargs(self) -> dict:
         return {"diffusion": True}
+
+    def make_preprocess(self, aug_node=None, use_seed=False, draw_seed=None):
+        return CinePreprocess(self.cfg, aug_node=aug_node, use_seed=use_seed,
+                              draw_seed=draw_seed,
+                              submask=self.meta == "ddpm_x")
 
     @property
     def train_metric(self) -> str:
@@ -95,14 +120,18 @@ class DiffusionTrainer(Trainer):
     def prepare_batch(self, batch: dict) -> dict:
         """A host batch (numpy) for the diffusion paths: no raw k-space; for
         DDPM_X the 90/10 split of the acquired lines from the trainer's
-        RandomState(SEED + 99), else mask_r = mask_p = mask. A batch that
-        already has them (the device pipeline's) is returned as it is."""
+        RandomState(SEED + 99), else mask_r = mask_p = mask. A split the
+        loader drew (the device pipeline's, a draw-seeded host loader's,
+        keyed by each example's global position) is kept."""
+        kind = type(batch)      # a RankBatch stays one
+        rng = (self.rank_submask_rng if isinstance(batch, RankBatch)
+               else self.submask_rng)
+        batch = kind({k: v for k, v in batch.items() if k != "kspace"})
         if "mask_r" in batch:
             return batch
-        batch = {k: v for k, v in batch.items() if k != "kspace"}
         if self.meta == "ddpm_x":
             batch["mask_r"], batch["mask_p"] = submask_np(
-                np.asarray(batch["mask"], np.float32), 0.9, self.submask_rng)
+                np.asarray(batch["mask"], np.float32), 0.9, rng)
         else:
             batch["mask_r"] = batch["mask_p"] = batch["mask"]
         return batch
@@ -114,17 +143,24 @@ class DiffusionTrainer(Trainer):
                 (-1,) + (1,) * (target.ndim - 1))
         return target
 
-    def draws(self, seed_base: int, index: int, target: torch.Tensor):
+    def draws(self, seed_base: int, index: int, target: torch.Tensor,
+              sharded: bool = False):
         """(t, noise) of one loss evaluation: t uniform over the training
         process, the noise standard normal over the stacked real/imag
         target, on the trainer's device from its generator seeded from
-        (seed_base, index)."""
+        (seed_base, index). With `sharded` the target is this rank's slice:
+        the draws are the global batch's, and this rank's slice of them is
+        returned."""
         g = self.draw_generator.manual_seed(dropout_seed(seed_base, index))
-        B = target.shape[0]
+        rank, count = batch_shard(self.mesh) if sharded else (0, 1)
+        B = target.shape[0] * count
         t = torch.randint(0, self.diffusion.num_timesteps, (B,), generator=g,
                           device=self.device)
         shape = (B, 2 * target.shape[1]) + tuple(target.shape[2:])
-        return t, torch.randn(shape, generator=g, device=self.device)
+        noise = torch.randn(shape, generator=g, device=self.device)
+        if count == 1:
+            return t, noise
+        return shard_batch({"t": t, "noise": noise}, self.mesh).values()
 
     def _loss(self, model, b, t, noise):
         target = self._target(b)
@@ -144,13 +180,20 @@ class DiffusionTrainer(Trainer):
                    ) -> Dict[str, torch.Tensor]:
         """One batch: the loss at (t, noise) (drawn from (SEED + 7, step)
         when not given), backward, the optimizer update every
-        GRAD_ACCUM_ITERS batches, and the EMA. Updates `state` in place."""
+        GRAD_ACCUM_ITERS batches, and the EMA. Updates `state` in place.
+        Under a mesh given t and noise are the global batch's (sliced here
+        with it) or already this rank's slice."""
         model = state.model.train()
-        b = self._to_device(self.prepare_batch(batch))
+        self._set_batch_group(model, True)
+        b = self._to_device(shard_batch(self.prepare_batch(batch), self.mesh))
         self.dropout_generator.manual_seed(
             dropout_seed(self.cfg.SEED + 17, state.step))
         if t is None or noise is None:
-            t, noise = self.draws(self.cfg.SEED + 7, state.step, b["target"])
+            t, noise = self.draws(self.cfg.SEED + 7, state.step, b["target"],
+                                  sharded=True)
+        elif t.shape[0] != b["target"].shape[0]:
+            t, noise = shard_batch({"t": t, "noise": noise},
+                                   self.mesh).values()
         if state.step % self.accum == 0:
             state.optimizer.zero_grad(set_to_none=True)
         loss = self._loss(model, b, t.to(self.device), noise.to(self.device))
@@ -160,24 +203,44 @@ class DiffusionTrainer(Trainer):
         ema_update(state.ema, model, self.ema_decay)
         state.step += 1
         self._ema_model = None
-        return {"Train MSE": loss.detach()}
+        return global_mean({"Train MSE": loss.detach()}, self.mesh)
 
     @torch.no_grad()
     def val_loss(self, state: TrainState, batch: dict,
                  index: int) -> torch.Tensor:
         """The training objective of the eval-mode model on a prepared
-        batch, at draws from (SEED + 23, index)."""
+        batch, at draws from (SEED + 23, index); under a mesh the global
+        batch's (split where it splits over the ranks, else whole on every
+        rank)."""
         model = state.model.eval()
+        batch, sharded = shard_batch_or_replicate(batch, self.mesh)
+        self._set_batch_group(model, sharded)
         b = self._to_device(batch)
-        t, noise = self.draws(self.cfg.SEED + 23, index, b["target"])
-        return self._loss(model, b, t, noise)
+        t, noise = self.draws(self.cfg.SEED + 23, index, b["target"],
+                              sharded=sharded)
+        loss = self._loss(model, b, t, noise)
+        return global_mean({"loss": loss}, self.mesh, sharded)["loss"]
 
     def ema_model(self, state: TrainState) -> torch.nn.Module:
         """An eval-mode copy of the model holding the EMA weights (rebuilt
-        after each train step, on first use)."""
+        after each train step, on first use); of a sharded model, a whole
+        unwrapped copy on every rank."""
         if self._ema_model is None:
-            model = copy.deepcopy(state.model)
-            model.load_state_dict(state.ema, strict=False)
+            if is_sharded(state.model):
+                from torch.distributed.checkpoint.state_dict import (
+                    StateDictOptions, get_model_state_dict,
+                )
+
+                whole = unpermute_qkv(state.model, get_model_state_dict(
+                    state.model,
+                    options=StateDictOptions(full_state_dict=True)))
+                whole.update(full_ema(state.model, state.ema))
+                model = self.build_model(torch.Generator())
+                model.load_state_dict(whole)
+                model.to(self.device)
+            else:
+                model = copy.deepcopy(state.model)
+                model.load_state_dict(state.ema, strict=False)
             self._ema_model = model.eval()
         return self._ema_model
 
@@ -190,6 +253,7 @@ class DiffusionTrainer(Trainer):
         trainer's device (or from `randn`). Returns complex
         [N, E, T, Y, X] on the device, unscaled."""
         model = model.eval()
+        self._set_batch_group(model, False)     # the whole batch on each rank
         b = self._to_device(self.prepare_batch(batch))
         if randn is None:
             g = torch.Generator(device=self.device).manual_seed(seed)

@@ -9,7 +9,9 @@ shape, and the modslr lambdas are logged by the base trainer's
 
 The solver runs one example at a time, as the reference does (batch 1);
 for B > 1 the trainer loops over the examples and stacks the results, where
-the JAX package vmaps the solver.
+the JAX package vmaps the solver. Under a mesh the loop runs over this
+rank's slice of the batch, and the CG of each example stays local (the JAX
+package's vmapped CG sums per example too).
 """
 
 import torch

@@ -18,7 +18,10 @@ backward), and its gradients are zeroed with G's, before its own backward.
 
 The state keeps the generator as `model`, so validation, serving and
 `load_checkpoint_params` see the generator; a checkpoint also holds the
-discriminator and both optimizers, which `--resume` restores.
+discriminator and both optimizers, which `--resume` restores. Under a mesh
+the generator and the discriminator are two wrapped roots (FSDP2 each; the
+tensor-parallel plan on the generator only), and both losses are the
+global batch's.
 """
 
 import logging
@@ -29,9 +32,14 @@ import torch
 from torch import nn
 
 from dl_swin_gan_tpu_torch.models.discriminator import PatchDiscriminator3D
+from dl_swin_gan_tpu_torch.parallel.mesh import (
+    apply_fsdp, global_mean, shard_batch,
+)
 from dl_swin_gan_tpu_torch.train.losses import select_loss
 from dl_swin_gan_tpu_torch.train.train_state import (
-    TrainState, ema_update, make_lr_schedule, make_optimizer,
+    TrainState, ema_update, full_model_state, full_optimizer_state,
+    is_sharded, load_full_model_state, load_full_optimizer_state,
+    make_lr_schedule, make_optimizer,
 )
 from dl_swin_gan_tpu_torch.train.trainer import Trainer, dropout_seed
 
@@ -46,11 +54,22 @@ class GANTrainState(TrainState):
     d_optimizer: Optional[torch.optim.Optimizer] = None
 
     def state_dict(self) -> dict:
-        return {**super().state_dict(), "disc": self.disc.state_dict(),
-                "d_optimizer": self.d_optimizer.state_dict()}
+        out = super().state_dict()
+        if not is_sharded(self.disc):
+            return {**out, "disc": self.disc.state_dict(),
+                    "d_optimizer": self.d_optimizer.state_dict()}
+        disc = full_model_state(self.disc)
+        d_optimizer = full_optimizer_state(self.disc, self.d_optimizer)
+        return None if out is None else {**out, "disc": disc,
+                                         "d_optimizer": d_optimizer}
 
     def load_state_dict(self, payload: dict) -> None:
         super().load_state_dict(payload)
+        if is_sharded(self.disc):
+            load_full_model_state(self.disc, payload["disc"])
+            load_full_optimizer_state(self.disc, self.d_optimizer,
+                                      payload["d_optimizer"])
+            return
         self.disc.load_state_dict(payload["disc"])
         self.d_optimizer.load_state_dict(payload["d_optimizer"])
 
@@ -86,6 +105,8 @@ class GANTrainer(Trainer):
         if disc_state_dict is not None:
             disc.load_state_dict(disc_state_dict)
         disc.to(self.device)
+        if self.mesh is not None:
+            apply_fsdp(disc, self.mesh)
         logger.info("GAN: discriminator %.3fM params",
                     sum(p.numel() for p in disc.parameters()) / 1e6)
         return GANTrainState(
@@ -96,7 +117,8 @@ class GANTrainer(Trainer):
     def train_step(self, state: GANTrainState, batch: dict
                    ) -> Dict[str, torch.Tensor]:
         model, disc = state.model.train(), state.disc.train()
-        b = self._to_device(batch)
+        self._set_batch_group(model, True)
+        b = self._to_device(shard_batch(batch, self.mesh))
         self.dropout_generator.manual_seed(
             dropout_seed(self.cfg.SEED + 17, state.step))
         if state.step % self.accum == 0:
@@ -114,7 +136,7 @@ class GANTrainer(Trainer):
                      state.step)
 
         # the generator, against the updated discriminator
-        metrics = self._metrics(pred, b, "Train")
+        metrics = self._metrics(pred, b, "Train", sharded=True)
         recon = select_loss(metrics, self.loss_name, "Train")
         disc.requires_grad_(False)
         try:
@@ -123,8 +145,9 @@ class GANTrainer(Trainer):
         finally:
             disc.requires_grad_(True)
         metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["Train/adv_loss"] = adv.detach()
-        metrics["Train/disc_loss"] = d_loss.detach()
+        metrics.update(global_mean({"Train/adv_loss": adv.detach(),
+                                    "Train/disc_loss": d_loss.detach()},
+                                   self.mesh))
         metrics.update(self._extra_metrics(model))
 
         self._update(model.parameters(), state.optimizer, self.lr_schedule,

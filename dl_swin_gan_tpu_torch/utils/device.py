@@ -1,10 +1,13 @@
 """Device choice and float32 precision for the port's entry points."""
 
+import os
+
 import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: the given one, else the GPU.
+    """The device an entry point runs on: the given one, else the GPU; in
+    a process torchrun started, this rank's GPU, cuda:LOCAL_RANK.
 
     There is no silent CPU fallback: with no CUDA device the caller must ask
     for ``device="cpu"`` explicitly.
@@ -14,6 +17,8 @@ def resolve_device(device=None) -> torch.device:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run on the CPU")
+    if "LOCAL_RANK" in os.environ:
+        return torch.device("cuda", int(os.environ["LOCAL_RANK"]))
     return torch.device("cuda")
 
 

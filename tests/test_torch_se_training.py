@@ -65,11 +65,13 @@ def cfgs(features, unrolls, rr, crop):
     return out
 
 
-def pipeline_batches(cfg, files, steps, seed=0):
+def pipeline_batches(cfg, files, steps, seed=0, lr_decom=False):
     """`steps` training batches (numpy) of the port's device pipeline on the
     CPU: the examples in a seeded order, reshuffled each epoch as the
-    loader does, each step's draws seeded by the step."""
-    pipe = DevicePipeline(cfg, use_seed=True, device="cpu")
+    loader does, each step's draws seeded by the step; with lr_decom, the
+    DSLR factors L_init and R_init too."""
+    pipe = DevicePipeline(cfg, use_seed=True, device="cpu",
+                          lr_decom=lr_decom)
     examples = [(name, kspace[s], maps[s]) for name, kspace, maps, _ in files
                 for s in range(len(kspace))]
     out = []

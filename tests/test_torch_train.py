@@ -349,13 +349,35 @@ def test_trainer_needs_cuda_or_explicit_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("change,match", [
-    (("MODEL.STRATEGY", "fsdp"), "Queue 1 item 12"),
+    (("MODEL.PARAMETERS.CONV_BLOCK.COMPLEX", True), "nor in the JAX package"),
 ])
 def test_unported_training_options_raise(change, match):
+    """MODEL.STRATEGY fsdp, which raised here before multi-GPU was ported,
+    now trains (test_strategy_fsdp_trains_on_one_process); what the JAX
+    package lacks too still raises."""
     cfg = swin_cfg()
     cfg.merge_from_list(list(change))
     with pytest.raises(NotImplementedError, match=match):
-        Trainer(cfg, device="cpu")
+        Trainer(cfg, device="cpu").init_state()
+
+
+def test_strategy_fsdp_trains_on_one_process():
+    """Without a process group MODEL.STRATEGY fsdp shards over the one
+    process there is, as the JAX trainer's fsdp axis is 1 on one device:
+    no mesh, and the step is the plain one."""
+    cfg = load_cfg(str(REPO / "configs/basic/example.yaml"), freeze=False)
+    cfg.merge_from_list(_res_overrides(unrolls=1))
+    cfg.AUG_TRAIN.CROP_READOUT = 0
+    plain = Trainer(cfg, device="cpu")
+    cfg.MODEL.STRATEGY = "fsdp"
+    fsdp = Trainer(cfg, device="cpu")
+    assert fsdp.mesh is None
+    ex = CinePreprocess(cfg, use_seed=True)(
+        *make_cine_example(T=8, Y=24, X=16, C=4, E=2, seed=0), "fsdp")
+    batch = {k: np.asarray(v)[None] for k, v in ex.items()}
+    losses = [float(t.train_step(t.init_state(), batch)["Train/complex_l1"])
+              for t in (plain, fsdp)]
+    assert losses[0] == losses[1]
 
 
 def test_device_pipeline_option_feeds_training():
