@@ -184,7 +184,23 @@ then exits non-zero and prints no result:
               card 0, HSDP over data=2, one slice each, against the
               unwrapped step at B=2. On a one-card machine the NCCL rank
               count is 1, so (f) is the multi-rank check there
- 18. result   one JSON line of kernels (the bf16 window-attention variants
+ 18. compact  serving over the acquired-lines wire (infer/compact.py):
+              (a) the native VDkt library (ops/native.py, built by cc) is
+              loaded and used, and its masks equal the Python path's bit for
+              bit (the 12x serving mask at 20x180x64, a name-tuple seed, a
+              partial-ky mask), host ms per mask on each path; (b) main's 4
+              slices at 12x through CompactTransform and CompactReconstructor
+              over the dict, flat float32 and flat float16 wires at batch 4
+              (5 SENSE-normal launches per batch, asserted), against the
+              dense Reconstructor fed by ResampleTransform(12) (dict within
+              the JAX package's compact tolerance, flat float32 equal to
+              dict, float16 within 5e-3 of the largest magnitude), slice 0
+              against the port's CPU compact path, MB per slice on each
+              wire; (c) the port bench's end-to-end serving (recon_e2e and
+              the three compact wires, interleaved, 16 slices, best of 3):
+              frames/s, and beside it the host transform ms per slice, the
+              host-to-device ms and one profiled slice's device ms
+ 19. result   one JSON line of kernels (the bf16 window-attention variants
               under window_attention and window_attention_bwd), then the
               last line {"ok": true, "device": {...}}
 
@@ -217,6 +233,9 @@ from dl_swin_gan_tpu_torch.data.host_ops import fftmod
 from dl_swin_gan_tpu_torch.data.synthetic import (
     QUALITY_SET, make_cine_example, quality_split,
 )
+from dl_swin_gan_tpu_torch.infer.compact import (
+    CompactReconstructor, CompactTransform, FlatWire, pad_lines, wire_bytes,
+)
 from dl_swin_gan_tpu_torch.infer.evaluate import evaluate_volumes
 from dl_swin_gan_tpu_torch.infer.reconstruct import (
     DiffusionReconstructor, LRReconstructor, Reconstructor, accel_transform,
@@ -235,6 +254,8 @@ from dl_swin_gan_tpu_torch.models.swin import compute_shift_mask
 from dl_swin_gan_tpu_torch.ops.llr import (
     BlockOp, compose, decompose, decompose_init,
 )
+from dl_swin_gan_tpu_torch.ops import masks as masks_module
+from dl_swin_gan_tpu_torch.ops import native
 from dl_swin_gan_tpu_torch.ops.masks import VDktMaskFunc
 from dl_swin_gan_tpu_torch.ops.sense import _adjoint_impl, _forward_impl
 from dl_swin_gan_tpu_torch.models.swin import DropPath
@@ -377,6 +398,22 @@ MG_STEPS = 2
 MG_GLOO_UNROLLS = 2   # the depth of the gloo ranks' steps (the phase's time)
 MG_RECON_REL_TOL = 1e-5
 MG_ATTENTION_ABS_TOL = 1e-6   # the same kernel on the same windows
+# the compact phase: the VDkt cases held native against Python (tag, mask
+# shape, accelerations, partial kx, partial ky, seed) and the timed calls
+# per path; the compact wires against the dense path
+# (tests/test_compact_transfer.py: rtol 2e-3, atol 2e-4 of the largest
+# magnitude; float16 5e-3 of it); the end-to-end variants
+COMPACT_VDKT_CASES = (
+    ("serving 12x 20x180x64", (1, 1, 20, 180, 64), (12, 12), 0.25, 0.0,
+     PARITY_SEED),
+    ("name seed 18x80x64", (1, 1, 18, 80, 64), (10, 15), 0.25, 0.0,
+     tuple(map(ord, "patient_003.h5"))),
+    ("partial ky 12x80x32", (1, 1, 12, 80, 32), (10, 15), 0.25, 0.25, 5),
+)
+COMPACT_VDKT_RUNS = 20
+COMPACT_RTOL, COMPACT_ATOL = 2e-3, 2e-4
+COMPACT_F16_ATOL = 5e-3
+E2E_VARIANTS = ("dense",) + bench.E2E_WIRES
 # published H100 SXM peaks (NVIDIA data sheet) for the bound
 FP32_FLOPS = 67e12        # float32 outside the tensor cores
 TF32_FLOPS = 495e12       # dense TF32 on the tensor cores; 3xTF32 runs at 1/3
@@ -3005,6 +3042,210 @@ def phase_multigpu():
     return launches
 
 
+class _VDktPaths:
+    """Counts the VDkt masks drawn on the native and on the Python path
+    while it is entered (ops/masks.py calls its module's
+    `vdkt_mask_native`, which returns None where the Python path runs)."""
+
+    def __enter__(self):
+        self.native = self.python = 0
+        self._saved = masks_module.vdkt_mask_native
+        masks_module.vdkt_mask_native = self
+        return self
+
+    def __call__(self, *args):
+        out = self._saved(*args)
+        if out is None:
+            self.python += 1
+        else:
+            self.native += 1
+        return out
+
+    def __exit__(self, *exc):
+        masks_module.vdkt_mask_native = self._saved
+
+
+def _host_ms(fn, runs):
+    """Median host ms of fn() over `runs` calls."""
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def compact_vdkt():
+    """(a) The native library is built and loaded, and each case's mask
+    equals the Python path's bit for bit."""
+    lib = native.get_vdkt_lib()
+    check(lib is not None, "native VDkt: no library, the Python path would "
+          "be taken")
+    print(f"compact vdkt: native library {native.library_path()}")
+    for tag, shape, accel, pkx, pky, seed in COMPACT_VDKT_CASES:
+        func = VDktMaskFunc(accel, sim_partial_kx=pkx, sim_partial_ky=pky)
+        with _VDktPaths() as paths:
+            nat = func(shape, seed=seed)
+            nat_ms = _host_ms(lambda: func(shape, seed=seed),
+                              COMPACT_VDKT_RUNS)
+        check(paths.python == 0 and paths.native > 0,
+              f"compact vdkt {tag}: the Python path was taken")
+        saved = masks_module.vdkt_mask_native
+        masks_module.vdkt_mask_native = lambda *a: None
+        try:
+            py = func(shape, seed=seed)
+            py_ms = _host_ms(lambda: func(shape, seed=seed),
+                             COMPACT_VDKT_RUNS)
+        finally:
+            masks_module.vdkt_mask_native = saved
+        same = nat.dtype == py.dtype and np.array_equal(nat, py)
+        print(f"compact vdkt {tag}: native {nat_ms:.3f} ms, Python "
+              f"{py_ms:.3f} ms a mask (host, median of {COMPACT_VDKT_RUNS}); "
+              f"bit for bit {same}, {int(nat.sum())} samples")
+        check(same, f"compact vdkt {tag}: native and Python masks differ")
+
+
+def _violation(out, ref, rtol, atol):
+    """The largest excess of |out - ref| over atol + rtol |ref| (<= 0
+    where np.allclose holds)."""
+    return float((np.abs(out - ref) - (atol + rtol * np.abs(ref))).max())
+
+
+def compact_serving(counts):
+    """(b) Main's slices over the three wires against the dense path."""
+    cfg = headline_cfg()
+    cfg.freeze()
+    nunroll = cfg.MODEL.PARAMETERS.NUM_UNROLLS
+    T, Y, X, C, E = headline_shape()
+    slices = [make_cine_example(T=T, Y=Y, X=X, C=C, E=E, seed=SEED + s)[:2]
+              for s in range(SLICES)]
+    params = init_params(cfg, SEED)
+    dense_ex = [ResampleTransform(ACCEL, cfg)(k, m) for k, m in slices]
+    dense = Reconstructor(cfg, params)(next(batched(dense_ex, SLICES)))
+    with _VDktPaths() as paths:
+        packed = [CompactTransform(cfg, acceleration=ACCEL)(k, m)
+                  for k, m in slices]
+    check(paths.python == 0 and paths.native == SLICES,
+          f"compact: VDkt masks native {paths.native}, Python {paths.python}")
+    n_max = max(p["line_idx"].shape[-1] for p in packed)
+    packed = [pad_lines(p, n_max) for p in packed]
+    batch = {k: np.stack([p[k] for p in packed]) for k in packed[0]}
+    outs, recs, mb = {}, {}, {"dense": wire_bytes(dense_ex[0]) / 1e6}
+    for name in bench.E2E_WIRES:
+        wire = (None if name == "dict" else
+                FlatWire(packed[0], np.float16 if name == "flat16"
+                         else np.float32))
+        rec = CompactReconstructor(cfg, params, ny=Y, wire=wire)
+        check(rec.device.type == "cuda", f"CompactReconstructor on "
+              f"{rec.device}")
+        inp = (batch if wire is None else
+               np.stack([wire.encode(p) for p in packed]))
+        mb[name] = (wire_bytes(packed[0]) if wire is None else
+                    wire.length * wire.dtype.itemsize) / 1e6
+        rec(inp)                                  # warm-up
+        zero_counts()
+        outs[name] = rec(inp)
+        got = read_counts()
+        for counter, n in got.items():
+            counts[counter][f"{name} batch {SLICES}"] = n
+        check(got["sense_normal"] == nunroll
+              and sum(got.values()) == nunroll,
+              f"compact {name} batch {SLICES}: launches {got}, expected "
+              f"{nunroll} sense_normal")
+        check(outs[name].shape == dense.shape and np.isfinite(
+            outs[name]).all(), f"compact {name}: output {outs[name].shape}")
+        recs[name] = rec
+    peak = float(np.abs(dense).max())
+    viol = _violation(outs["dict"], dense, COMPACT_RTOL, COMPACT_ATOL * peak)
+    err = float(np.abs(outs["dict"] - dense).max())
+    flat_equal = np.array_equal(outs["flat"], outs["dict"])
+    err16 = float(np.abs(outs["flat16"] - outs["dict"]).max())
+    print(f"compact: {SLICES} slices [{C},{T},{Y},{X}] E={E} at {ACCEL}x, "
+          f"{n_max} lines a frame at most; batch {SLICES}: {nunroll} "
+          "sense_normal launches per batch on each wire; dict vs dense "
+          f"Reconstructor max abs err {err:.3e} (largest magnitude "
+          f"{peak:.3e}; rtol {COMPACT_RTOL} atol {COMPACT_ATOL} of it: "
+          f"excess {viol:.3e}); flat float32 equal to dict {flat_equal}; "
+          f"flat float16 vs dict max abs err {err16:.3e} "
+          f"({err16 / peak:.2e} of the largest)")
+    print("compact: MB per slice on the wire: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in mb.items()))
+    check(viol <= 0, f"compact dict vs dense: excess {viol:.3e}")
+    check(flat_equal, "compact: flat float32 differs from dict")
+    check(err16 <= COMPACT_F16_ATOL * peak,
+          f"compact float16: {err16:.3e} > {COMPACT_F16_ATOL} x {peak:.3e}")
+    one = {k: v[:1] for k, v in batch.items()}
+    gpu = recs["dict"](one)
+    t0 = time.perf_counter()
+    cpu = CompactReconstructor(cfg, params, ny=Y, device="cpu")(one)
+    rel = float(np.linalg.norm(gpu - cpu) / np.linalg.norm(cpu))
+    print(f"compact: slice 0 vs the port's CPU compact path ({nunroll} "
+          f"unrolls, {time.perf_counter() - t0:.1f} s on the CPU): rel L2 "
+          f"{rel:.3e}")
+    check(rel <= CPU_REL_L2_TOL, f"compact GPU vs CPU rel L2 {rel:.3e}")
+
+
+def _to_device(variant, x):
+    """A variant's input on the card as its reconstructor copies it."""
+    if hasattr(variant.recon, "to_device"):
+        return variant.recon.to_device(x)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+            for k, v in x.items()}
+
+
+def compact_e2e(counts):
+    """(c) The bench's end-to-end serving, dense and the three wires
+    interleaved; the host, copy and device times of each beside it."""
+    nunroll = headline_cfg().MODEL.PARAMETERS.NUM_UNROLLS
+    with _VDktPaths() as paths:
+        zero_counts()
+        T, raw, variants, best = bench.measure_e2e(E2E_VARIANTS,
+                                                   torch.device("cuda"))
+        got = read_counts()
+    reps = int(os.environ.get("BENCH_REPEATS", "3"))
+    expected = nunroll * (1 + reps * len(raw)) * len(variants)
+    for counter, n in got.items():
+        counts[counter]["e2e"] = n
+    check(got["sense_normal"] == expected and sum(got.values()) == expected,
+          f"compact e2e: launches {got}, expected {expected} sense_normal")
+    check(paths.python == 0 and paths.native > 0,
+          f"compact e2e: VDkt masks native {paths.native}, Python "
+          f"{paths.python}")
+    for v in variants:
+        t0 = time.perf_counter()
+        inputs = [v.make_input(r) for r in raw]
+        host_ms = (time.perf_counter() - t0) * 1e3 / len(raw)
+
+        def copy(x, _v=v):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _to_device(_v, x)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t) * 1e3
+        h2d_ms = float(np.median([copy(x) for x in inputs]))
+        _, busy = profile_device(f"compact e2e {v.name}: one slice",
+                                 lambda _v=v, _x=inputs[0]: _v.recon(_x))
+        print(f"compact e2e {v.name}: {len(raw) * T / best[v.name]:.1f} "
+              f"frames/s ({best[v.name] * 1e3 / len(raw):.2f} ms a slice, "
+              f"best of {reps} over {len(raw)} slices, host work on 2 "
+              f"threads); host transform {host_ms:.2f} ms a slice (one "
+              f"thread), host-to-device {h2d_ms:.3f} ms (median), device "
+              f"{busy:.2f} ms of one profiled slice; {v.mb_per_slice:.4f} MB "
+              "a slice on the wire")
+    print(f"compact e2e: {nunroll} SENSE-normal launches a slice, "
+          f"{got['sense_normal']} in all")
+
+
+def phase_compact():
+    """Compact serving: (a) native VDkt, (b) the wires against the dense
+    path, (c) end-to-end frames/s."""
+    counts = {name: {} for name in COUNTERS}
+    compact_vdkt()
+    compact_serving(counts)
+    compact_e2e(counts)
+    return counts
+
+
 def _entry(name, source, replaces, res, launches):
     """One kernel's item of the `kernels` line: the numbers of its headline
     variant, then every variant it was measured at."""
@@ -3053,6 +3294,7 @@ def main():
     counts["swin_bf16"] = timed(phase_swin_bf16)
     counts["diffusion_bf16"] = timed(phase_diffusion_bf16)
     counts["multigpu"] = timed(phase_multigpu)
+    counts["compact"] = timed(phase_compact)
 
     def by_path(name):
         return {path: c[name] for path, c in counts.items()}

@@ -19,6 +19,20 @@ coils and 2 maps, made by `make_cine_example(seed=b)` through
              the float32 trunk at batch 16 (f32_*)
   recon      unrolled_resnet_recon_throughput, frames/s of the solver under
              inference mode at batch 4, against the reference's 57 frames/s
+  recon_e2e  unrolled_resnet_recon_e2e_throughput: frames/s of serving
+             BENCH_SLICES (16) slices one at a time through
+             `ResampleTransform(12)` and `Reconstructor`, the host's VDkt,
+             normalisation and init included, prefetched on 2 threads, and
+             the host-to-device copy; best of BENCH_REPEATS (3)
+  recon_e2e_compact  the same over the acquired-lines wire
+             (`infer/compact.py`): BENCH_WIRE flat (one float32 buffer a
+             slice, the default), dict or flat16 (one float16 buffer):
+             unrolled_resnet_recon_e2e_compact[_dict|_flat16]_throughput
+  recon_e2e_wire  the three wires interleaved in one process, one line each
+
+The end-to-end lines carry `wire_mb_per_slice`, the bytes a slice copies to
+the device, and are timed as the root bench.py times them: each slice's
+result read back as it comes, the clock stopped after the last.
 
 Environment: BENCH_BATCH pins one explicit batch (remat when it exceeds 1,
 or with BENCH_REMAT), BENCH_DTYPE the trunk dtype (float32 | bfloat16),
@@ -41,6 +55,8 @@ import json
 import os
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -216,6 +232,117 @@ def measure_recon(B: int, dtype: str, device) -> dict:
                 peak_mem_gb=peak)
 
 
+# the end-to-end workloads: the parity protocol's acceleration; their
+# variants, the dense path and the compact wires
+E2E_ACCEL = 12.0
+E2E_WIRES = ("dict", "flat", "flat16")
+
+
+class E2EVariant(NamedTuple):
+    """One end-to-end serving variant: `make_input` runs the host side of a
+    raw slice (kspace, maps), `recon` the copy and the device side."""
+    name: str
+    make_input: Callable
+    recon: Callable
+    mb_per_slice: float
+
+    @property
+    def metric(self) -> str:
+        if self.name == "dense":
+            return "unrolled_resnet_recon_e2e_throughput"
+        suffix = "" if self.name == "flat" else f"_{self.name}"
+        return f"unrolled_resnet_recon_e2e_compact{suffix}_throughput"
+
+
+def e2e_variants(wanted, device):
+    """(T, the raw slices, [E2EVariant]) for the variants `wanted` ("dense"
+    and the names of E2E_WIRES) on BENCH_SLICES slices, all with one set of
+    seeded weights. The compact wires share one line budget: the most
+    lines any frame of the set acquires, rounded up to a multiple of 4."""
+    from dl_swin_gan_tpu_torch.convert import init_params
+    from dl_swin_gan_tpu_torch.infer import Reconstructor, ResampleTransform
+    from dl_swin_gan_tpu_torch.infer.compact import (
+        CompactReconstructor, CompactTransform, FlatWire, pad_lines,
+        wire_bytes,
+    )
+
+    cfg = bench_cfg(os.environ.get("BENCH_DTYPE", "float32"))
+    T, Y, X, C, E = slice_shape()
+    raw = [make_cine_example(T=T, Y=Y, X=X, C=C, E=E, seed=s)[:2]
+           for s in range(_env_int("BENCH_SLICES", 16))]
+    params = init_params(cfg, 0)
+    variants = []
+    if "dense" in wanted:
+        dense = ResampleTransform(E2E_ACCEL, cfg)
+
+        def dense_input(r):
+            return {k: np.asarray(v)[None] for k, v in dense(*r).items()}
+        variants.append(E2EVariant(
+            "dense", dense_input, Reconstructor(cfg, params, device),
+            wire_bytes(dense(*raw[0])) / 1e6))
+    wires = [w for w in wanted if w != "dense"]
+    if wires:
+        compact = CompactTransform(cfg, acceleration=E2E_ACCEL)
+        probe = [compact(*r) for r in raw]
+        n_max = -(-max(p["line_idx"].shape[-1] for p in probe) // 4) * 4
+        template = pad_lines(probe[0], n_max)
+    for name in wires:
+        if name == "dict":
+            wire, mb = None, wire_bytes(template) / 1e6
+
+            def make(r, _n=n_max):
+                return {k: np.asarray(v)[None]
+                        for k, v in pad_lines(compact(*r), _n).items()}
+        else:
+            wire = FlatWire(template, np.float16 if name == "flat16"
+                            else np.float32)
+            mb = wire.length * wire.dtype.itemsize / 1e6
+
+            def make(r, _n=n_max, _w=wire):
+                return _w.encode(pad_lines(compact(*r), _n))[None]
+        variants.append(E2EVariant(
+            name, make, CompactReconstructor(cfg, params, ny=Y, wire=wire,
+                                             device=device), mb))
+    return T, raw, variants
+
+
+def e2e_seconds(raw, variant: E2EVariant) -> float:
+    """Seconds to serve every raw slice through `variant`, the host side
+    prefetched on 2 threads (the timing of the root bench.py and of the
+    reference's scripts/reconstruct.py:211-240)."""
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        futs = [pool.submit(variant.make_input, r) for r in raw]
+        t0 = time.perf_counter()
+        out = [variant.recon(f.result()) for f in futs]
+        _ = np.asarray(out[-1]).ravel()[0]
+        return time.perf_counter() - t0
+
+
+def measure_e2e(wanted, device) -> tuple:
+    """(T, raw slices, variants, {name: best seconds}): one warm-up call of
+    each variant, then BENCH_REPEATS rounds, each variant once a round,
+    in turn."""
+    T, raw, variants = e2e_variants(wanted, device)
+    for v in variants:
+        v.recon(v.make_input(raw[0]))
+    best = {v.name: float("inf") for v in variants}
+    for _ in range(_env_int("BENCH_REPEATS", 3)):
+        for v in variants:
+            best[v.name] = min(best[v.name], e2e_seconds(raw, v))
+    return T, raw, variants, best
+
+
+def bench_e2e(device, wanted) -> list:
+    """One line per end-to-end variant in `wanted`."""
+    T, raw, variants, best = measure_e2e(wanted, device)
+    return [emit(v.metric, round(len(raw) * T / best[v.name], 1),
+                 "frames/s", BASELINE_RECON_FPS, {
+                     "wire_mb_per_slice": round(v.mb_per_slice, 4),
+                     "slices": len(raw), "acceleration": E2E_ACCEL,
+                     **card(device)})
+            for v in variants]
+
+
 def rates(flops: float, dt: float, dtype: str, device,
           prefix: str = "") -> dict:
     """Achieved TFLOP/s and the share of the H100's peak: card numbers, so
@@ -285,7 +412,7 @@ def bench_recon(device) -> dict:
                     "flop_source": FLOP_SOURCE, **card(device)})
 
 
-def main(argv=None) -> dict:
+def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--device", default=None,
                         help="torch device; the GPU when not given")
@@ -294,9 +421,17 @@ def main(argv=None) -> dict:
     workload = os.environ.get("BENCH_WORKLOAD", "")
     if workload == "recon":
         return bench_recon(device)
+    e2e = {"recon_e2e": ["dense"],
+           "recon_e2e_compact": [os.environ.get("BENCH_WIRE", "flat")],
+           "recon_e2e_wire": list(E2E_WIRES)}
+    if workload in e2e:
+        wires = e2e[workload]
+        if not set(wires) <= {"dense", *E2E_WIRES}:
+            raise ValueError(f"BENCH_WIRE={wires[0]!r}: one of {E2E_WIRES}")
+        return bench_e2e(device, wires)
     if workload:
         raise ValueError(f"BENCH_WORKLOAD={workload!r}: the port benches the "
-                         "default train step and 'recon'")
+                         "default train step, 'recon' and " + ", ".join(e2e))
     return bench_train(device)
 
 

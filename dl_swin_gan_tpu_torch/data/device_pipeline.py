@@ -40,27 +40,11 @@ from dl_swin_gan_tpu_torch.ops import masks as ss
 from dl_swin_gan_tpu_torch.ops.fft import fftc, ifftc
 from dl_swin_gan_tpu_torch.ops.llr import BlockOp, decompose
 from dl_swin_gan_tpu_torch.ops.sense import sense_adjoint
+from dl_swin_gan_tpu_torch.ops.utils import sliding_window, time_average
 from dl_swin_gan_tpu_torch.parallel.mesh import RankBatch
 from dl_swin_gan_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
-
-
-def _time_average(data: torch.Tensor, dim: int, eps: float = 1e-6):
-    """Torch twin of host_ops.time_average: the mean over the nonzero
-    samples along `dim`, kept as a singleton axis."""
-    nz = (data.abs() > 1e-12).to(torch.float32)
-    return data.sum(dim, keepdim=True) / (nz.sum(dim, keepdim=True) + eps)
-
-
-def _sliding_window(data: torch.Tensor, window_size: int) -> torch.Tensor:
-    """Torch twin of host_ops.sliding_window on axis 2 (circular view
-    sharing)."""
-    out = []
-    for i in range(data.shape[2]):
-        shifted = torch.roll(data, int(window_size / 2) - i, dims=2)
-        out.append(_time_average(shifted[:, :, :window_size], 2))
-    return torch.cat(out, dim=2)
 
 
 def _maybe_flip(x: torch.Tensor, flag, dim: int) -> torch.Tensor:
@@ -181,7 +165,7 @@ class DevicePipeline:
         # 95th-percentile magnitude normalisation: the k-th largest of the
         # time-averaged adjoint's magnitude (np.partition's value on the
         # host; a quantile would interpolate)
-        averaged = _time_average(masked_kspace, 2)
+        averaged = time_average(masked_kspace, 2)
         magnitude = sense_adjoint(averaged, maps).abs().reshape(-1)
         k = int(round(0.05 * magnitude.numel()))
         scale = (torch.topk(magnitude, k).values[-1] if k > 0
@@ -189,7 +173,7 @@ class DevicePipeline:
 
         masked_kspace = masked_kspace / scale
         target = target / scale
-        init_kspace = (_sliding_window(masked_kspace, 5) if self.slwin_init
+        init_kspace = (sliding_window(masked_kspace, 2, 5) if self.slwin_init
                        else masked_kspace)
         init_image = sense_adjoint(init_kspace, maps)
 

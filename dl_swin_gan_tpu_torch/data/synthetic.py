@@ -134,3 +134,14 @@ def quality_split(split: str, num_files: Optional[int] = None,
     geometry = {**QUALITY_SET, **cut}
     return list(synthetic_files(files if num_files is None else num_files,
                                 seed=QUALITY_SEED + offset, **geometry))
+
+
+def as_h5_files(files, directory: str) -> list:
+    """`files` (records as `synthetic_files` makes them) renamed to the
+    paths `Hdf5Dataset` gives the same files written under `directory`:
+    its glob's os.path.join(directory, name + ".h5"). A seeded
+    `CinePreprocess` draws its crops, flips and mask from that name, so a
+    row held in memory validates on the masks of a run that read the H5
+    files from that directory."""
+    return [(os.path.join(directory, f"{name}.h5"), k, m, t)
+            for name, k, m, t in files]

@@ -1,16 +1,18 @@
 """Undersampling mask generation (host-side numpy).
 
-A copy of the pure-Python path of `ops/masks.py` in the JAX package. The RNG
+A copy of `ops/masks.py` in the JAX package. The RNG
 call sequence (np.random.RandomState) is the reference's, so a given seed
 gives bit-identical masks in both packages; the evaluation masks use the
-parity seed 1000. The JAX package also has a native C twin of VDkt
-(`ops/native.py`); this copy runs the Python path only.
+parity seed 1000. `VDktMaskFunc` takes the native C twin of its Python path
+(`ops/native.py`, bit for bit) when that is built, as the JAX package does.
 """
 
 from math import ceil, floor
 from typing import Optional, Sequence
 
 import numpy as np
+
+from dl_swin_gan_tpu_torch.ops.native import vdkt_mask_native
 
 GOLDEN_RATIO = 0.618034
 
@@ -49,6 +51,14 @@ class VDktMaskFunc(MaskFunc):
     def __call__(self, out_shape, seed=None) -> np.ndarray:
         """out_shape is [1, 1, phases, ky, kx] (3D mode); returns float32 mask."""
         nkx, nky, nphases = out_shape[4], out_shape[3], out_shape[2]
+
+        # the native C path (a bit-exact MT19937 twin); None where the
+        # Python path below is taken
+        native = vdkt_mask_native(nkx, nky, nphases, self.accelerations,
+                                  self.sim_partial_kx, self.sim_partial_ky,
+                                  seed)
+        if native is not None:
+            return native.reshape(out_shape)
 
         self.rng.seed(seed)
         accel = self.choose_acceleration()

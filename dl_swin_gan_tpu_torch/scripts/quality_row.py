@@ -20,7 +20,9 @@ DSLRTrainer (L0 and R0 from the block SVD on the device) and are scored by
 LRReconstructor (`scripts/reconstruct_lr.py`'s steps). `--draw-seed N`
 seeds the training loader's crops, flips and masks from (N, k) for its
 k-th example, so that a row can be repeated; without it they are unseeded,
-as in the JAX package. Under --out it writes `<exam>_1accel.im` and
+as in the JAX package. The train and validate files are named by the
+paths the JAX rows' `Hdf5Dataset` gave them (`fit_data`), since the seeded
+validation draws read the name. Under --out it writes `<exam>_1accel.im` and
 `<exam>_<R>accel.im` CFLs and `eval_<R>accel.csv` (scripts/evaluate.py).
 
     # train the row's network first (the config's 40 epochs on the train
@@ -56,7 +58,7 @@ import logging
 import os
 import time
 
-from dl_swin_gan_tpu_torch.data.synthetic import quality_split
+from dl_swin_gan_tpu_torch.data.synthetic import as_h5_files, quality_split
 from dl_swin_gan_tpu_torch.infer.reconstruct import (
     accel_tag, load_checkpoint_params, make_reconstructor, reconstruct_exam,
 )
@@ -78,6 +80,18 @@ def _cut(args) -> dict:
     return cut
 
 
+def fit_data(cfg, args):
+    """The in-memory train and validate splits, each file named by the path
+    the H5 run's `Hdf5Dataset` gave it under DATASET.TRAIN and DATASET.VAL
+    (`data.synthetic.as_h5_files`): the seeded validation draws read that
+    name, so the row validates on the JAX rows' masks and crops."""
+    cut = _cut(args)
+    return (as_h5_files(quality_split("train", args.files, **cut),
+                        cfg.DATASET.TRAIN[0]),
+            as_h5_files(quality_split("validate", args.files, **cut),
+                        cfg.DATASET.VAL[0]))
+
+
 def train(cfg, args, device):
     """Fit cfg on the in-memory train and validate splits; returns the
     checkpoint directory and the final step."""
@@ -85,10 +99,8 @@ def train(cfg, args, device):
         DiffusionTrainer, DSLRTrainer, GANTrainer, Trainer,
     )
 
-    cut = _cut(args)
     t0 = time.perf_counter()
-    train_files = quality_split("train", args.files, **cut)
-    val_files = quality_split("validate", args.files, **cut)
+    train_files, val_files = fit_data(cfg, args)
     logger.info("quality set: %d train and %d validate files in %.1f s",
                 len(train_files), len(val_files), time.perf_counter() - t0)
     kw = dict(device=device, draw_seed=args.draw_seed)

@@ -24,8 +24,11 @@ reference scores training_kspace_loss on the initial guess, a leftover of
 before its training step moved to the target). With
 EVAL.RECON_SSIM_EVERY_N_EPOCHS it also samples the first validation batch
 from the raw and the EMA weights and scores the SSIM against the target.
-LOGGER.LOG_PREDICTION_EVERY_N_STEPS is not read: the port's trainers write
-no images yet (ROADMAP.md Queue 1 item 12b).
+Every LOGGER.LOG_PREDICTION_EVERY_N_STEPS steps fit samples the step's
+batch from the EMA weights, its noise from a generator of its own seeded by
+the step, and logs the magnitude strip as "Train/sampled_magnitude" (the
+JAX trainer's); fit prepares each batch before its step, so the sampled
+batch carries the step's own DDPM_X split.
 
 Under a mesh t and the noise are drawn for the global batch from the
 step's generator and each rank takes its slice, so the ranks draw
@@ -55,7 +58,7 @@ from dl_swin_gan_tpu_torch.solvers.diffusion_unrolled import (
     build_diffusion_solver, model_kwargs,
 )
 from dl_swin_gan_tpu_torch.train.trainer import (
-    MetricsWriter, Trainer, dropout_seed,
+    MetricsWriter, Trainer, dropout_seed, magnitude_strip,
 )
 from dl_swin_gan_tpu_torch.train.train_state import (
     TrainState, ema_update, full_ema, is_sharded,
@@ -135,6 +138,27 @@ class DiffusionTrainer(Trainer):
         else:
             batch["mask_r"] = batch["mask_p"] = batch["mask"]
         return batch
+
+    def _fit_batch(self, batch):
+        """fit prepares the batch before its step (train_step keeps a
+        prepared batch's split), so that the logged sample sees the batch
+        the step trained on."""
+        return self.prepare_batch(batch)
+
+    def _log_images(self, writer: Optional[MetricsWriter], state: TrainState,
+                    batch) -> None:
+        """Every LOGGER.LOG_PREDICTION_EVERY_N_STEPS steps: conditional
+        hard-DC sampling of the step's prepared batch from the EMA weights
+        (the JAX trainer's; reference train_DiT.py:283-291), the noise from
+        a generator seeded by the step; rank 0 writes the magnitude strip.
+        Every rank samples (a sharded model's EMA copy gathers)."""
+        every = self.cfg.LOGGER.LOG_PREDICTION_EVERY_N_STEPS
+        if not every or state.step % every:
+            return
+        gen = self.sample(self.ema_model(state), batch, seed=state.step)
+        if writer is not None:
+            writer.image(state.step, "Train/sampled_magnitude",
+                         magnitude_strip(gen))
 
     def _target(self, b: Dict[str, torch.Tensor]) -> torch.Tensor:
         target = b["target"]

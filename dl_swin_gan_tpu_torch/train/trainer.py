@@ -63,9 +63,30 @@ def dropout_seed(base: int, step: int) -> int:
     return (int(words[0]) << 31) ^ int(words[1])
 
 
+# DL_SWIN_GAN_PROFILE=<dir>: fit traces its first PROFILE_STEPS steps with
+# torch.profiler into <dir> (the JAX trainer's jax.profiler trace)
+PROFILE_STEPS = 10
+
+
+def _numpy(x) -> np.ndarray:
+    """A host array of a batch entry or a prediction (numpy or tensor)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def magnitude_strip(pred) -> np.ndarray:
+    """The first 8 frames of example 0, map 0 of a complex prediction
+    [N, E, T, Y, X] side by side: the image the trainers log."""
+    frames = np.abs(_numpy(pred)[0, 0])
+    return np.concatenate(list(frames[:8]), axis=1)
+
+
 class MetricsWriter:
     """Scalars as JSON lines in OUTPUT_DIR/metrics.jsonl; also TensorBoard
-    scalars under OUTPUT_DIR/exp when tensorboardX can be imported."""
+    scalars, images and videos (animated GIFs by PIL) under OUTPUT_DIR/exp
+    when tensorboardX can be imported; images and videos are dropped
+    without it."""
 
     def __init__(self, output_dir: str):
         os.makedirs(output_dir, exist_ok=True)
@@ -84,6 +105,39 @@ class MetricsWriter:
         if self._tb is not None:
             for k, v in metrics.items():
                 self._tb.add_scalar(k, float(v), step)
+
+    def image(self, step: int, tag: str, img: np.ndarray) -> None:
+        """A [H, W] image, min-max normalised."""
+        if self._tb is not None:
+            lo, hi = img.min(), img.max()
+            img = (img - lo) / (hi - lo + 1e-12)
+            self._tb.add_image(tag, img[None], step)  # [1, H, W]
+
+    def video(self, step: int, tag: str, frames: np.ndarray, fps: int = 7):
+        """frames: [T, Y, X] float. As the reference's save_video
+        (train.py:81-87): min-max normalised, (y, x) -> (x, y), logged as an
+        animated GIF in an image summary (what add_video writes, without
+        its moviepy dependency)."""
+        if self._tb is None:
+            return
+        try:
+            import io
+            from PIL import Image
+            from tensorboardX.proto.summary_pb2 import Summary
+        except ImportError:
+            return
+        v = frames.transpose(0, 2, 1)                  # [T, X, Y]
+        lo, hi = v.min(), v.max()
+        v = ((v - lo) / (hi - lo + 1e-12) * 255).astype(np.uint8)
+        imgs = [Image.fromarray(f, mode="L").convert("P") for f in v]
+        buf = io.BytesIO()
+        imgs[0].save(buf, format="GIF", save_all=True,
+                     append_images=imgs[1:],
+                     duration=max(1, int(1000 / fps)), loop=0)
+        img = Summary.Image(height=v.shape[1], width=v.shape[2], colorspace=1,
+                            encoded_image_string=buf.getvalue())
+        self._tb.file_writer.add_summary(
+            Summary(value=[Summary.Value(tag=tag, image=img)]), step)
 
     def close(self):
         self._jsonl.close()
@@ -452,12 +506,18 @@ class Trainer:
 
         log_every = cfg.LOGGER.LOG_METRICS_EVERY_N_STEPS
         ckpt_every = cfg.EVAL.CKPT_EVERY_N_STEPS
+        profiler = self._start_profile()
         t_start, steps_done = time.perf_counter(), 0
         for epoch in range(start_epoch, max_epochs):
             for batch in train_loader:
+                batch = self._fit_batch(batch)
                 metrics = self.train_step(state, batch)
                 steps_done += 1
                 step = state.step
+                if profiler is not None and steps_done == PROFILE_STEPS:
+                    self._stop_profile(profiler)
+                    profiler = None
+                self._log_images(writer, state, batch)
                 if log_every and step % log_every == 0 and writer:
                     m = {k: float(v) for k, v in metrics.items()}
                     m["Train/steps_per_sec"] = (
@@ -474,22 +534,102 @@ class Trainer:
                 val_metrics = self.validate(state, val_loader, writer)
                 ckpt.save(state.step, state, metrics=val_metrics)
 
+        if profiler is not None:        # fewer than PROFILE_STEPS steps
+            self._stop_profile(profiler)
         # the final state is always banked (a no-op when already saved)
         ckpt.save(state.step, state)
         if writer is not None:
             writer.close()
         return state
 
+    # -- logging ---------------------------------------------------------------
+    def _start_profile(self):
+        """Under DL_SWIN_GAN_PROFILE=<dir>, a started torch.profiler (CPU,
+        and CUDA on the card) with its directory; else None."""
+        directory = os.environ.get("DL_SWIN_GAN_PROFILE")
+        if not directory:
+            return None
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        logger.info("torch profiler tracing the first %d steps to %s",
+                    PROFILE_STEPS, directory)
+        return prof, directory
+
+    def _stop_profile(self, profiler) -> None:
+        """Stop the trace and write it as <dir>/trace_rank<r>.json (Chrome
+        trace format)."""
+        prof, directory = profiler
+        prof.stop()
+        os.makedirs(directory, exist_ok=True)
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        path = os.path.join(directory, f"trace_rank{rank}.json")
+        prof.export_chrome_trace(path)
+        logger.info("profiler trace written to %s", path)
+
+    def _fit_batch(self, batch):
+        """The loader's batch as fit trains and logs it."""
+        return batch
+
+    def _log_images(self, writer: Optional[MetricsWriter], state: TrainState,
+                    batch) -> None:
+        """Every LOGGER.LOG_IMAGES_EVERY_N_STEPS steps, the validation
+        module's prediction on the step's batch as videos and the mask as an
+        image (the JAX trainer's). Every rank runs the val step (under a
+        mesh it may gather); rank 0 writes. No draw from a training
+        generator, no change to the state; the module's mode is restored."""
+        every = self.cfg.LOGGER.LOG_IMAGES_EVERY_N_STEPS
+        if not every or state.step % every:
+            return
+        model = self._val_params(state)
+        training = model.training
+        try:
+            _, pred = self.val_step(state, batch)
+        finally:
+            model.train(training)
+        if writer is not None:
+            self._log_videos(writer, state.step, batch, pred)
+
+    def _log_videos(self, writer: MetricsWriter, step: int, batch,
+                    pred) -> None:
+        """The reference's log_data (train.py:73-101): init | pred | target
+        magnitude and phase videos, the |pred| - |target| error video and
+        the mask image, of the batch's first example."""
+        b = {k: _numpy(v) for k, v in batch.items()}
+        pred = _numpy(pred)
+        init = b.get("init_image", np.zeros_like(pred))
+        target = b["target"]
+        if self.renormalize:
+            scale = b["scale"].reshape((-1,) + (1,) * (pred.ndim - 1))
+            pred, init, target = pred * scale, init * scale, target * scale
+        images = np.concatenate([init, pred, target], axis=3)[:, 0]
+        err = np.abs(pred[:, 0]) - np.abs(target[:, 0])
+        writer.video(step, "Magnitude", np.abs(images[0]))
+        writer.video(step, "Phase", np.angle(images[0]))
+        writer.video(step, "MagnitudeError", np.abs(err[0]))
+        if "mask" in b:
+            writer.image(step, "Mask", np.abs(b["mask"][0, 0, :, :, -1]))
+
     def validate(self, state: TrainState, val_loader,
                  writer: Optional[MetricsWriter] = None) -> Dict[str, float]:
         acc: Dict[str, list] = {}
+        last = None
         for batch in val_loader:
-            metrics, _ = self.val_step(state, batch)
+            metrics, pred = self.val_step(state, batch)
+            last = (batch, pred)
             for k, v in metrics.items():
                 acc.setdefault(k, []).append(float(v))
         out = {k: float(np.mean(v)) for k, v in acc.items()}
         if writer is not None:
             writer.scalars(state.step, out)
+            if last is not None:
+                writer.image(state.step, "Validate/magnitude",
+                             magnitude_strip(last[1]))
+                self._log_videos(writer, state.step, *last)
         logger.info("validate step %d: %s", state.step,
                     {k: round(v, 5) for k, v in out.items()})
         return out

@@ -1,8 +1,11 @@
 """The quality row of the port: `quality_cfg` against the quality YAMLs, the
 quality set made in memory against the JAX package's H5 files, the
-zero-filled row of exam synthetic_000 against the committed CSV, and the
-driver's --train path at a cut size."""
+zero-filled row of exam synthetic_000 against the committed CSV, the
+--train path of quality_row at a cut size, and the seeded validation
+batches the row feeds against the JAX package's, which read the H5 files'
+paths."""
 
+import argparse
 import csv
 from pathlib import Path
 
@@ -10,13 +13,15 @@ import numpy as np
 import pytest
 import torch
 
+from dl_swin_gan_tpu.config import load_cfg as jax_load_cfg
+from dl_swin_gan_tpu.data.preprocess import CinePreprocess as JaxPreprocess
 from dl_swin_gan_tpu.data.synthetic import write_synthetic_dataset
 from dl_swin_gan_tpu_torch.config import load_cfg
 from dl_swin_gan_tpu_torch.data import DataLoader, Hdf5Dataset, InMemoryDataset
 from dl_swin_gan_tpu_torch.data.preprocess import CinePreprocess
 from dl_swin_gan_tpu_torch.data.synthetic import quality_split
 from dl_swin_gan_tpu_torch.scripts import quality_row
-from dl_swin_gan_tpu_torch.train import CheckpointManager
+from dl_swin_gan_tpu_torch.train import CheckpointManager, DSLRTrainer
 from dl_swin_gan_tpu_torch.utils.headline import quality_cfg
 
 torch.set_num_threads(1)
@@ -131,3 +136,34 @@ def test_driver_needs_cuda_or_explicit_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         quality_row.main(["--kind", "zerofilled", "--files", "1"])
+
+
+def test_validation_batches_match_the_jax_rows():
+    """The DSLR row's seeded validation batches (quality_row.fit_data, the
+    preprocess DSLRTrainer validates with) equal the JAX CinePreprocess's
+    on each validate file under the path the JAX run's Hdf5Dataset gave it,
+    `runs/quality/data/validate/synthetic_00k.h5` (configs/quality/
+    dslr.yaml's DATASET.VAL), bit for bit in the mask; under the bare name
+    the mask differs. Training names are paths too; their draws are
+    unseeded."""
+    args = argparse.Namespace(files=2, slices=1, shape="6,48,96,2")
+    cfg = quality_cfg("float32", "dslr")
+    train_files, val_files = quality_row.fit_data(cfg, args)
+    assert [f[0] for f in train_files] == [
+        f"runs/quality/data/train/synthetic_00{i}.h5" for i in (0, 1)]
+    jcfg = jax_load_cfg(str(REPO / "configs/quality/dslr.yaml"))
+    assert tuple(jcfg.DATASET.VAL) == tuple(cfg.DATASET.VAL)
+    ours = DSLRTrainer(cfg, device="cpu").make_preprocess(
+        aug_node=cfg.AUG_VAL, use_seed=True)
+    ref = JaxPreprocess(jcfg, aug_node=jcfg.AUG_VAL, use_seed=True,
+                        lr_decom=True)
+    for i, (path, ks, mp, tg) in enumerate(val_files):
+        assert path == f"runs/quality/data/validate/synthetic_00{i}.h5"
+        a = ours(ks[0], mp[0], tg[0], path)
+        b = ref(ks[0], mp[0], tg[0], path)
+        assert np.array_equal(a["mask"], np.asarray(b["mask"]))
+        for key in ("kspace", "target", "init_image"):
+            np.testing.assert_allclose(a[key], np.asarray(b[key]),
+                                       rtol=1e-5, atol=1e-6, err_msg=key)
+        bare = ref(ks[0], mp[0], tg[0], Path(path).stem)
+        assert not np.array_equal(a["mask"], np.asarray(bare["mask"]))
