@@ -29,7 +29,9 @@ then exits non-zero and prints no result:
               bfloat16 q, k, v (and g) at the Swin block's shapes and at
               SwinDiff's head_dim 24, against their plain versions, the
               float32 kernels on the same values, SDPA in bfloat16, and
-              their bounds at the bf16 rate
+              their bounds at the bf16 rate; the blocks per SM of each
+              bf16 launch, the bf16 backward's device time by launch and
+              its extra peak memory (no [W, H, N, N] scratch)
   4. main     the headline config (configs/basic/example.yaml: 5 unrolls x 2
               resblocks x 64 features, float32, seeded torch-default weights)
               on 4 synthetic 20x180x64 slices with 8 coils and 2 maps, through
@@ -375,8 +377,10 @@ DIFF_BF16_STEPS = 3
 # card's host 20 s)
 SWIN_BF16_CPU_FRAMES = 8
 # the bfloat16 window-attention kernels against their plain versions: both
-# widen q, k, v (and g) to float32 and round only the outputs, and their
-# float32 values differ by the float32 kernels' KERNEL_REL_TOL, so each
+# take q, k, v (and g) at their exact values (the plain versions widen them,
+# the kernels' bf16 products are exact, p and ds go in as two bf16 terms) and
+# round only the outputs, and their float32 values differ by the float32
+# kernels' KERNEL_REL_TOL, so each
 # rounded element is within one bf16 ulp (of the larger magnitude) plus
 # KERNEL_REL_TOL of the largest element; rel L2 over all within
 # BF16_KERNEL_REL_L2 (a kernel that multiplied in bf16 or rounded p first is
@@ -541,8 +545,8 @@ def sense_inputs(rng, B):
 
 def coil_launches(fn):
     """{kernel: device ms per fn() call} of the coil-pass launches."""
-    return {_short(n): t for n, t in device_ms_by_kernel(fn).items()
-            if "coil_" in n}
+    times = per_call(device_ms_by_kernel(fn))
+    return {_short(n): t for n, t in times.items() if "coil_" in n}
 
 
 def kernels_sense_normal():
@@ -653,8 +657,8 @@ def kernels_window_attention():
             plain_ms = cuda_ms(
                 lambda: WA.window_attention_plain(q, k, v, bias, m))
             library_ms = cuda_ms(lambda: sdpa(q, k, v, attn_mask=full))
-            device_ms = sum(device_ms_by_kernel(
-                lambda: WA.window_attention(q, k, v, bias, m)).values())
+            device_ms = sum(per_call(device_ms_by_kernel(
+                lambda: WA.window_attention(q, k, v, bias, m))).values())
             flops, nbytes = _attention_work(W, H, N, D, nW if masked else 0)
             t_ops = flops / (TF32_FLOPS / 3) * 1e3     # 3xTF32
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -691,21 +695,36 @@ def _attention_bwd_work(W, H, N, D, nW, io_bytes=4):
     return flops, nbytes
 
 
-def device_ms_by_kernel(fn, runs=10):
-    """{kernel name: device ms per fn() call}, from torch.profiler over runs
-    back-to-back calls (L2 warm), after one call outside the profile."""
+def device_ms_by_kernel(fn, runs=10, tries=3):
+    """{kernel name: (device ms per launch, launches per fn() call)} from
+    torch.profiler over runs back-to-back calls (L2 warm), after one call
+    outside the profile. Each kernel's time is over its own count of
+    launches, so it reads right where a profile lost events; a profile
+    that came back empty or lost events (a count that is not a multiple of
+    runs), as happens now and then on the card's machine, is taken again,
+    tries in all."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / 1e3 / runs
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        if events and all(e.count % runs == 0 for e in events):
+            break
+    return {e.key: (e.self_device_time_total / 1e3 / e.count, e.count / runs)
+            for e in events}
+
+
+def per_call(times):
+    """{kernel name: device ms per fn() call} of device_ms_by_kernel's
+    {name: (ms per launch, launches per call)}."""
+    return {n: ms * k for n, (ms, k) in times.items()}
 
 
 def _short(name):
@@ -786,7 +805,7 @@ def kernels_window_attention_bwd():
                       f"{KERNEL_REL_TOL} at B={B} mask={masked}")
 
             library = sdpa_backward(q, k, v, bias, m, g)
-            lib_kernels = device_ms_by_kernel(library)
+            lib_kernels = per_call(device_ms_by_kernel(library))
             backend = _sdpa_backend(lib_kernels)
             lib_dq = library()[0]
             lib_rel = ((lib_dq - plain[0]).abs().max()
@@ -796,7 +815,7 @@ def kernels_window_attention_bwd():
                 lambda: WA.window_attention_bwd_plain(q, k, v, bias, m, g))
             library_ms = cuda_ms(library)
             launches = {_short(n): t for n, t in
-                        device_ms_by_kernel(kernel).items()}
+                        per_call(device_ms_by_kernel(kernel)).items()}
             lib_device_ms = sum(lib_kernels.values())
             del library
             flops, nbytes = _attention_bwd_work(W, H, N, D,
@@ -864,6 +883,19 @@ def _bf16_attention_cases():
     return cases
 
 
+def extra_peak_mb(fn):
+    """MB of device memory one fn() call allocates above what was allocated
+    before it, at its peak."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    result = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del result
+    return (peak - base) / 1e6
+
+
 def kernels_window_attention_bf16():
     """Both window-attention kernels with bfloat16 q, k, v (and g): each
     against its plain version (bf16 outputs within one ulp; dbias and lse
@@ -875,10 +907,18 @@ def kernels_window_attention_bf16():
     products at the bf16 tensor-core rate, the 3xTF32 figure beside. The
     backward's delta reads the forward's float32 output (out32): the
     backward handed the rounded bf16 output instead shows what that choice
-    buys. Returns ({tag: forward numbers}, {tag: backward numbers})."""
+    buys. Beside them: the blocks per SM of each bf16 launch, the
+    backward's device ms by launch and the extra peak memory of one
+    backward call (no [W, H, N, N] scratch on the bf16 path). Returns
+    ({tag: forward numbers}, {tag: backward numbers})."""
     rng = np.random.RandomState(SEED + 4)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     fwd_res, bwd_res = {}, {}
+    blocks = {D: {"forward": WA.blocks_per_sm(D, torch.bfloat16),
+                  **WA.bwd_bf16_blocks_per_sm(D)}
+              for D in sorted({c[4] for c in _bf16_attention_cases()})}
+    print(f"kernel window_attention bf16: blocks per SM by head_dim and "
+          f"launch {blocks}")
     for tag, W, H, N, D, mask in _bf16_attention_cases():
         q, k, v, g = (torch.from_numpy(rng.standard_normal(
             (W, H, N, D)).astype(np.float32)).cuda().bfloat16()
@@ -960,6 +1000,13 @@ def kernels_window_attention_bf16():
                 mbytes=nbytes / 1e6, dtype="bfloat16")
         bwd_res[tag]["rel_err_by_grad"] = rels
         bwd_res[tag]["rel_l2_with_delta_from_bf16_out"] = delta_rels
+        bwd_res[tag]["device_ms_by_launch"] = {
+            _short(n): ms
+            for n, (ms, _) in device_ms_by_kernel(backward).items()}
+        bwd_res[tag]["extra_peak_mb"] = extra_peak_mb(backward)
+        fwd_res[tag]["blocks_per_sm"] = blocks[D]["forward"]
+        bwd_res[tag]["blocks_per_sm"] = {n: b for n, b in blocks[D].items()
+                                         if n != "forward"}
         fwd_res[tag]["train_forward_ms"] = cuda_ms(
             lambda: WA.window_attention_fwd(q, k, v, bias, mask))
         del library_bwd
@@ -979,7 +1026,12 @@ def kernels_window_attention_bf16():
               + "; with delta from the bf16-rounded out instead of out32: "
               + ", ".join(f"{n} {x:.3e}" for n, x in delta_rels.items())
               + f"; the forward with lse and out32 (training's) "
-              f"{fwd_res[tag]['train_forward_ms']:.4f} ms")
+              f"{fwd_res[tag]['train_forward_ms']:.4f} ms; device ms by "
+              "launch " + ", ".join(
+                  f"{n} {t:.4f}"
+                  for n, t in bwd_res[tag]["device_ms_by_launch"].items())
+              + f"; extra peak memory of one call "
+              f"{bwd_res[tag]['extra_peak_mb']:.1f} MB")
     return fwd_res, bwd_res
 
 

@@ -123,11 +123,13 @@ def main():
             for name, fn in versions.items():
                 row[name]["device_ms_by_launch"] = {
                     CS._short(n): t
-                    for n, t in CS.device_ms_by_kernel(fn).items()}
+                    for n, t in CS.per_call(
+                        CS.device_ms_by_kernel(fn)).items()}
             library = CS.sdpa_backward(q, k, v, bias, m, g)
             row["sdpa_backward"] = {
                 "ms": [CS.cuda_ms(library)],
-                "device_ms": sum(CS.device_ms_by_kernel(library).values())}
+                "device_ms": sum(CS.per_call(
+                    CS.device_ms_by_kernel(library)).values())}
             del library
             key = f"B={B} mask={'shift' if masked else 'none'}"
             results[key] = row

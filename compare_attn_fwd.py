@@ -191,14 +191,8 @@ def probe():
 
 
 def device_ms(fn):
-    """torch.profiler's device ms per fn() call; a profile that came back
-    empty, as happens now and then on this card's machine, is taken again
-    (three tries)."""
-    for _ in range(3):
-        ms = sum(CS.device_ms_by_kernel(fn).values())
-        if ms > 0:
-            break
-    return ms
+    """torch.profiler's device ms per fn() call."""
+    return sum(CS.per_call(CS.device_ms_by_kernel(fn)).values())
 
 
 def plain_lse(q, k, bias, mask):

@@ -127,11 +127,12 @@ def measure(versions, plain, library):
         row[name]["ms"].append(CS.cuda_ms(versions[name]))
     for name, fn in versions.items():
         launches = row[name]["device_ms_by_launch"] = {}
-        for n, t in CS.device_ms_by_kernel(fn).items():
+        for n, t in CS.per_call(CS.device_ms_by_kernel(fn)).items():
             launches[CS._short(n)] = launches.get(CS._short(n), 0.0) + t
     row["library"] = {"rel_err": rel_err(library(), ref),
                       "ms": [CS.cuda_ms(library)],
-                      "device_ms": sum(CS.device_ms_by_kernel(library).values())}
+                      "device_ms": sum(CS.per_call(
+                          CS.device_ms_by_kernel(library)).values())}
     return row
 
 

@@ -8,11 +8,11 @@
 // multiple of 8 (the mma's k): at that stride every fragment load below is
 // free of bank conflicts.
 //
-// The element type T of q, k, v and g (and of what the kernels store for
-// them) is float or __nv_bfloat16. A bf16 value widens to float exactly,
-// where a tile is staged or a fragment is built, so the arithmetic after
-// that is the float32 kernels' own; bf16 rounding happens only in the final
-// stores (to nearest, ties to even, as torch's .to(torch.bfloat16)).
+// The staging, planes and A loads here serve the float32 kernels; the bf16
+// kernels stage their tiles as they are (mma_bf16.cuh) and round only
+// their final stores to bf16 (store2: to nearest, ties to even, as torch's
+// .to(torch.bfloat16)). Also shared: the cp.async copies and the bias and
+// mask reads at C-fragment positions.
 
 #pragma once
 
@@ -25,34 +25,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-// bf16 -> float is the 16 bits moved into the high half of the word
-__device__ __forceinline__ float bf16_bits(uint32_t b) {
-  return __uint_as_float(b << 16);
-}
-
-__device__ __forceinline__ float ld_f32(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ld_f32(const bf16* p) {
-  return bf16_bits(__ldg(reinterpret_cast<const unsigned short*>(p)));
-}
-
-// four consecutive elements from shared memory, as float (p 8-byte aligned
-// for bf16, 16-byte for float)
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const bf16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(bf16_bits(u.x & 0xffffu), __uint_as_float(u.x & 0xffff0000u),
-                     bf16_bits(u.y & 0xffffu), __uint_as_float(u.y & 0xffff0000u));
-}
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-
 __device__ __forceinline__ void store1(float* p, float a) { *p = a; }
-__device__ __forceinline__ void store1(bf16* p, float a) {
-  *p = __float2bfloat16_rn(a);
-}
 
 // two consecutive elements (p 8-byte aligned for float, 4-byte for bf16)
 __device__ __forceinline__ void store2(float* p, float a, float b) {
@@ -123,9 +96,9 @@ __device__ __forceinline__ AFrag a_from_c(const float c[4]) {
 
 // A operand straight from device memory: rows r0 .. r0+15 of x [N, D]
 // (times mult, in float32), zero past row N-1 and column D-1
-template <int D, typename T>
+template <int D>
 __device__ __forceinline__ void load_a_global(AFrag f[Dims<D>::kSteps],
-                                              const T* x, int r0, int N,
+                                              const float* x, int r0, int N,
                                               float mult, int g, int t) {
 #pragma unroll
   for (int ks = 0; ks < Dims<D>::kSteps; ++ks) {
@@ -134,7 +107,7 @@ __device__ __forceinline__ void load_a_global(AFrag f[Dims<D>::kSteps],
       const int r = r0 + g + 8 * (i & 1);
       const int d = 8 * ks + t + 4 * (i >> 1);
       const float v =
-          (r < N && d < D) ? ld_f32(x + (long long)r * D + d) * mult : 0.f;
+          (r < N && d < D) ? __ldg(x + (long long)r * D + d) * mult : 0.f;
       split(v, f[ks].hi[i], f[ks].lo[i]);
     }
   }
@@ -170,19 +143,15 @@ __device__ __forceinline__ void cp_async_wait_one() {
 }
 
 // rows i0 .. i0+63 of x [N, D] into dst [64 * D], zero past row N-1; the
-// block's Threads threads share the copies, four elements each (D % 4 ==
-// 0, so a copy never straddles two rows): 16 bytes of float, 8 of bf16.
-// A bf16 row of D = 20 is 40 bytes, so 16-byte copies would misalign on
-// every other row; 8-byte ones stay aligned for every N.
-template <int D, int Threads, typename T>
-__device__ __forceinline__ void stage_raw(T* dst, const T* x, int i0, int N) {
-  const T* src = x + (long long)i0 * D;
+// block's Threads threads share the copies, 16 bytes each (D % 4 == 0, so
+// a copy never straddles two rows)
+template <int D, int Threads>
+__device__ __forceinline__ void stage_raw(float* dst, const float* x, int i0,
+                                          int N) {
+  const float* src = x + (long long)i0 * D;
   for (int e = threadIdx.x; e < kTile * D / 4; e += Threads) {
     const bool ok = i0 + 4 * e / D < N;
-    if constexpr (sizeof(T) == 4)
-      cp_async16(dst + 4 * e, ok ? src + 4 * e : x, ok);
-    else
-      cp_async8(dst + 4 * e, ok ? src + 4 * e : x, ok);
+    cp_async16(dst + 4 * e, ok ? src + 4 * e : x, ok);
   }
 }
 
@@ -190,8 +159,8 @@ __device__ __forceinline__ void stage_raw(T* dst, const T* x, int i0, int N) {
 // time, zero in the padding columns; with Ones, mult in the first padding
 // column (column D, where D % 8 != 0), so that a product with the tile sums
 // the other operand's rows there
-template <int D, int Threads, bool Ones = false, typename T>
-__device__ __forceinline__ void split_tile(uint32_t* plane, const T* raw,
+template <int D, int Threads, bool Ones = false>
+__device__ __forceinline__ void split_tile(uint32_t* plane, const float* raw,
                                            float mult) {
   using C = Dims<D>;
   constexpr int kQuads = C::kPad / 4;
@@ -199,7 +168,7 @@ __device__ __forceinline__ void split_tile(uint32_t* plane, const T* raw,
     const int r = e / kQuads;
     const int d = 4 * (e % kQuads);
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (d < D) x = load4(raw + r * D + d);
+    if (d < D) x = *reinterpret_cast<const float4*>(raw + r * D + d);
     else if (Ones && d == D) x.x = 1.f;
     uint4 hi, lo;
     split(x.x * mult, hi.x, lo.x);

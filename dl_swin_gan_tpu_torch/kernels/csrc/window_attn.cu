@@ -19,15 +19,15 @@
 //   out32         [W, H, N, D]    bf16 only: the output in float32 as well,
 //                                 or null; the backward's delta reads it
 //
-// bfloat16 is the Pallas kernel's bf16 contract: q, k and v widen to float32
-// exactly as their tiles are staged, everything after runs as in float32,
-// and only the stored output rounds to bf16. The backward's delta =
-// rowsum(g o out) would lose about 8 bits if it read that rounded output,
-// where the Pallas backward's rowsum(dp o p) is float32 throughout; so when
-// the backward will run, the forward also writes out32 (4 more bytes per
-// element) and the backward reads that.
+// bfloat16 is the Pallas kernel's bf16 contract: q, k and v are widened to
+// float32 exactly, everything after runs as in float32, and only the stored
+// output rounds to bf16. The backward's delta = rowsum(g o out) would lose
+// about 8 bits if it read that rounded output, where the Pallas backward's
+// rowsum(dp o p) is float32 throughout; so when the backward will run, the
+// forward also writes out32 (4 more bytes per element) and the backward
+// reads that.
 //
-// Arithmetic: both products run on the tensor cores as 3xTF32
+// Arithmetic, float32: both products run on the tensor cores as 3xTF32
 // (`mma.sync.m16n8k8`, mma_tf32.cuh), as in the backward: each float32
 // operand is split into hi = tf32(x) and lo = tf32(x - hi), rounded to
 // nearest, and a product accumulates a_hi b_lo + a_lo b_hi, then a_hi b_hi,
@@ -45,11 +45,27 @@
 // reaches about 300 TFLOP/s of TF32 on the H100 (compare_attn_fwd.py
 // --probe), and the padding to 24 adds a fifth: 0.018 ms. Every block also
 // reads its rows of bias[h] and mask[w % nW] through L2: 77 MB of each per
-// slice (16 MB distinct). With bf16 I/O q, k, v and out move half the
-// bytes (23 MB per slice: 0.0068 ms), and at the bf16 tensor-core rate
-// (989 TFLOP/s) the products could take 0.0016 ms: the bytes bound it.
-// This kernel keeps the 3xTF32 products for bf16 too (a bf16 value splits
-// into hi = itself and lo = 0, so two of the three mma are wasted there).
+// slice (16 MB distinct).
+//
+// Arithmetic, bf16 (window_attn_fwd_bf16_kernel): a product of two bf16
+// values is exact in float32, so s = q k^T is one bf16 tensor-core product
+// (`mma.sync.m16n8k16` with bf16 operands and float32 accumulators, plus
+// one m16n8k8 where head_dim 20 pads to 24; mma_bf16.cuh), on q unscaled,
+// the scale then applied to s in float32. p is float32: it is split into
+// p_hi = bf16(p) and p_lo = bf16(p - p_hi), and o += p_lo v + p_hi v, two
+// bf16 products that keep about 2^-17 of p (p_hi alone, 2^-9, would miss
+// the 1e-4 limit; tests/test_torch_window_attn.py emulates both). The
+// softmax, the bias and mask reads and the stores are the float32
+// kernel's. Bound: q, k, v and out move half the bytes (23 MB per slice:
+// 0.0068 ms), and at the bf16 tensor-core rate (989 TFLOP/s) the products
+// take 0.0016 ms: the bytes bound it. What the design does about that: K
+// and V are staged as they are (bf16, no widening, no hi and lo planes:
+// 12 KB of shared memory a block at head_dim 20 against 38 KB), read by
+// `ldmatrix` (V by `ldmatrix.trans`) at a row stride of an odd number of
+// 16-byte units, free of bank conflicts; a chunk of 16 keys costs 10 bf16
+// mma per 16 rows where 3xTF32 took 36 TF32 ones; and p's C fragments are
+// the A operand as they stand (two adjacent n-tiles make one k16 step), so
+// no column permutation is needed.
 //
 // Design, the backward's kv pass mirrored (window_attn_bwd.cu). A block
 // takes one (window, head) and kRows = 128 query rows: 4 warps of two
@@ -72,8 +88,11 @@
 // that product also sums p's rows; else each lane sums its share. At the
 // end each row is divided by its sum. Keys past N get p = 0; a chunk wholly
 // past N is skipped; query rows past N read zeros (and a clamped bias row)
-// and store nothing. Measured against the fp32-FMA kernel it replaces, SDPA
-// and the designs tried on the way: PERF.md, Findings.
+// and store nothing. The bf16 kernel has the same blocks, warps, chunks and
+// softmax, its tiles staged raw as above (the ones column in V's padding
+// too). Measured against the fp32-FMA kernel it replaces, SDPA, the 3xTF32
+// bf16 kernel before it and the designs tried on the way: PERF.md,
+// Findings.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -82,6 +101,7 @@
 #include <type_traits>
 
 #include "attn_tiles.cuh"  // Dims, tiles and fragments, kTile
+#include "mma_bf16.cuh"    // Bf16Dims, bf16 tiles, mma_dims, mma_split
 #include "mma_tf32.cuh"    // AFrag, BFrag, mma3
 
 namespace {
@@ -99,16 +119,15 @@ constexpr float kLog2e = 1.4426950408889634f;
 // fragments outgrow that cap
 constexpr int min_blocks(int D) { return D <= 20 ? 3 : 2; }
 
-// dynamic shared memory of a block, in bytes: two raw (K, V) stages of T
-// and the split K and V planes
-template <int D, typename T>
+// dynamic shared memory of a block, in bytes: two raw (K, V) stages and
+// the split K and V planes
+template <int D>
 constexpr size_t fwd_smem() {
   using C = Dims<D>;
-  return sizeof(T) * 2 * 2 * C::kRaw + sizeof(float) * 4 * C::kPlane;
+  return sizeof(float) * (2 * 2 * C::kRaw + 4 * C::kPlane);
 }
-// it depends on head_dim and T only, and the widest fits a Hopper block's
-// opt-in
-static_assert(fwd_smem<32, float>() <= 232448, "shared memory past the opt-in");
+// it depends on head_dim only, and the widest fits a Hopper block's opt-in
+static_assert(fwd_smem<32>() <= 232448, "shared memory past the opt-in");
 
 __device__ __forceinline__ float ex2(float x) {   // 2^x, approximate
   float y;
@@ -171,20 +190,21 @@ __device__ __forceinline__ void online_softmax(
     }
 }
 
-template <int D, typename T>
+template <int D>
 __global__ void __launch_bounds__(kThreads, min_blocks(D))
-window_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v,
+window_attn_fwd_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v,
                        const float* __restrict__ bias,
-                       const float* __restrict__ mask, T* __restrict__ out,
-                       float* __restrict__ out32, float* __restrict__ lse,
+                       const float* __restrict__ mask,
+                       float* __restrict__ out, float* __restrict__ lse,
                        int H, int N, int nW, float scale) {
   using C = Dims<D>;
   // the row sums come out of the p v product where V has a padding column
   constexpr bool kOnes = D % 8 != 0;
   constexpr int kStage = 2 * C::kRaw;   // raw k, v
   extern __shared__ float4 smem4[];
-  T* raw = reinterpret_cast<T*>(smem4);
+  float* raw = reinterpret_cast<float*>(smem4);
   uint32_t* kpl = reinterpret_cast<uint32_t*>(raw + 2 * kStage);
   uint32_t* vpl = kpl + 2 * C::kPlane;
 
@@ -220,7 +240,7 @@ window_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int tiles = (N + kTile - 1) / kTile;
   auto prefetch = [&](int jt) {
-    T* st = raw + (jt & 1) * kStage;
+    float* st = raw + (jt & 1) * kStage;
     stage_raw<D, kThreads>(st, k + rows * D, jt * kTile, N);
     stage_raw<D, kThreads>(st + C::kRaw, v + rows * D, jt * kTile, N);
   };
@@ -232,7 +252,7 @@ window_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     cp_async_commit();
     cp_async_wait_one();             // tile jt has landed
     __syncthreads();
-    const T* st = raw + (jt & 1) * kStage;
+    const float* st = raw + (jt & 1) * kStage;
     split_tile<D, kThreads>(kpl, st, 1.f);
     split_tile<D, kThreads, kOnes>(vpl, st + C::kRaw, 1.f);
     __syncthreads();
@@ -305,6 +325,145 @@ window_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const float a = acc[gi][nd][2 * r] / t;
           const float b = acc[gi][nd][2 * r + 1] / t;
           store2(out + (rows + i) * D + d, a, b);
+        }
+      }
+      if (lse != nullptr && tc == 0) lse[rows + i] = mx[gi][r] + logf(t);
+    }
+}
+
+// The bf16 path: q, k and v as they are, exact bf16 products. A block takes
+// one (window, head) and kRows query rows as the float32 kernel does, each
+// 16-row group's rows held unscaled as bf16 A fragments; K and V tiles are
+// staged raw (bf16, [64][kStride], mma_bf16.cuh) and read by ldmatrix.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 3)
+window_attn_fwd_bf16_kernel(const bf16* __restrict__ q,
+                            const bf16* __restrict__ k,
+                            const bf16* __restrict__ v,
+                            const float* __restrict__ bias,
+                            const float* __restrict__ mask,
+                            bf16* __restrict__ out, float* __restrict__ out32,
+                            float* __restrict__ lse, int H, int N, int nW,
+                            float scale) {
+  using C = Bf16Dims<D>;
+  constexpr int CB = C::kBlocks;
+  // the row sums come out of the p v product where V has a padding column
+  constexpr bool kOnes = D % 8 != 0;
+  extern __shared__ float4 smem4[];
+  bf16* stg = reinterpret_cast<bf16*>(smem4);   // [stage][K, V] tiles
+  for (int st = 0; st < 2; ++st) {   // padding columns, set once
+    pad_tile<D, kThreads>(stg + 2 * st * C::kTileElems);
+    pad_tile<D, kThreads, kOnes>(stg + (2 * st + 1) * C::kTileElems);
+  }
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int gr = lane / 4, tc = lane % 4;   // the mma's group, thread in group
+  const int h = blockIdx.y, w = blockIdx.z;
+  const long long rows = ((long long)w * H + h) * N;   // row 0 of (w, h)
+  const float* bh = bias + (long long)h * N * N;
+  const float* mw = mask ? mask + (long long)(w % nW) * N * N : nullptr;
+  const int i0 = blockIdx.x * kRows + 16 * kGroups * warp;
+  const bool live = i0 < N;   // a warp wholly past N only stages tiles
+
+  uint32_t qa[kGroups][CB][2];
+  float acc[kGroups][CB][4] = {};
+  float mx[kGroups][2], sum[kGroups][2] = {};
+  int bo[kGroups][2];
+  float nb[kGroups][kChunkTiles][4], nm[kGroups][kChunkTiles][4] = {};
+#pragma unroll
+  for (int gi = 0; gi < kGroups; ++gi) {
+    const int r0 = i0 + 16 * gi;
+    a_global_bf16<D>(qa[gi], q + rows * D, r0, N, gr, tc);
+    mx[gi][0] = mx[gi][1] = -CUDART_INF_F;
+    bo[gi][0] = bias_row_offset(r0 + gr, tc, N);
+    bo[gi][1] = bias_row_offset(r0 + gr + 8, tc, N);
+    load_bias_rows<kChunkTiles>(nb[gi], bh, bo[gi][0], bo[gi][1], 0, tc, N);
+    if (mw)
+      load_bias_rows<kChunkTiles>(nm[gi], mw, bo[gi][0], bo[gi][1], 0, tc, N);
+  }
+
+  const int tiles = (N + kTile - 1) / kTile;
+  auto prefetch = [&](int jt) {
+    bf16* st = stg + 2 * (jt & 1) * C::kTileElems;
+    stage_bf16<D, kThreads>(st, k + rows * D, jt * kTile, N);
+    stage_bf16<D, kThreads>(st + C::kTileElems, v + rows * D, jt * kTile, N);
+  };
+  prefetch(0);
+  cp_async_commit();
+  for (int jt = 0; jt < tiles; ++jt) {
+    __syncthreads();                 // every warp is done with tile jt - 1
+    if (jt + 1 < tiles) prefetch(jt + 1);
+    cp_async_commit();
+    cp_async_wait_one();             // tile jt has landed
+    __syncthreads();
+    const bf16* kt = stg + 2 * (jt & 1) * C::kTileElems;
+    const bf16* vt = kt + C::kTileElems;
+
+    const int j0 = jt * kTile;
+#pragma unroll 1
+    for (int c = 0; live && c < kTile && j0 + c < N; c += kChunk) {
+      // s = q k^T over the chunk's keys, exact; then times the scale
+      uint32_t kb[kChunkTiles][CB];
+      b_rows_bf16<D>(kb, kt, c, lane);
+      float sc[kGroups][kChunkTiles][4] = {};
+#pragma unroll
+      for (int gi = 0; gi < kGroups; ++gi)
+#pragma unroll
+        for (int n = 0; n < kChunkTiles; ++n) {
+          mma_dims<CB>(sc[gi][n], qa[gi], kb[n]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[gi][n][e] *= scale;
+        }
+      const bool ragged = j0 + c + kChunk > N;
+#pragma unroll
+      for (int gi = 0; gi < kGroups; ++gi) {
+        online_softmax<CB, !kOnes>(sc[gi], nb[gi], nm[gi], mx[gi], sum[gi],
+                                   acc[gi], j0 + c + 2 * tc, ragged, N);
+        const int next = j0 + c + kChunk;
+        load_bias_rows<kChunkTiles>(nb[gi], bh, bo[gi][0], bo[gi][1], next,
+                                    tc, N);
+        if (mw)
+          load_bias_rows<kChunkTiles>(nm[gi], mw, bo[gi][0], bo[gi][1], next,
+                                      tc, N);
+      }
+      // o += (p_hi + p_lo) v over the chunk's keys: p's C fragments are the
+      // A operand as they stand, V's B fragments come by ldmatrix.trans
+      uint32_t vb[CB][2];
+      b_trans_bf16<D>(vb, vt, c, lane);
+#pragma unroll
+      for (int gi = 0; gi < kGroups; ++gi) {
+        uint32_t ph[4], pl[4];
+        a_from_c2(sc[gi][0], sc[gi][1], ph, pl);
+#pragma unroll
+        for (int nd = 0; nd < CB; ++nd) mma_split(acc[gi][nd], ph, pl, vb[nd]);
+      }
+    }
+  }
+
+  // each row's sum (V's ones column, or the four lanes' shares); out =
+  // acc / sum, and the rows' log-sum-exp when the backward asked for it
+#pragma unroll
+  for (int gi = 0; gi < kGroups; ++gi)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float t;
+      if (kOnes) {   // column D of the accumulator, on lane (g, (D % 8) / 2)
+        t = __shfl_sync(0xffffffffu, acc[gi][D / 8][2 * r],
+                        (lane & ~3) | (D % 8) / 2);
+      } else {
+        t = sum[gi][r];
+        t += __shfl_xor_sync(0xffffffffu, t, 1);
+        t += __shfl_xor_sync(0xffffffffu, t, 2);
+      }
+      const int i = i0 + 16 * gi + gr + 8 * r;
+      if (i >= N) continue;
+#pragma unroll
+      for (int nd = 0; nd < CB; ++nd) {
+        const int d = 8 * nd + 2 * tc;   // even, and D % 4 == 0: d + 1 < D
+        if (d < D) {
+          const float a = acc[gi][nd][2 * r] / t;
+          const float b = acc[gi][nd][2 * r + 1] / t;
+          store2(out + (rows + i) * D + d, a, b);
           if (out32 != nullptr) store2(out32 + (rows + i) * D + d, a, b);
         }
       }
@@ -312,34 +471,63 @@ window_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
-template <int D, typename T>
-cudaError_t set_smem() {
-  return cudaFuncSetAttribute(window_attn_fwd_kernel<D, T>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(fwd_smem<D, T>()));
+template <int D>
+constexpr size_t fwd_bf16_smem() {   // two stages of K and V tiles
+  return sizeof(bf16) * 2 * 2 * Bf16Dims<D>::kTileElems;
 }
 
-template <int D, typename T>
-int launch(const void* q, const void* k, const void* v, const void* bias,
-           const void* mask, void* out, void* out32, void* lse, int W, int H,
-           int N, int nW, float scale, cudaStream_t stream) {
-  const cudaError_t err = set_smem<D, T>();
-  if (err != cudaSuccess) return static_cast<int>(err);
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, const void* bias,
+                const void* mask, void* out, void* out32, void* lse, int W,
+                int H, int N, int nW, float scale, cudaStream_t stream) {
   const dim3 grid((N + kRows - 1) / kRows, H, W);
-  window_attn_fwd_kernel<D, T><<<grid, kThreads, fwd_smem<D, T>(), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(bias),
-      static_cast<const float*>(mask), static_cast<T*>(out),
+  window_attn_fwd_bf16_kernel<D><<<grid, kThreads, fwd_bf16_smem<D>(),
+                                   stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const float*>(bias),
+      static_cast<const float*>(mask), static_cast<bf16*>(out),
       static_cast<float*>(out32), static_cast<float*>(lse), H, N, nW, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, typename T>
+template <int D>
+int blocks_per_sm_bf16() {
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, window_attn_fwd_bf16_kernel<D>, kThreads, fwd_bf16_smem<D>()) !=
+      cudaSuccess)
+    return -1;
+  return n;
+}
+
+template <int D>
+cudaError_t set_smem() {
+  return cudaFuncSetAttribute(window_attn_fwd_kernel<D>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(fwd_smem<D>()));
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* bias,
+           const void* mask, void* out, void* lse, int W, int H, int N,
+           int nW, float scale, cudaStream_t stream) {
+  const cudaError_t err = set_smem<D>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((N + kRows - 1) / kRows, H, W);
+  window_attn_fwd_kernel<D><<<grid, kThreads, fwd_smem<D>(), stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(bias),
+      static_cast<const float*>(mask), static_cast<float*>(out),
+      static_cast<float*>(lse), H, N, nW, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
 int blocks_per_sm() {
   int n = 0;
-  if (set_smem<D, T>() != cudaSuccess ||
+  if (set_smem<D>() != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, window_attn_fwd_kernel<D, T>, kThreads, fwd_smem<D, T>()) !=
+          &n, window_attn_fwd_kernel<D>, kThreads, fwd_smem<D>()) !=
           cudaSuccess)
     return -1;
   return n;
@@ -367,22 +555,6 @@ long long with_head_dim(int D, F f, long long otherwise) {
   }
 }
 
-// the launch of either element type on `stream` for head_dim D, or
-// cudaErrorInvalidValue for a head_dim the kernel is not built for
-template <typename T>
-int launch_any(const void* q, const void* k, const void* v, const void* bias,
-               const void* mask, void* out, void* out32, void* lse, int W,
-               int H, int N, int D, int nW, float scale, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(with_head_dim(
-      D,
-      [&](auto d) {
-        return static_cast<long long>(launch<decltype(d)::value, T>(
-            q, k, v, bias, mask, out, out32, lse, W, H, N, nW, scale, s));
-      },
-      cudaErrorInvalidValue));
-}
-
 }  // namespace
 
 extern "C" {
@@ -394,7 +566,7 @@ int window_attn_blocks_per_sm(int D) {
   return static_cast<int>(with_head_dim(
       D,
       [](auto d) {
-        return (long long)blocks_per_sm<decltype(d)::value, float>();
+        return (long long)blocks_per_sm<decltype(d)::value>();
       },
       -1));
 }
@@ -408,8 +580,14 @@ int window_attn_launch(const void* q, const void* k, const void* v,
                        const void* bias, const void* mask, void* out,
                        void* lse, int W, int H, int N, int D, int nW,
                        float scale, void* stream) {
-  return launch_any<float>(q, k, v, bias, mask, out, nullptr, lse, W, H, N,
-                           D, nW, scale, stream);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(with_head_dim(
+      D,
+      [&](auto d) {
+        return static_cast<long long>(launch<decltype(d)::value>(
+            q, k, v, bias, mask, out, lse, W, H, N, nW, scale, s));
+      },
+      cudaErrorInvalidValue));
 }
 
 // The same with q, k, v and out bfloat16 (bias, mask and lse float32);
@@ -419,8 +597,24 @@ int window_attn_bf16_launch(const void* q, const void* k, const void* v,
                             const void* bias, const void* mask, void* out,
                             void* out32, void* lse, int W, int H, int N,
                             int D, int nW, float scale, void* stream) {
-  return launch_any<bf16>(q, k, v, bias, mask, out, out32, lse, W, H, N, D,
-                          nW, scale, stream);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(with_head_dim(
+      D,
+      [&](auto d) {
+        return static_cast<long long>(launch_bf16<decltype(d)::value>(
+            q, k, v, bias, mask, out, out32, lse, W, H, N, nW, scale, s));
+      },
+      cudaErrorInvalidValue));
+}
+
+// Blocks of the bf16 kernel that fit one SM at head_dim D, or -1 as above.
+int window_attn_bf16_blocks_per_sm(int D) {
+  return static_cast<int>(with_head_dim(
+      D,
+      [](auto d) {
+        return (long long)blocks_per_sm_bf16<decltype(d)::value>();
+      },
+      -1));
 }
 
 const char* window_attn_error_string(int code) {

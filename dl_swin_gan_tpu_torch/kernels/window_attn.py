@@ -3,12 +3,16 @@ backward, and their plain PyTorch versions.
 
 `window_attention(q, k, v, bias, mask)` launches `csrc/window_attn.cu` (the
 Hopper port of the Pallas TPU kernel `_pallas_attention` in the JAX
-package's `kernels/window_attn.py`: both products on 3xTF32 tensor cores)
-for tensors on a CUDA device, and runs `window_attention_plain` for tensors
-on the CPU. When q, k, v or the bias require grad, the call goes through a
+package's `kernels/window_attn.py`: for float32 both products on 3xTF32
+tensor cores, for bfloat16 exact bf16 products) for tensors on a CUDA
+device, and runs `window_attention_plain` for tensors on the CPU. When q,
+k, v or the bias require grad, the call goes through a
 `torch.autograd.Function` whose backward is `window_attention_bwd`:
-`csrc/window_attn_bwd.cu` (the port of `_pallas_attention_bwd`: three
-launches on 3xTF32 tensor cores, no atomics) on the GPU,
+`csrc/window_attn_bwd.cu` (the port of `_pallas_attention_bwd`: for float32
+three launches on 3xTF32 tensor cores through a [W, H, N, N] scratch of ds;
+for bfloat16 four launches on bf16 tensor cores that recompute ds and keep
+no such scratch; no atomics either way, so two calls give bitwise-equal
+gradients) on the GPU,
 `window_attention_bwd_plain` on the CPU. `window_attention_fwd` is the
 forward kernel with each row's log-sum-exp, which the backward kernel
 reads. There is no other route: a CUDA tensor the kernels cannot take
@@ -32,7 +36,10 @@ softmax and every sum run in float32, and only the outputs are rounded:
 out, dq, dk and dv to their inputs' dtypes, dbias and the log-sum-exp
 float32. It is not the JAX package's `_attention_xla`, which multiplies in
 bfloat16 and rounds p to bfloat16 before p v. The CUDA kernels read and
-write bfloat16 themselves (no float32 copy of q, k or v is made).
+write bfloat16 themselves (no float32 copy of q, k or v is made): a product
+of two bf16 values is exact in float32, so q k^T and g v^T are one bf16
+tensor-core product each, and where the other operand is float32 (p, ds)
+it is split into two bf16 terms, hi = bf16(x) and lo = bf16(x - hi).
 """
 
 import ctypes
@@ -167,6 +174,9 @@ def _library():
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float,
                                                       ctypes.c_void_p])
     lib.window_attn_bf16_launch.restype = ctypes.c_int
+    for fn in (lib.window_attn_blocks_per_sm,
+               lib.window_attn_bf16_blocks_per_sm):
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
     lib.window_attn_error_string.argtypes = [ctypes.c_int]
     lib.window_attn_error_string.restype = ctypes.c_char_p
     return lib
@@ -181,20 +191,39 @@ def _bwd_library():
         fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    lib.window_attn_bwd_bf16_blocks_per_sm.argtypes = [ctypes.c_int] * 2
+    lib.window_attn_bwd_bf16_blocks_per_sm.restype = ctypes.c_int
+    lib.window_attn_bwd_bf16_work.argtypes = [ctypes.c_int] * 4
+    lib.window_attn_bwd_bf16_work.restype = ctypes.c_longlong
     lib.window_attn_bwd_error_string.argtypes = [ctypes.c_int]
     lib.window_attn_bwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def blocks_per_sm(D: int) -> int:
-    """Forward-kernel blocks that fit one SM of the current card at head_dim
-    D (built on first use)."""
-    fn = _library().window_attn_blocks_per_sm
-    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
-    n = fn(D)
+def blocks_per_sm(D: int, dtype: torch.dtype = torch.float32) -> int:
+    """Forward-kernel blocks of q's dtype `dtype` that fit one SM of the
+    current card at head_dim D (built on first use)."""
+    lib = _library()
+    n = (lib.window_attn_bf16_blocks_per_sm(D) if dtype == torch.bfloat16
+         else lib.window_attn_blocks_per_sm(D))
     if n < 0:
         raise RuntimeError(f"occupancy query failed at head_dim {D}")
     return n
+
+
+# the bf16 backward's launches, in order (window_attn_bwd.cu): delta, dk
+# and dv, dbias with dq's partial sums over the key tiles, dq
+BF16_BWD_PASSES = ("delta", "kv", "dbias", "dq_sum")
+
+
+def bwd_bf16_blocks_per_sm(D: int) -> dict:
+    """{pass: blocks that fit one SM} of the bf16 backward's launches at
+    head_dim D (built on first use)."""
+    fn = _bwd_library().window_attn_bwd_bf16_blocks_per_sm
+    blocks = {name: fn(D, i) for i, name in enumerate(BF16_BWD_PASSES)}
+    if min(blocks.values()) < 0:
+        raise RuntimeError(f"occupancy query failed at head_dim {D}")
+    return blocks
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -276,19 +305,27 @@ def window_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dbias = torch.empty_like(bias)    # the kernel writes every element
     _check_kernel_shape(q, "window_attention_bwd")
     lib = _bwd_library()
-    # each window's ds, written once by the kv pass, read back by the dq
-    # pass and summed over the windows in order by the dbias pass
-    ds = torch.empty((W, H, N, N), dtype=torch.float32, device=q.device)
-    launch = (lib.window_attn_bwd_bf16_launch if q.dtype == torch.bfloat16
-              else lib.window_attn_bwd_launch)
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            _ptr(mask), g.data_ptr(), out.data_ptr(), lse.data_ptr())
+    tail = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(), W,
+            H, N, D, 1 if mask is None else mask.shape[0], D ** -0.5)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            _ptr(mask), g.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            ds.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            dbias.data_ptr(), W, H, N, D,
-            1 if mask is None else mask.shape[0], D ** -0.5, stream)
+        if q.dtype == torch.bfloat16:
+            # each row's delta and dq's partial sums over the key tiles;
+            # every pass recomputes ds, so no [W, H, N, N] scratch
+            work = torch.empty(lib.window_attn_bwd_bf16_work(W, H, N, D),
+                               dtype=torch.float32, device=q.device)
+            err = lib.window_attn_bwd_bf16_launch(*head, work.data_ptr(),
+                                                  *tail, stream)
+        else:
+            # each window's ds, written once by the kv pass, read back by
+            # the dq pass and summed over the windows in order by the dbias
+            # pass
+            ds = torch.empty((W, H, N, N), dtype=torch.float32,
+                             device=q.device)
+            err = lib.window_attn_bwd_launch(*head, ds.data_ptr(), *tail,
+                                             stream)
     if err != 0:
         raise RuntimeError("window_attention backward kernel launch failed: "
                            + lib.window_attn_bwd_error_string(err).decode())

@@ -433,6 +433,53 @@ def test_window_attention_bf16_matches_plain(dev, shape):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_attention_ragged_keys_with_large_bias(dev, dtype):
+    """Keys past N take no part in the backward: with N ragged, a bias of
+    100 and a mask of -100 at key N - 1, exp(s + bias - lse) at the keys
+    past N (s = 0, the bias clamped to column N - 1, no mask there) would
+    overflow, and inf times their zero rows of k would put NaN into dq."""
+    q, k, v, bias, _ = _attn_inputs(dev, 3, 2, 113, 20)
+    bias[:, :, -1] = 100.0
+    mask = torch.zeros((3, 113, 113), device=dev)
+    mask[:, :, -1] = -100.0
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    g = torch.from_numpy(np.random.RandomState(9).standard_normal(
+        tuple(q.shape)).astype(np.float32)).to(dev).to(dtype)
+    _, lse, out32 = WA.window_attention_fwd(q, k, v, bias, mask)
+    grads = WA.window_attention_bwd(q, k, v, bias, mask, g, out32, lse)
+    plain = WA.window_attention_bwd_plain(q, k, v, bias, mask, g)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), grads, plain):
+        assert torch.isfinite(a).all(), name
+        if a.dtype == torch.bfloat16:
+            _assert_bf16_close(a, b, name)
+        else:
+            assert _rel(a, b) <= REL_TOL, name
+
+
+def test_window_attention_bf16_backward_keeps_no_ds_scratch(dev):
+    """The bf16 backward recomputes ds where it uses it: one call at the
+    full-width Swin block (batch 1, shifted) allocates less beyond its
+    inputs than one [W, H, N, N] float32 buffer, where the float32 backward
+    allocates that scratch on top of its outputs."""
+    q, k, v, bias, mask = _attn_inputs(dev, 12, 8, 448, 20, 12)
+    g = torch.randn_like(q)
+    scratch = 4 * 12 * 8 * 448 * 448
+    extra = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        qd, kd, vd, gd = (t.to(dtype) for t in (q, k, v, g))
+        _, lse, out32 = WA.window_attention_fwd(qd, kd, vd, bias, mask)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        grads = WA.window_attention_bwd(qd, kd, vd, bias, mask, gd, out32,
+                                        lse)
+        torch.cuda.synchronize()
+        extra[dtype] = torch.cuda.max_memory_allocated() - base
+        del grads
+    assert extra[torch.bfloat16] < scratch < extra[torch.float32], extra
+
+
 def test_window_attention_bf16_autograd_and_refusals(dev):
     """Through autograd the bf16 kernels give what they give called
     directly; a mix of dtypes, or a bf16 out handed to the backward,

@@ -107,7 +107,8 @@ def test_reconstructor_needs_cuda_or_explicit_cpu(monkeypatch):
 def _port_files():
     return sorted((REPO / "dl_swin_gan_tpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "compare_attn_bwd.py",
-        REPO / "compare_attn_fwd.py", REPO / "compare_coil_normal.py"]
+        REPO / "compare_attn_fwd.py", REPO / "compare_attn_bf16.py",
+        REPO / "compare_coil_normal.py"]
 
 
 # the DSLR serving, pgd and RNN modules, named so that the walk must reach
@@ -139,7 +140,7 @@ def test_port_imports_no_jax_subprocess():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke, compare_attn_bwd, compare_attn_fwd, "
-        "compare_coil_normal\n"
+        "compare_attn_bf16, compare_coil_normal\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'dl_swin_gan_tpu')]\n"
         "bad += [m for m in NEW if m not in sys.modules]\n"

@@ -389,22 +389,31 @@ def _fwd_as_the_kernel(q, k, v, bias, mask, three):
     exp(m_old - m), then acc += p [v, 1] through _mm: V's first padding
     column (D = 20 pads to 24) holds ones, so acc's column D is the row sum.
     out = acc / sum, lse = m + log(sum)."""
+    qs = q * q.shape[-1] ** -0.5
+    return _fwd_in_chunks(q, k, v, bias, mask,
+                          lambda kt: _mm(qs, kt, three),
+                          lambda p, x: _mm(p, x, three))
+
+
+def _fwd_in_chunks(q, k, v, bias, mask, scores, product):
+    """(out, lse) of the forward kernel's online softmax over chunks of
+    keys, as _fwd_as_the_kernel describes, with s = scores(k_chunk^T) and
+    acc += product(p, [v, 1]_chunk)."""
     W, _, N, D = q.shape
     n = 1 if mask is None else mask.shape[0]
-    qs = q * D ** -0.5
     v = torch.cat([v, torch.ones_like(v[..., :1])], -1)
     m = torch.full((*q.shape[:3], 1), -float("inf"))
     acc = torch.zeros_like(v)
     for j0 in range(0, N, FWD_CHUNK):
         j = slice(j0, min(j0 + FWD_CHUNK, N))
-        s = _mm(qs, k[:, :, j].transpose(-1, -2), three) + bias[None, :, :, j]
+        s = scores(k[:, :, j].transpose(-1, -2)) + bias[None, :, :, j]
         if mask is not None:
             s = (s.reshape(W // n, n, *s.shape[1:])
                  + mask[None, :, None, :, j]).reshape(s.shape)
         top = torch.maximum(m, s.amax(-1, keepdim=True))
         alpha = torch.exp2((m - top) * 1.4426950408889634)
         p = _exp2_fma(s, top)
-        acc = acc * alpha + _mm(p, v[:, :, j], three)
+        acc = acc * alpha + product(p, v[:, :, j])
         m = top
     total = acc[..., D:]
     return acc[..., :D] / total, (m + torch.log(total))[..., 0]
@@ -435,3 +444,106 @@ def test_fwd_kernel_arithmetic_against_plain(full_width_fwd, three):
         assert max(rels) <= BWD_TOL, rels
     else:
         assert min(rels) > BWD_TOL, rels
+
+
+# ---------------------------------------------- the bf16 kernels' arithmetic
+#
+# With bfloat16 q, k, v and g, both kernels run every product on the tensor
+# cores with bf16 operands (mma.sync m16n8k16, float32 accumulators). A
+# product of two bf16 values is exact in float32, so q k^T and g v^T are
+# taken as they are, the scale applied to s afterwards; where one operand is
+# float32 (p, ds), it is split into hi = bf16(x) and lo = bf16(x - hi), and
+# the product is lo b + hi b. Below, that arithmetic in plain torch at the
+# full-width window: within the kernels' 1e-4 of the plain float32 versions
+# on the same bf16 inputs, before any output rounds; rounding p or ds to
+# bf16 once, the control, misses it.
+
+
+def _bf16_round(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _mm_bf16(a, b, two):
+    """a @ b as the bf16 kernels take it, a float32 and b holding bf16
+    values: a split into two bf16 terms, the small one first, or (the
+    control) rounded to bf16 once."""
+    hi = _bf16_round(a)
+    if not two:
+        return hi @ b
+    return _bf16_round(a - hi) @ b + hi @ b
+
+
+def _bwd_as_the_bf16_kernel(q, k, v, bias, mask, g, two):
+    """(dq, dk, dv, dbias) in the bf16 backward's order: s = (q k^T) scale,
+    exact, then + (bias + mask); p = exp(s - lse) with the forward's float32
+    lse; dp = g v^T, exact; delta = rowsum(g o out); ds = p (dp - delta);
+    dq = ds k scale, dk = ds^T q scale, dv = p^T g through _mm_bf16."""
+    W, _, _, D = q.shape
+    scale = D ** -0.5
+    bm = bias[None] if mask is None else bias[None] + mask[:, None]
+    n = bm.shape[0]
+
+    def add_bm(s):
+        return (s.reshape(W // n, n, *s.shape[1:]) + bm[None]).reshape(s.shape)
+
+    s = add_bm((q @ k.transpose(-1, -2)) * scale)
+    lse = torch.logsumexp(add_bm((q * scale) @ k.transpose(-1, -2)), -1,
+                          keepdim=True)
+    out = WA.window_attention_plain(q, k, v, bias, mask)
+    p = torch.exp(s - lse)
+    ds = p * (g @ v.transpose(-1, -2) - (g * out).sum(-1, keepdim=True))
+    return (_mm_bf16(ds, k, two) * scale,
+            _mm_bf16(ds.transpose(-1, -2), q, two) * scale,
+            _mm_bf16(p.transpose(-1, -2), g, two), ds.sum(0))
+
+
+@pytest.fixture(scope="module")
+def full_width_bf16():
+    """The full-width shifted block's window (N 448, D 20; 12 windows of the
+    7x48x16 grid with its shift mask) at 2 heads, q, k, v and g rounded to
+    bf16 and held in float32; the plain float32 forward, the log-sum-exp of
+    its scores and the plain float32 backward on them."""
+    mask = jax_shift_mask(7, 48, 16, (7, 8, 8), (0, 4, 4))
+    q, k, v, bias, _ = _data(12, 2, 448, 20, seed=11)
+    g = np.random.RandomState(111).standard_normal(q.shape).astype(np.float32)
+    q, k, v, g = (_bf16_round(t) for t in _torch(q, k, v, g))
+    bias, mask = _torch(bias, mask)
+    s = torch.matmul(q * 20 ** -0.5, k.transpose(-1, -2)) + bias
+    s = (s[:, None] + mask[:, None, None]).reshape(s.shape)   # W = nW here
+    return ((q, k, v, bias, mask, g),
+            WA.window_attention_plain(q, k, v, bias, mask),
+            torch.logsumexp(s, -1),
+            WA.window_attention_bwd_plain(q, k, v, bias, mask, g))
+
+
+@pytest.mark.parametrize("two", [True, False], ids=["two-term", "one-term"])
+def test_bf16_fwd_kernel_arithmetic_against_plain(full_width_bf16, two):
+    """Exact bf16 q k^T and two-term p v stay within the kernel's 1e-4 of
+    the plain float32 forward on the output and on lse; p rounded to bf16
+    once, the control, misses it on the output."""
+    (q, k, v, bias, mask, _), plain, plain_lse, _ = full_width_bf16
+    scale = q.shape[-1] ** -0.5
+    out, lse = _fwd_in_chunks(q, k, v, bias, mask,
+                              lambda kt: (q @ kt) * scale,
+                              lambda p, x: _mm_bf16(p, x, two))
+    rels = [_rel(out.numpy(), plain.numpy()),
+            _rel(lse.numpy(), plain_lse.numpy())]
+    if two:
+        assert max(rels) <= BWD_TOL, rels
+    else:
+        assert rels[0] > BWD_TOL, rels
+
+
+@pytest.mark.parametrize("two", [True, False], ids=["two-term", "one-term"])
+def test_bf16_bwd_kernel_arithmetic_against_plain(full_width_bf16, two):
+    """Exact bf16 s and dp with two-term p and ds stay within the kernel's
+    1e-4 of the plain float32 backward on dq, dk, dv and dbias; p and ds
+    rounded to bf16 once, the control, miss it on dq, dk and dv (dbias sums
+    the float32 ds either way)."""
+    tensors, _, _, plain = full_width_bf16
+    rels = [_rel(a.numpy(), b.numpy()) for a, b in
+            zip(_bwd_as_the_bf16_kernel(*tensors, two=two), plain)]
+    if two:
+        assert max(rels) <= BWD_TOL, rels
+    else:
+        assert min(rels[:3]) > BWD_TOL, rels
