@@ -9,8 +9,8 @@ set's test split in memory (`data.synthetic.quality_split`, the files
 pyyaml: the config is `utils.headline.quality_cfg(--dtype, --model)`
 (`configs/quality/resnet.yaml` or `resnet_bf16.yaml`; `se.yaml`,
 `cbam.yaml`, `swin.yaml` or `swingan.yaml` with --model se, cbam, swin or
-swingan; `latte2.yaml` or `dit.yaml` with --kind diffusion and --model
-latte2 or dit; `dslr.yaml`, or `dslr_fast.yaml` with --model dslr_fast,
+swingan; `latte2.yaml`, `dit.yaml` or `dit_ema.yaml` with --kind
+diffusion and --model latte2, dit or dit_ema; `dslr.yaml`, or `dslr_fast.yaml` with --model dslr_fast,
 with --kind dslr) with KEY VALUE overrides. Training batches are built on
 the device (DATALOADER.DEVICE_PIPELINE, as the YAMLs set it); swingan
 trains through GANTrainer, the diffusion rows through DiffusionTrainer, and
@@ -44,6 +44,13 @@ validation draws read the name. Under --out it writes `<exam>_1accel.im` and
     # steps
     python -m dl_swin_gan_tpu_torch.scripts.quality_row --kind dslr \
         --train --max-epochs 157 --out runs/torch_quality/dslr
+    # the DiT-EMA row: 634 epochs, the JAX row's 20288 steps; then its
+    # EMA weights from the same checkpoints
+    python -m dl_swin_gan_tpu_torch.scripts.quality_row --kind diffusion \\
+        --model dit_ema --train --max-epochs 634 --out runs/torch_quality/ditema
+    python -m dl_swin_gan_tpu_torch.scripts.quality_row --kind diffusion \\
+        --model dit_ema --ckpt runs/torch_quality/ditema/train/checkpoints \\
+        --use-ema --out runs/torch_quality/ditema_ema
     # score a checkpoint of the port's trainer
     python -m dl_swin_gan_tpu_torch.scripts.quality_row --kind unrolled \\
         --ckpt runs/x/checkpoints --out runs/x/recon
@@ -127,10 +134,12 @@ def main(argv=None):
                              "trunk)")
     parser.add_argument("--model", default=None,
                         choices=["res", "se", "cbam", "swin", "swingan",
-                                 "latte2", "dit", "dslr", "dslr_fast"],
+                                 "latte2", "dit", "dit_ema", "dslr",
+                                 "dslr_fast"],
                         help="the network: resnet.yaml (the default), "
                              "se.yaml, cbam.yaml, swin.yaml or swingan.yaml; "
-                             "latte2.yaml or dit.yaml (--kind diffusion); "
+                             "latte2.yaml, dit.yaml or dit_ema.yaml (--kind "
+                             "diffusion); "
                              "dslr.yaml (the default of --kind dslr) or "
                              "dslr_fast.yaml")
     parser.add_argument("--train", action="store_true",
@@ -163,7 +172,8 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if args.model is None:
         args.model = "dslr" if args.kind == "dslr" else "res"
-    family = {"latte2": "diffusion", "dit": "diffusion", "dslr": "dslr",
+    family = {"latte2": "diffusion", "dit": "diffusion",
+              "dit_ema": "diffusion", "dslr": "dslr",
               "dslr_fast": "dslr"}.get(args.model, "unrolled")
     if args.kind != "zerofilled" and args.kind != family:
         parser.error(f"--kind {args.kind} does not go with --model "

@@ -226,7 +226,8 @@ _QUALITY_MODELS = {"res": ("RES", 5, 2, 64, 40, 10, "runs/resq2"),
                    "swin": ("SWIN", 3, 2, 96, 20, 10, "runs/swinq2"),
                    "swingan": ("SWIN", 3, 2, 96, 40, 10, "runs/sganq3"),
                    "latte2": ("Latte", 2, 0, 192, 1000, 20, "runs/latteq4"),
-                   "dit": ("DiT", 2, 0, 256, 2000, 20, "runs/ditq2")}
+                   "dit": ("DiT", 2, 0, 256, 2000, 20, "runs/ditq2"),
+                   "dit_ema": ("DiT", 2, 0, 192, 1600, 50, "runs/ditema")}
 
 # the DSLR rows' model -> (META_ARCHITECTURE, DSLR.NUM_CG_STEPS, OUTPUT_DIR)
 # of `configs/quality/dslr.yaml` and `dslr_fast.yaml`
@@ -238,9 +239,11 @@ _DSLR_QUALITY_MODELS = {"dslr": ("dslr-cg-v1", 10, "runs/dslrq2"),
 _BF16_OUTPUT_DIRS = {"res": "runs/resbf16", "dit": "runs/ditbf16"}
 
 # the diffusion models' further columns: (NUM_LAYERS, NUM_HEADS,
-# SHARE_WEIGHTS, EVAL.CKPT_EVERY_N_STEPS) of their YAMLs
-_DIFFUSION_QUALITY_MODELS = {"latte2": (12, 6, True, 64),
-                             "dit": (6, 8, False, 0)}
+# SHARE_WEIGHTS, EVAL.CKPT_EVERY_N_STEPS, EVAL.RECON_SSIM_EVERY_N_EPOCHS)
+# of their YAMLs
+_DIFFUSION_QUALITY_MODELS = {"latte2": (12, 6, True, 64, 0),
+                             "dit": (6, 8, False, 0, 0),
+                             "dit_ema": (4, 6, False, 64, 100)}
 
 
 def quality_cfg(dtype: str = "float32", model: str = "res"):
@@ -249,8 +252,9 @@ def quality_cfg(dtype: str = "float32", model: str = "res"):
     `resnet_bf16.yaml` (bfloat16); "se", "cbam", "swin" and "swingan" are
     `configs/quality/se.yaml`, `cbam.yaml`, `swin.yaml` and `swingan.yaml`
     (float32 in their YAMLs; bfloat16 sets CONV_BLOCK.DTYPE, as the bf16
-    Swin row's command line does); "latte2" and "dit" the diffusion rows'
-    `latte2.yaml` and `dit.yaml` (DDPM_X), and "dit" in bfloat16
+    Swin row's command line does); "latte2", "dit" and "dit_ema" the
+    diffusion rows' `latte2.yaml`, `dit.yaml` and `dit_ema.yaml` (DDPM_X),
+    and "dit" in bfloat16
     `dit_bf16.yaml`; "dslr" and "dslr_fast" the DSLR rows' `dslr.yaml`
     (dslr-cg-v1) and `dslr_fast.yaml` (dslr-cg-jacobi, 6 CG steps),
     float32 only. Like every quality YAML it sets
@@ -326,10 +330,11 @@ def quality_cfg(dtype: str = "float32", model: str = "res"):
 
 
 def _diffusion_fields(cfg, model: str) -> None:
-    """Where `configs/quality/latte2.yaml` and `dit.yaml` differ from the
-    other quality YAMLs: hard-DC (DDPM_X) unrolls, 1000 training steps of
-    the linear schedule, transformer widths, StepLR."""
-    layers, heads, share, ckpt_every = _DIFFUSION_QUALITY_MODELS[model]
+    """Where `configs/quality/latte2.yaml`, `dit.yaml` and `dit_ema.yaml`
+    differ from the other quality YAMLs: hard-DC (DDPM_X) unrolls, 1000
+    training steps of the linear schedule, transformer widths, StepLR."""
+    (layers, heads, share, ckpt_every,
+     recon_ssim_every) = _DIFFUSION_QUALITY_MODELS[model]
     cfg.MODEL.META_ARCHITECTURE = "DDPM_X"
     cfg.MODEL.STRATEGY = "none"
     p = cfg.MODEL.PARAMETERS
@@ -346,6 +351,7 @@ def _diffusion_fields(cfg, model: str) -> None:
     cfg.LR_SCHEDULER.STEP_SIZE = 1000
     cfg.LR_SCHEDULER.GAMMA = 0.5
     cfg.EVAL.CKPT_EVERY_N_STEPS = ckpt_every
+    cfg.EVAL.RECON_SSIM_EVERY_N_EPOCHS = recon_ssim_every
     cfg.LOGGER.LOG_METRICS_EVERY_N_STEPS = 50
     cfg.LOGGER.LOG_PREDICTION_EVERY_N_STEPS = 0
 

@@ -11,8 +11,10 @@ then scores the same validation batches, built by the host
 
 The test: 10 steps at toy widths (2 unrolls of 1 resblock of 8 features,
 3 CG steps, 8x8 blocks of 3 basis vectors) on the quality set cut to
-8x32x32 slices of 4 coils; each step's loss within rel 1e-4 of the JAX
-DSLRTrainer's, and both validations' complex_l1 within rel 1e-4.
+8x36x32 slices of the row's 8 coils, cropped to a readout of 24 as the row
+crops 96 to 64; each step's loss within rel 1e-4 of the JAX
+DSLRTrainer's, and both validations' complex_l1 within rel 1e-4 on the
+batches `fit` builds from the row's files (`row_val_batches`).
 
 Run as a script it trains both for longer at configs/quality/dslr.yaml's
 widths (5 unrolls of 2 resblocks of 64 features, 10 CG steps, 16x16 blocks
@@ -20,29 +22,37 @@ of 8 basis vectors) on a cut geometry, and prints the per-step losses'
 largest relative difference and both validations:
 
     python -m tests.test_torch_dslr_training [--steps N] [--features F]
+
+With --full it runs configs/quality/dslr.yaml as it stands on the quality
+set with no cut, as `tests/test_torch_se_training.py --full` runs se.yaml:
+one DSLRTrainer step from the converted init held against the JAX
+package's (its nets are 2D and 1D, so the JAX 3D-conv lowerings do not
+apply), both validations on the row's validation batches at the init and
+after a trajectory of as many steps as --minutes per package allow (at
+least 50):
+
+    python -m tests.test_torch_dslr_training --full [--minutes 90]
+
+and with --one-step the one-step check alone, against the port's float64
+step.
 """
 
 import argparse
-from pathlib import Path
 
-import jax
 import numpy as np
 import torch
 
-from dl_swin_gan_tpu.config import load_cfg as jax_load_cfg
-from dl_swin_gan_tpu.train import packing
 from dl_swin_gan_tpu.train.dslr_trainer import DSLRTrainer as JaxDSLRTrainer
-from dl_swin_gan_tpu_torch.config import load_cfg
-from dl_swin_gan_tpu_torch.convert import flax_to_torch
-from dl_swin_gan_tpu_torch.data import DataLoader, InMemoryDataset
 from dl_swin_gan_tpu_torch.data.synthetic import quality_split
 from dl_swin_gan_tpu_torch.train import DSLRTrainer
-from tests.test_torch_se_training import pipeline_batches
+from tests.test_torch_se_training import (
+    full_probe, load_both, pipeline_batches, print_trajectory,
+    row_val_batches, train_both, validate_both,
+)
 
-REPO = Path(__file__).resolve().parent.parent
 YAML = "configs/quality/dslr.yaml"
 TOY = dict(features=8, unrolls=2, resblocks=1, cg=3, block=8, basis=3,
-           crop=24, geometry=dict(slices=2, T=8, Y=32, X=32, C=4))
+           crop=24, geometry=dict(slices=2, T=8, Y=36, X=32, C=8))
 LOSS_RTOL = 1e-4
 
 torch.set_num_threads(1)
@@ -51,60 +61,19 @@ torch.set_num_threads(1)
 def cfgs(features, unrolls, resblocks, cg, block, basis, crop):
     """configs/quality/dslr.yaml in both packages at these widths and
     crop."""
-    overrides = ["MODEL.PARAMETERS.NUM_FEATURES", features,
-                 "MODEL.PARAMETERS.NUM_UNROLLS", unrolls,
-                 "MODEL.PARAMETERS.NUM_RESBLOCKS", resblocks,
-                 "MODEL.PARAMETERS.DSLR.NUM_CG_STEPS", cg,
-                 "MODEL.PARAMETERS.DSLR.BLOCK_SIZE", block,
-                 "MODEL.PARAMETERS.DSLR.NUM_BASIS", basis,
-                 "AUG_TRAIN.CROP_READOUT", crop, "AUG_VAL.CROP_READOUT", crop]
-    out = []
-    for load in (load_cfg, jax_load_cfg):
-        cfg = load(str(REPO / YAML), freeze=False)
-        cfg.merge_from_list(list(overrides))
-        out.append(cfg)
-    return out
+    return load_both(YAML, [
+        "MODEL.PARAMETERS.NUM_FEATURES", features,
+        "MODEL.PARAMETERS.NUM_UNROLLS", unrolls,
+        "MODEL.PARAMETERS.NUM_RESBLOCKS", resblocks,
+        "MODEL.PARAMETERS.DSLR.NUM_CG_STEPS", cg,
+        "MODEL.PARAMETERS.DSLR.BLOCK_SIZE", block,
+        "MODEL.PARAMETERS.DSLR.NUM_BASIS", basis,
+        "AUG_TRAIN.CROP_READOUT", crop, "AUG_VAL.CROP_READOUT", crop])
 
 
-def train_both(cfg, jcfg, batches, log_every=0):
-    """Both DSLR trainers from the JAX init through `batches`: (port trainer
-    and state, JAX trainer and state, per-step losses of each)."""
-    jtrainer = JaxDSLRTrainer(jcfg)
-    jtrainer.set_steps_per_epoch(len(batches))
-    jstate = jtrainer.init_state(batches[0])
-    jtrainer._build_steps()
-    trainer = DSLRTrainer(cfg, device="cpu")
-    trainer.set_steps_per_epoch(len(batches))
-    state = trainer.init_state(state_dict=flax_to_torch(
-        jax.tree_util.tree_map(np.asarray, jstate.params)))
-    ours, theirs = [], []
-    for step, b in enumerate(batches):
-        ours.append(float(trainer.train_step(state, b)["Train/complex_l1"]))
-        jstate, metrics = jtrainer._train_step(jstate, packing.pack(b))
-        theirs.append(float(metrics["Train/complex_l1"]))
-        if log_every and (step + 1) % log_every == 0:
-            print(f"step {step + 1}: loss port {ours[-1]:.6f} jax "
-                  f"{theirs[-1]:.6f}", flush=True)
-    return (trainer, state), (jtrainer, jstate), ours, theirs
-
-
-def val_batches(trainer, files):
-    """The validation batches `fit` builds: the AUG_VAL preprocess seeded
-    by the file's name, batch VAL_BATCH_SIZE, in order."""
-    cfg = trainer.cfg
-    data = InMemoryDataset(files, trainer.make_preprocess(
-        aug_node=cfg.AUG_VAL, use_seed=True))
-    return list(DataLoader(data, batch_size=cfg.DATALOADER.VAL_BATCH_SIZE,
-                           shuffle=False, drop_last=False))
-
-
-def validate_both(port, jax_side, files):
-    """complex_l1 of each package's `validate` on the same batches."""
-    (trainer, state), (jtrainer, jstate) = port, jax_side
-    batches = val_batches(trainer, files)
-    ours = trainer.validate(state, batches)["Validate/complex_l1"]
-    theirs = jtrainer.validate(jstate, batches)["Validate/complex_l1"]
-    return ours, theirs
+def train_both_dslr(cfg, jcfg, batches, log_every=0):
+    return train_both(cfg, jcfg, batches, log_every, DSLRTrainer,
+                      JaxDSLRTrainer)
 
 
 def test_dslr_training_steps_match_jax_trainer():
@@ -112,16 +81,26 @@ def test_dslr_training_steps_match_jax_trainer():
                                          "cg", "block", "basis", "crop")))
     files = quality_split("train", 1, **TOY["geometry"])
     batches = pipeline_batches(cfg, files, 10, lr_decom=True)
-    port, jax_side, ours, theirs = train_both(cfg, jcfg, batches)
+    port, jax_side, ours, theirs = train_both_dslr(cfg, jcfg, batches)
     np.testing.assert_allclose(ours, theirs, rtol=LOSS_RTOL)
     assert len(set(ours)) == 10
     val = quality_split("validate", 1, **TOY["geometry"])
-    v_ours, v_theirs = validate_both(port, jax_side, val)
+    v_ours, v_theirs = validate_both(port, jax_side,
+                                     row_val_batches(port[0], cfg, val))
     np.testing.assert_allclose(v_ours, v_theirs, rtol=LOSS_RTOL)
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--full", action="store_true",
+                        help="dslr.yaml as it stands at the quality set's "
+                             "geometry (the other options but --minutes and "
+                             "--threads do not apply)")
+    parser.add_argument("--minutes", type=float, default=90,
+                        help="--full: CPU minutes of training a package")
+    parser.add_argument("--one-step", action="store_true",
+                        help="--full: only the one-step check, with the "
+                             "port's float64 step as the reference")
     parser.add_argument("--steps", type=int, default=200)
     parser.add_argument("--features", type=int, default=64)
     parser.add_argument("--unrolls", type=int, default=5)
@@ -132,20 +111,23 @@ def main(argv=None):
     parser.add_argument("--threads", type=int, default=8)
     args = parser.parse_args(argv)
     torch.set_num_threads(args.threads)
+    if args.full:
+        cfg, jcfg = load_both(YAML)
+        full_probe(cfg, jcfg, DSLRTrainer, JaxDSLRTrainer, args.minutes,
+                   lr_decom=True, lowerings=("xla",), serve=False,
+                   one_step=args.one_step)
+        return
     T, Y, X = args.shape
     geometry = dict(slices=2, T=T, Y=Y, X=X, C=4)
     cfg, jcfg = cfgs(args.features, args.unrolls, 2, 10, 16, 8, args.crop)
     files = quality_split("train", args.files, **geometry)
     batches = pipeline_batches(cfg, files, args.steps, lr_decom=True)
-    port, jax_side, ours, theirs = train_both(cfg, jcfg, batches,
-                                              log_every=25)
-    rel = np.abs(np.subtract(ours, theirs)) / np.abs(theirs)
-    print(f"{args.steps} steps: per-step loss rel diff max {rel.max():.3e} "
-          f"(first 10 steps {rel[:10].max():.3e}, last 10 "
-          f"{rel[-10:].max():.3e}); mean loss of the last 25 steps port "
-          f"{np.mean(ours[-25:]):.6f} jax {np.mean(theirs[-25:]):.6f}")
+    port, jax_side, ours, theirs = train_both_dslr(cfg, jcfg, batches,
+                                                   log_every=25)
+    print_trajectory(ours, theirs)
     val = quality_split("validate", 1, **geometry)
-    v_ours, v_theirs = validate_both(port, jax_side, val)
+    v_ours, v_theirs = validate_both(port, jax_side,
+                                     row_val_batches(port[0], cfg, val))
     print(f"validation complex_l1 (each package's validate): port "
           f"{v_ours:.6f} jax {v_theirs:.6f}")
 

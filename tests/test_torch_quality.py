@@ -44,6 +44,19 @@ def test_quality_cfg_matches_yaml(dtype, yaml):
     assert set(ours) == set(ref)
 
 
+def test_dit_ema_quality_cfg_matches_yaml():
+    """quality_cfg("float32", "dit_ema") is configs/quality/dit_ema.yaml,
+    field for field: 2 unrolls of 4 layers x 6 heads x 192 (DDPM_X), the
+    StepLR, a checkpoint every 64 steps, the sampled recon SSIM every 100
+    epochs."""
+    ours = quality_cfg("float32", "dit_ema")
+    ref = load_cfg(str(REPO / "configs/quality/dit_ema.yaml"))
+    assert ref.EVAL.RECON_SSIM_EVERY_N_EPOCHS == 100
+    for node in ref:
+        assert ours[node] == ref[node], node
+    assert set(ours) == set(ref)
+
+
 @pytest.mark.parametrize("split", ["train", "validate", "test"])
 def test_quality_split_matches_jax_h5_files(split, tmp_path):
     """The in-memory split against the files the JAX package's
