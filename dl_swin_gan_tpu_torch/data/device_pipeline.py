@@ -43,6 +43,7 @@ from dl_swin_gan_tpu_torch.ops.sense import sense_adjoint
 from dl_swin_gan_tpu_torch.ops.utils import sliding_window, time_average
 from dl_swin_gan_tpu_torch.parallel.mesh import RankBatch
 from dl_swin_gan_tpu_torch.utils.device import resolve_device
+from dl_swin_gan_tpu_torch.utils.tracing import span
 
 logger = logging.getLogger(__name__)
 
@@ -98,103 +99,116 @@ class DevicePipeline:
     def draw_params(self, fname: str, raw_shape: Tuple[int, ...]) -> Dict:
         """Crop starts, flips and the VDkt mask of one step; raw_shape is
         the raw (uncropped) k-space's [C, T, Y, X]."""
-        seed = None if not self.use_seed else tuple(map(ord, fname))
-        keyed = seed is None and self.draw_seed is not None
-        if keyed:
-            seed = (self.draw_seed, self.draws)
-            self.draws += 1
-        self.rng.seed(seed)
-        _, T, Y, X = raw_shape
+        with span("pipeline.draw"):
+            seed = None if not self.use_seed else tuple(map(ord, fname))
+            keyed = seed is None and self.draw_seed is not None
+            if keyed:
+                seed = (self.draw_seed, self.draws)
+                self.draws += 1
+            self.rng.seed(seed)
+            _, T, Y, X = raw_shape
 
-        xs = 0
-        crop_x = self.aug.CROP_READOUT
-        if crop_x > 0:
-            center = int(self.rng.normal(loc=X // 2 + 1, scale=crop_x // 2))
-            center = int(np.clip(center, crop_x // 2, X - crop_x // 2 - 1))
-            xs = center - crop_x // 2 + 1
-            X = crop_x
-        ys = 0
-        crop_y = self.aug.ZPAD_PE
-        if crop_y > 0:
-            center = int(self.rng.normal(loc=Y // 2 + 1, scale=crop_y // 2))
-            center = int(np.clip(center, crop_y // 2, Y - crop_y // 2 - 1))
-            ys = center - crop_y // 2 + 1
-            Y = crop_y
-        flips = np.asarray([self.rng.rand() > 0.5 for _ in range(3)],
-                           np.float32)
-        mask = self.mask_func((1, 1, T, Y, X), seed).astype(np.uint8)
-        out = dict(xs=np.int32(xs), ys=np.int32(ys), flips=flips, mask=mask)
-        if self.diffusion and \
-                self.cfg.MODEL.META_ARCHITECTURE.lower() == "ddpm_x":
-            mask_r, mask_p = submask_np(
-                mask.astype(np.float32), 0.9,
-                keyed_submask_rng(seed) if keyed else self.submask_rng)
-            out["mask_r"] = mask_r.astype(np.uint8)
-            out["mask_p"] = mask_p.astype(np.uint8)
-        return out
+            xs = 0
+            crop_x = self.aug.CROP_READOUT
+            if crop_x > 0:
+                center = int(self.rng.normal(loc=X // 2 + 1,
+                                             scale=crop_x // 2))
+                center = int(np.clip(center, crop_x // 2,
+                                     X - crop_x // 2 - 1))
+                xs = center - crop_x // 2 + 1
+                X = crop_x
+            ys = 0
+            crop_y = self.aug.ZPAD_PE
+            if crop_y > 0:
+                center = int(self.rng.normal(loc=Y // 2 + 1,
+                                             scale=crop_y // 2))
+                center = int(np.clip(center, crop_y // 2,
+                                     Y - crop_y // 2 - 1))
+                ys = center - crop_y // 2 + 1
+                Y = crop_y
+            flips = np.asarray([self.rng.rand() > 0.5 for _ in range(3)],
+                               np.float32)
+            mask = self.mask_func((1, 1, T, Y, X), seed).astype(np.uint8)
+            out = dict(xs=np.int32(xs), ys=np.int32(ys), flips=flips,
+                       mask=mask)
+            if self.diffusion and \
+                    self.cfg.MODEL.META_ARCHITECTURE.lower() == "ddpm_x":
+                mask_r, mask_p = submask_np(
+                    mask.astype(np.float32), 0.9,
+                    keyed_submask_rng(seed) if keyed else self.submask_rng)
+                out["mask_r"] = mask_r.astype(np.uint8)
+                out["mask_p"] = mask_p.astype(np.uint8)
+            return out
 
     # -- the device build ------------------------------------------------------
     def build(self, raw: Dict[str, torch.Tensor],
               params: Dict) -> Dict[str, torch.Tensor]:
         """One batch (leading axis 1, the keys of Trainer.batch_keys) on the
         device from a raw example and its host draws."""
-        kspace, maps = raw["kspace"], raw["maps"]   # [1,C,T,Y,X], [1,E,C,1,Y,X]
+        with span("pipeline.build"):
+            # [1,C,T,Y,X], [1,E,C,1,Y,X]
+            kspace, maps = raw["kspace"], raw["maps"]
 
-        multicoil = ifftc(kspace)
-        crop_x = self.aug.CROP_READOUT
-        if crop_x > 0:
-            multicoil = _crop(multicoil, int(params["xs"]), crop_x, -1)
-            maps = _crop(maps, int(params["xs"]), crop_x, -1)
-        crop_y = self.aug.ZPAD_PE
-        if crop_y > 0:
-            multicoil = _crop(multicoil, int(params["ys"]), crop_y, -2)
-            maps = _crop(maps, int(params["ys"]), crop_y, -2)
-        flips = params["flips"]
-        multicoil = _maybe_flip(multicoil, flips[0], -1)
-        maps = _maybe_flip(maps, flips[0], -1)
-        multicoil = _maybe_flip(multicoil, flips[1], -2)
-        maps = _maybe_flip(maps, flips[1], -2)
-        multicoil = _maybe_flip(multicoil, flips[2], -3)  # time; maps static
-        kspace = fftc(multicoil)
+            multicoil = ifftc(kspace)
+            crop_x = self.aug.CROP_READOUT
+            if crop_x > 0:
+                multicoil = _crop(multicoil, int(params["xs"]), crop_x, -1)
+                maps = _crop(maps, int(params["xs"]), crop_x, -1)
+            crop_y = self.aug.ZPAD_PE
+            if crop_y > 0:
+                multicoil = _crop(multicoil, int(params["ys"]), crop_y, -2)
+                maps = _crop(maps, int(params["ys"]), crop_y, -2)
+            flips = params["flips"]
+            multicoil = _maybe_flip(multicoil, flips[0], -1)
+            maps = _maybe_flip(maps, flips[0], -1)
+            multicoil = _maybe_flip(multicoil, flips[1], -2)
+            maps = _maybe_flip(maps, flips[1], -2)
+            # time; maps static
+            multicoil = _maybe_flip(multicoil, flips[2], -3)
+            kspace = fftc(multicoil)
 
-        target = sense_adjoint(kspace, maps)
-        mask = torch.from_numpy(params["mask"]).to(self.device).to(
-            torch.float32)
-        masked_kspace = kspace * mask
+            target = sense_adjoint(kspace, maps)
+            mask = torch.from_numpy(params["mask"]).to(self.device).to(
+                torch.float32)
+            masked_kspace = kspace * mask
 
-        # 95th-percentile magnitude normalisation: the k-th largest of the
-        # time-averaged adjoint's magnitude (np.partition's value on the
-        # host; a quantile would interpolate)
-        averaged = time_average(masked_kspace, 2)
-        magnitude = sense_adjoint(averaged, maps).abs().reshape(-1)
-        k = int(round(0.05 * magnitude.numel()))
-        scale = (torch.topk(magnitude, k).values[-1] if k > 0
-                 else magnitude.max())
+            # 95th-percentile magnitude normalisation: the k-th largest of
+            # the time-averaged adjoint's magnitude (np.partition's value on
+            # the host; a quantile would interpolate)
+            averaged = time_average(masked_kspace, 2)
+            magnitude = sense_adjoint(averaged, maps).abs().reshape(-1)
+            k = int(round(0.05 * magnitude.numel()))
+            scale = (torch.topk(magnitude, k).values[-1] if k > 0
+                     else magnitude.max())
 
-        masked_kspace = masked_kspace / scale
-        target = target / scale
-        init_kspace = (sliding_window(masked_kspace, 2, 5) if self.slwin_init
-                       else masked_kspace)
-        init_image = sense_adjoint(init_kspace, maps)
+            masked_kspace = masked_kspace / scale
+            target = target / scale
+            init_kspace = (sliding_window(masked_kspace, 2, 5)
+                           if self.slwin_init else masked_kspace)
+            init_image = sense_adjoint(init_kspace, maps)
 
-        out = dict(kspace=masked_kspace, mask=mask, maps=maps,
-                   init_image=init_image,
-                   scale=scale.to(torch.float32).reshape(1), target=target)
-        if self.diffusion:
-            del out["kspace"]
-            for key in ("mask_r", "mask_p"):
-                out[key] = (torch.from_numpy(params[key]).to(self.device).to(
-                    torch.float32) if key in params else mask)
-        if self.lr_decom:
-            # DSLR's L0/R0 from a truncated SVD of the init image's blocks.
-            # SVD factor phases differ between libraries; L R^H does not
-            p = self.cfg.MODEL.PARAMETERS
-            op = BlockOp(p.DSLR.BLOCK_SIZE, init_image.shape,
-                         overlapping=p.DSLR.OVERLAPPING, device=self.device)
-            L, R = decompose(op.extract(init_image), p.DSLR.NUM_BASIS)
-            out["L_init"] = L[None].to(torch.complex64)
-            out["R_init"] = R[None].to(torch.complex64)
-        return out
+            out = dict(kspace=masked_kspace, mask=mask, maps=maps,
+                       init_image=init_image,
+                       scale=scale.to(torch.float32).reshape(1),
+                       target=target)
+            if self.diffusion:
+                del out["kspace"]
+                for key in ("mask_r", "mask_p"):
+                    out[key] = (torch.from_numpy(params[key]).to(
+                        self.device).to(torch.float32) if key in params
+                        else mask)
+            if self.lr_decom:
+                # DSLR's L0/R0 from a truncated SVD of the init image's
+                # blocks. SVD factor phases differ between libraries; L R^H
+                # does not
+                p = self.cfg.MODEL.PARAMETERS
+                op = BlockOp(p.DSLR.BLOCK_SIZE, init_image.shape,
+                             overlapping=p.DSLR.OVERLAPPING,
+                             device=self.device)
+                L, R = decompose(op.extract(init_image), p.DSLR.NUM_BASIS)
+                out["L_init"] = L[None].to(torch.complex64)
+                out["R_init"] = R[None].to(torch.complex64)
+            return out
 
 
 class DevicePipelineLoader:

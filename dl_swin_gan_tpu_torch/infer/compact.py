@@ -33,6 +33,7 @@ from dl_swin_gan_tpu_torch.ops.sense import sense_adjoint
 from dl_swin_gan_tpu_torch.ops.utils import sliding_window, time_average
 from dl_swin_gan_tpu_torch.solvers import build_solver
 from dl_swin_gan_tpu_torch.utils.device import resolve_device, use_ieee_fp32
+from dl_swin_gan_tpu_torch.utils.tracing import phase, span
 
 # the arrays of one packed example, in the dict wire's order
 WIRE_KEYS = ("kspace_lines", "line_idx", "line_valid", "maps")
@@ -220,6 +221,7 @@ class CompactReconstructor:
     slice crosses the link in one copy.
     """
 
+    @phase("compact.construct")
     def __init__(self, cfg, params, ny: int, wire: FlatWire = None,
                  device=None):
         self.cfg = cfg
@@ -250,42 +252,51 @@ class CompactReconstructor:
     def to_device(self, batch) -> dict:
         """The wire's arrays on the device: a dict of stacked packed
         examples, or a [B, wire.length] buffer (float16 stays float16)."""
-        if self.wire is not None:
-            buf = torch.from_numpy(np.ascontiguousarray(batch))
-            return {"buf": buf.to(self.device)}
-        return {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(
-            self.device) for k in WIRE_KEYS}
+        with span("compact.upload"):
+            if self.wire is not None:
+                buf = torch.from_numpy(np.ascontiguousarray(batch))
+                return {"buf": buf.to(self.device)}
+            return {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(
+                self.device) for k in WIRE_KEYS}
 
     @torch.inference_mode()
     def reconstruct(self, b: dict) -> torch.Tensor:
         """Wire arrays on the device -> complex images [B, E, T, Y, X] on
         the device, in input units."""
-        if self.wire is not None:
-            b = self.wire.decode(b["buf"])
-        kspace = unpack_lines(b["kspace_lines"], b["line_idx"],
-                              b["line_valid"], self.ny)
-        maps = b["maps"]
-        # the sampling mask from the nonzero pattern of coil 0 (the
-        # reference's get_mask, infer/transforms.py)
-        mask = (kspace[:, :1].abs() > 1e-12).to(torch.float32)
+        with span("compact.reconstruct"):
+            with span("compact.decode"):
+                if self.wire is not None:
+                    b = self.wire.decode(b["buf"])
+                kspace = unpack_lines(b["kspace_lines"], b["line_idx"],
+                                      b["line_valid"], self.ny)
+                maps = b["maps"]
+                # the sampling mask from the nonzero pattern of coil 0 (the
+                # reference's get_mask, infer/transforms.py)
+                mask = (kspace[:, :1].abs() > 1e-12).to(torch.float32)
 
-        # 95%-max normalisation, per example: the k-th largest magnitude
-        # of the time-averaged adjoint (the host path's np.partition)
-        image = sense_adjoint(time_average(kspace, 2), maps)
-        nb = image.shape[0]
-        mag = image.abs().reshape(nb, -1)
-        k = int(round(0.05 * mag.shape[1]))
-        scale = (torch.topk(mag, k, dim=1).values[:, -1] if k > 0
-                 else mag.amax(dim=1))
-        kspace = kspace / scale.reshape((nb,) + (1,) * (kspace.ndim - 1))
+            with span("compact.normalize"):
+                # 95%-max normalisation, per example: the k-th largest
+                # magnitude of the time-averaged adjoint (the host path's
+                # np.partition)
+                image = sense_adjoint(time_average(kspace, 2), maps)
+                nb = image.shape[0]
+                mag = image.abs().reshape(nb, -1)
+                k = int(round(0.05 * mag.shape[1]))
+                scale = (torch.topk(mag, k, dim=1).values[:, -1] if k > 0
+                         else mag.amax(dim=1))
+                kspace = kspace / scale.reshape(
+                    (nb,) + (1,) * (kspace.ndim - 1))
 
-        init_kspace = sliding_window(kspace, 2, 5) if self.slwin else kspace
-        init_image = sense_adjoint(init_kspace, maps)
-        pred = self.model(kspace, maps, mask, x0=init_image)
-        return pred * scale.reshape((nb,) + (1,) * (pred.ndim - 1))
+            with span("compact.init"):
+                init_kspace = (sliding_window(kspace, 2, 5) if self.slwin
+                               else kspace)
+                init_image = sense_adjoint(init_kspace, maps)
+            pred = self.model(kspace, maps, mask, x0=init_image)
+            return pred * scale.reshape((nb,) + (1,) * (pred.ndim - 1))
 
     def __call__(self, batch) -> np.ndarray:
         """batch: dict of stacked packed examples (dict wire) or an encoded
         [B, wire.length] buffer (flat wire) -> complex64 images."""
         out = self.reconstruct(self.to_device(batch))
-        return out.cpu().numpy().astype(np.complex64)
+        with span("compact.readback"):
+            return out.cpu().numpy().astype(np.complex64)

@@ -14,9 +14,10 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from dataclasses import dataclass
 from pathlib import Path
+
+from dl_swin_gan_tpu_torch.utils.tracing import phase
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_ROOT = Path(__file__).with_name("_build")
@@ -45,7 +46,8 @@ def _nvcc() -> str:
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> Library:
-    """Compile (if needed) and load `csrc/<name>.cu`; raises if the build fails."""
+    """Compile (if needed) and load `csrc/<name>.cu`; raises if the build
+    fails. nvcc's run is the `kernels.build` phase (utils/tracing.py)."""
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
     for header in sorted(CSRC.glob("*.cuh")):    # the shared device code
@@ -57,10 +59,11 @@ def load(name: str) -> Library:
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
         tmp = out_dir / f"lib{name}.so.{os.getpid()}.tmp"
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
+        with phase("kernels.build") as built:
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                capture_output=True, text=True)
+        seconds = built.seconds
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {src} "
                                f"(exit {proc.returncode}):\n{proc.stderr}")

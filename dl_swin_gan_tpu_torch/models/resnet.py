@@ -44,6 +44,7 @@ from dl_swin_gan_tpu_torch.models.layers import (
     ComplexConv, Conv, ConvBlock, _uniform, activation, circular_pad_time,
     crop_time,
 )
+from dl_swin_gan_tpu_torch.utils.tracing import span
 
 GATES = ("none", "se", "cbam")
 
@@ -157,17 +158,21 @@ class GatedResNet3D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         e = x.shape[1]
-        h = x if self.use_complex_layers else torch.cat([x.real, x.imag],
-                                                        dim=1)
-        h = circular_pad_time(h, self.pad)
-        resid = h
-        h = self.head(h)
+        with span("trunk.head"):
+            h = x if self.use_complex_layers else torch.cat([x.real, x.imag],
+                                                            dim=1)
+            h = circular_pad_time(h, self.pad)
+            resid = h
+            h = self.head(h)
         for block in self.blocks:
-            h = block(h)
-        h = crop_time(self.tail(h) + resid, self.pad)
-        if self.use_complex_layers:
-            return h
-        return torch.complex(h[:, :e].contiguous(), h[:, e:].contiguous())
+            with span("trunk.block"):
+                h = block(h)
+        with span("trunk.tail"):
+            h = crop_time(self.tail(h) + resid, self.pad)
+            if self.use_complex_layers:
+                return h
+            return torch.complex(h[:, :e].contiguous(),
+                                 h[:, e:].contiguous())
 
 
 class ResNet3D(GatedResNet3D):

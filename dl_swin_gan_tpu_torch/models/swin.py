@@ -53,6 +53,7 @@ from dl_swin_gan_tpu_torch.models.layers import (
     ConvBlock, circular_pad_time, crop_time,
 )
 from dl_swin_gan_tpu_torch.parallel.mesh import head_columns
+from dl_swin_gan_tpu_torch.utils.tracing import span
 
 
 def LayerNorm(dim: int) -> nn.LayerNorm:
@@ -251,23 +252,25 @@ class SwinBlock3D(nn.Module):
         ws, ss = get_window_size((D, H, W), self.window_size, self.shift_size)
         shifted = any(s > 0 for s in ss)
 
-        shortcut = x
-        h = self.norm1(x)
-        pd, ph, pw = (-D) % ws[0], (-H) % ws[1], (-W) % ws[2]
-        h = F.pad(h, (0, 0, 0, pw, 0, ph, 0, pd))
-        _, Dp, Hp, Wp, _ = h.shape
-        mask = None
-        if shifted:
-            h = torch.roll(h, (-ss[0], -ss[1], -ss[2]), dims=(1, 2, 3))
-            mask = _shift_mask((Dp, Hp, Wp), ws, ss, h.device)
-        h = self.attn(window_partition(h, ws), mask)
-        h = window_reverse(h, ws, B, Dp, Hp, Wp)
-        if shifted:
-            h = torch.roll(h, ss, dims=(1, 2, 3))
-        if pd or ph or pw:
-            h = h[:, :D, :H, :W]
-        x = shortcut + self.drop_path(h)
-        return x + self.drop_path(self.mlp(self.norm2(x)))
+        with span("swin.attn"):
+            shortcut = x
+            h = self.norm1(x)
+            pd, ph, pw = (-D) % ws[0], (-H) % ws[1], (-W) % ws[2]
+            h = F.pad(h, (0, 0, 0, pw, 0, ph, 0, pd))
+            _, Dp, Hp, Wp, _ = h.shape
+            mask = None
+            if shifted:
+                h = torch.roll(h, (-ss[0], -ss[1], -ss[2]), dims=(1, 2, 3))
+                mask = _shift_mask((Dp, Hp, Wp), ws, ss, h.device)
+            h = self.attn(window_partition(h, ws), mask)
+            h = window_reverse(h, ws, B, Dp, Hp, Wp)
+            if shifted:
+                h = torch.roll(h, ss, dims=(1, 2, 3))
+            if pd or ph or pw:
+                h = h[:, :D, :H, :W]
+            x = shortcut + self.drop_path(h)
+        with span("swin.mlp"):
+            return x + self.drop_path(self.mlp(self.norm2(x)))
 
 
 class PatchMerging(nn.Module):
@@ -458,16 +461,22 @@ class SwinNet3D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         e = x.shape[1]
-        h = torch.cat([x.real, x.imag], dim=1)      # [N, 2E, T, Y, X]
-        h = circular_pad_time(h, self.pad)
-        h = self.sfe(h)
+        with span("trunk.sfe"):
+            h = torch.cat([x.real, x.imag], dim=1)      # [N, 2E, T, Y, X]
+            h = circular_pad_time(h, self.pad)
+            h = self.sfe(h)
         dfe_in = h
         for trunk, conv in zip(self.trunks, self.convs):
             blk_in = h
-            h = trunk(h.permute(0, 2, 3, 4, 1)).permute(0, 4, 1, 2, 3)
-            h = conv(h) + blk_in
-        h = self.dfe_conv(h)
-        h = h + dfe_in
-        h = dfe_in + h          # the reference's extra skip
-        h = crop_time(self.out_conv(h), self.pad)
-        return torch.complex(h[:, :e].contiguous(), h[:, e:].contiguous())
+            with span("trunk.swin"):
+                h = trunk(h.permute(0, 2, 3, 4, 1)).permute(0, 4, 1, 2, 3)
+            with span("trunk.conv"):
+                h = conv(h) + blk_in
+        with span("trunk.dfe_conv"):
+            h = self.dfe_conv(h)
+            h = h + dfe_in
+            h = dfe_in + h          # the reference's extra skip
+        with span("trunk.out_conv"):
+            h = crop_time(self.out_conv(h), self.pad)
+            return torch.complex(h[:, :e].contiguous(),
+                                 h[:, e:].contiguous())

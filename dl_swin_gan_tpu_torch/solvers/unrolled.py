@@ -26,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 
 from dl_swin_gan_tpu_torch.ops.cg import conjugate_gradient
 from dl_swin_gan_tpu_torch.ops.sense import SenseOp
+from dl_swin_gan_tpu_torch.utils.tracing import span
 
 DC_MODES = ("pgd", "hqs", "dc", "none")
 
@@ -100,19 +101,23 @@ class UnrolledSolver(nn.Module):
 
     def _denoise(self, i: int, x: torch.Tensor) -> torch.Tensor:
         net = self.nets[0 if self.share_weights else i]
-        if self.remat and torch.is_grad_enabled():
-            return _checkpoint_replaying_dropout(net, x)
-        return net(x)
+        with span("solver.denoise"):
+            if self.remat and torch.is_grad_enabled():
+                return _checkpoint_replaying_dropout(net, x)
+            return net(x)
 
     def forward(self, y, maps, mask, x0: Optional[torch.Tensor] = None):
-        A = SenseOp(maps, mask)
-        ATy = A(y, adjoint=True)
-        x = ATy if x0 is None else x0
+        with span("solver.init"):
+            A = SenseOp(maps, mask)
+            ATy = A(y, adjoint=True)
+            x = ATy if x0 is None else x0
         if self.dc_mode == "pgd":
             eta = self._scalar(self.step_size)
             for i in range(self.num_unrolls):
-                x = x + eta * (A.normal(x) - ATy)
-                x = self._denoise(i, x)
+                with span("solver.unroll"):
+                    with span("solver.dc"):
+                        x = x + eta * (A.normal(x) - ATy)
+                    x = self._denoise(i, x)
         elif self.dc_mode == "hqs":
             mu = self._scalar(self.lamda)
 
@@ -120,18 +125,24 @@ class UnrolledSolver(nn.Module):
                 return A.normal(m) + mu * m
 
             for i in range(self.num_unrolls):
-                z = self._denoise(i, x)
-                x = conjugate_gradient(normal, x, ATy + mu * z,
-                                       self.num_cg_steps, self.batch_group)
+                with span("solver.unroll"):
+                    z = self._denoise(i, x)
+                    with span("solver.dc"):
+                        x = conjugate_gradient(normal, x, ATy + mu * z,
+                                               self.num_cg_steps,
+                                               self.batch_group)
         elif self.dc_mode == "dc":
             unacquired = SenseOp(maps, 1.0 - mask)
             full = SenseOp(maps, None)
             for i in range(self.num_unrolls):
-                x = self._denoise(i, x)
-                x = full(unacquired(x) + y, adjoint=True)
+                with span("solver.unroll"):
+                    x = self._denoise(i, x)
+                    with span("solver.dc"):
+                        x = full(unacquired(x) + y, adjoint=True)
         else:
             for i in range(self.num_unrolls):
-                x = self._denoise(i, x)
+                with span("solver.unroll"):
+                    x = self._denoise(i, x)
         return x
 
 

@@ -22,6 +22,7 @@ DATALOADER.DEVICE_PIPELINE at one example per rank, a dict of tensors that
 state in place.
 """
 
+import contextlib
 import json
 import logging
 import os
@@ -50,6 +51,7 @@ from dl_swin_gan_tpu_torch.train.train_state import (
     make_optimizer,
 )
 from dl_swin_gan_tpu_torch.utils.device import resolve_device, use_ieee_fp32
+from dl_swin_gan_tpu_torch.utils.tracing import phase, span
 
 logger = logging.getLogger(__name__)
 
@@ -145,12 +147,36 @@ class MetricsWriter:
             self._tb.close()
 
 
+class _StepRate:
+    """Train steps per second between two logs: `steps` counted by the
+    loop, over the host time since the last `take` less the time spent
+    inside `paused()`."""
+
+    def __init__(self):
+        self.steps, self.t0, self.idle = 0, time.perf_counter(), 0.0
+
+    @contextlib.contextmanager
+    def paused(self):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.idle += time.perf_counter() - t0
+
+    def take(self) -> float:
+        now = time.perf_counter()
+        rate = self.steps / max(now - self.t0 - self.idle, 1e-9)
+        self.steps, self.t0, self.idle = 0, now, 0.0
+        return rate
+
+
 class Trainer:
     """Config-driven trainer for unrolled reconstruction models."""
 
     # the loader's arrays a step copies to the device
     batch_keys = ("kspace", "maps", "mask", "init_image", "scale", "target")
 
+    @phase("trainer.construct")
     def __init__(self, cfg, device=None, use_ema: bool = False,
                  ema_decay: float = 0.9999, draw_seed: Optional[int] = None,
                  mesh=None):
@@ -278,6 +304,7 @@ class Trainer:
         return False
 
     # -- state ---------------------------------------------------------------
+    @phase("trainer.init_state")
     def init_state(self, seed: Optional[int] = None,
                    state_dict: Optional[dict] = None) -> TrainState:
         """A fresh train state on the trainer's device: the solver with
@@ -380,21 +407,27 @@ class Trainer:
         the metrics are its means over every rank."""
         model = state.model.train()
         self._set_batch_group(model, True)
-        b = self._to_device(shard_batch(batch, self.mesh))
+        with span("trainer.to_device"):
+            b = self._to_device(shard_batch(batch, self.mesh))
         self.dropout_generator.manual_seed(
             dropout_seed(self.cfg.SEED + 17, state.step))
         if state.step % self.accum == 0:
             state.optimizer.zero_grad(set_to_none=True)
-        pred = self._apply(model, b)
-        metrics = self._metrics(pred, b, "Train", sharded=True)
-        select_loss(metrics, self.loss_name, "Train").backward()
+        with span("trainer.forward"):
+            pred = self._apply(model, b)
+        with span("trainer.loss"):
+            metrics = self._metrics(pred, b, "Train", sharded=True)
+        with span("trainer.backward"):
+            select_loss(metrics, self.loss_name, "Train").backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics.update(self._extra_metrics(model))
 
-        self._update(model.parameters(), state.optimizer, self.lr_schedule,
-                     state.step)
+        with span("trainer.optimizer"):
+            self._update(model.parameters(), state.optimizer,
+                         self.lr_schedule, state.step)
         if self.use_ema:
-            ema_update(state.ema, model, self.ema_decay)
+            with span("trainer.ema"):
+                ema_update(state.ema, model, self.ema_decay)
         state.step += 1
         return metrics
 
@@ -507,32 +540,39 @@ class Trainer:
         log_every = cfg.LOGGER.LOG_METRICS_EVERY_N_STEPS
         ckpt_every = cfg.EVAL.CKPT_EVERY_N_STEPS
         profiler = self._start_profile()
-        t_start, steps_done = time.perf_counter(), 0
+        # Train/steps_per_sec: the steps since the last log over their time,
+        # less what the loop spent in other work (the trace's export, image
+        # logging, checkpoints, validation)
+        rate = _StepRate()
+        steps_done = 0
         for epoch in range(start_epoch, max_epochs):
             for batch in train_loader:
                 batch = self._fit_batch(batch)
                 metrics = self.train_step(state, batch)
                 steps_done += 1
+                rate.steps += 1
                 step = state.step
-                if profiler is not None and steps_done == PROFILE_STEPS:
-                    self._stop_profile(profiler)
-                    profiler = None
-                self._log_images(writer, state, batch)
+                with rate.paused():
+                    if profiler is not None and steps_done == PROFILE_STEPS:
+                        self._stop_profile(profiler)
+                        profiler = None
+                    self._log_images(writer, state, batch)
                 if log_every and step % log_every == 0 and writer:
                     m = {k: float(v) for k, v in metrics.items()}
-                    m["Train/steps_per_sec"] = (
-                        steps_done / (time.perf_counter() - t_start))
+                    m["Train/steps_per_sec"] = rate.take()
                     writer.scalars(step, m)
                     logger.info("epoch %d step %d %s=%.5f (%.2f it/s)", epoch,
                                 step, self.train_metric,
                                 m[self.train_metric],
                                 m["Train/steps_per_sec"])
                 if ckpt_every and step % ckpt_every == 0:
-                    ckpt.save(step, state)
+                    with rate.paused():
+                        ckpt.save(step, state)
 
             if val_loader and (epoch + 1) % cfg.EVAL.RUN_EVERY_N_EPOCHS == 0:
-                val_metrics = self.validate(state, val_loader, writer)
-                ckpt.save(state.step, state, metrics=val_metrics)
+                with rate.paused():
+                    val_metrics = self.validate(state, val_loader, writer)
+                    ckpt.save(state.step, state, metrics=val_metrics)
 
         if profiler is not None:        # fewer than PROFILE_STEPS steps
             self._stop_profile(profiler)

@@ -219,7 +219,8 @@ def test_logging_leaves_the_diffusion_trajectory(tmp_path, monkeypatch):
 
 def test_profile_trace(tmp_path, monkeypatch):
     """DL_SWIN_GAN_PROFILE=<dir>: a 12-step fit writes a Chrome trace of
-    its first 10 steps there."""
+    its first 10 steps there, holding the port's spans (utils/tracing.py)
+    of every one of them."""
     cfg, _ = _cfgs(False)
     cfg.LOGGER.LOG_IMAGES_EVERY_N_STEPS = 0
     cfg.OUTPUT_DIR = str(tmp_path / "out")
@@ -230,3 +231,11 @@ def test_profile_trace(tmp_path, monkeypatch):
     trace = json.loads((tmp_path / "trace" / "trace_rank0.json").read_text())
     names = [e.get("name", "") for e in trace["traceEvents"]]
     assert any("conv" in n for n in names)
+    spans = [e["name"] for e in trace["traceEvents"]
+             if e.get("cat") == "user_annotation"]
+    for name in ("trainer.to_device", "trainer.forward", "trainer.loss",
+                 "trainer.backward", "trainer.optimizer", "solver.init"):
+        assert spans.count(name) == 10, name
+    for name in ("solver.unroll", "solver.dc", "solver.denoise",
+                 "trunk.head", "trunk.tail"):
+        assert spans.count(name) == 10 * 2, name      # 2 unrolls a step
